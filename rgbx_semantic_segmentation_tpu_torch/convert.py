@@ -14,6 +14,10 @@ module:
                                        zero num_batches_tracked
   - a path segment `a_b_<digits>`   -> `a_b.<digits>`
 
+`flax_params_to_torch` applies the same transform to any tree shaped like
+`params` (gradients, updated parameters). BatchNorm running statistics
+travel both ways: here as above, and back through the function below.
+
 The other direction needs no port code: rgbx_semantic_segmentation_tpu.
 convert.torch_to_flax_variables takes a port state_dict as it is.
 """
@@ -74,3 +78,10 @@ def flax_to_torch_state_dict(variables: Mapping[str, Any]
                 out[f"{prefix}.num_batches_tracked"] = torch.tensor(
                     0, dtype=torch.long)
     return out
+
+
+def flax_params_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `params`-shaped tree (parameters, their gradients or an
+    optimizer moment) laid out in the port's key space, so that gradients
+    and updated parameters of the two packages compare by name."""
+    return flax_to_torch_state_dict({"params": params})

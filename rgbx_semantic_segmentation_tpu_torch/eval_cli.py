@@ -27,10 +27,10 @@ def main(argv=None):
 
     import torch
 
-    from rgbx_semantic_segmentation_tpu.data.dataset import RGBXDataset
-    from rgbx_semantic_segmentation_tpu.logger import get_logger
     from rgbx_semantic_segmentation_tpu_torch.config import get_config
+    from rgbx_semantic_segmentation_tpu_torch.data.dataset import RGBXDataset
     from rgbx_semantic_segmentation_tpu_torch.evaluator import SegEvaluator
+    from rgbx_semantic_segmentation_tpu_torch.logger import get_logger
     from rgbx_semantic_segmentation_tpu_torch.models.builder import build_model
 
     try:

@@ -18,17 +18,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from rgbx_semantic_segmentation_tpu.data import cv_ops
 from rgbx_semantic_segmentation_tpu_torch import metrics as metrics_lib
 from rgbx_semantic_segmentation_tpu_torch.config import Config
+from rgbx_semantic_segmentation_tpu_torch.data import cv_ops
+from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
 
 _M6 = "ROADMAP M6 (sliding window, multi-scale, flip)"
 
 
 class SegEvaluator:
-    """Dataset evaluator over a port model (EncoderDecoder) on `device`."""
+    """Dataset evaluator over a port model (EncoderDecoder) on `device`
+    (None: the card; see device.resolve_device)."""
 
-    def __init__(self, cfg: Config, model: nn.Module, device="cpu",
+    def __init__(self, cfg: Config, model: nn.Module, device=None,
                  class_names: Optional[Sequence[str]] = None):
         self.cfg = cfg
         self.crop = tuple(cfg.eval.eval_crop_size)
@@ -42,17 +44,17 @@ class SegEvaluator:
         self.norm_std = cfg.dataset.norm_std
         self.class_names = class_names or list(cfg.dataset.class_names)
         self.model = model
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     # ---------------------------------------------------------------- core --
 
-    def _normalize_pair(self, img: np.ndarray, modal_x: np.ndarray):
+    def prepare(self, img: np.ndarray, modal_x: np.ndarray):
+        """One raw pair as the model takes it: modal_x replicated to three
+        channels when it has one, both normalised to fp32 on the host."""
+        if modal_x.ndim == 2:
+            modal_x = np.stack([modal_x] * 3, axis=-1)
         return (cv_ops.normalize(img, self.norm_mean, self.norm_std),
                 cv_ops.normalize(modal_x, self.norm_mean, self.norm_std))
-
-    @staticmethod
-    def _three_channel(modal_x: np.ndarray) -> np.ndarray:
-        return np.stack([modal_x] * 3, axis=-1) if modal_x.ndim == 2 else modal_x
 
     @torch.no_grad()
     def _fwd(self, rgb: np.ndarray, modal_x: np.ndarray) -> torch.Tensor:
@@ -74,8 +76,7 @@ class SegEvaluator:
         At exact fit (the MFNet case) nothing is padded or cropped."""
         rgbs, mxs, margin = [], [], None
         for item in group:
-            img_n, mx_n = self._normalize_pair(
-                item["rgb"], self._three_channel(item["modal_x"]))
+            img_n, mx_n = self.prepare(item["rgb"], item["modal_x"])
             img_p, margin = cv_ops.pad_to_shape(img_n, self.crop, value=0)
             mx_p, _ = cv_ops.pad_to_shape(mx_n, self.crop, value=0)
             rgbs.append(img_p)

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from rgbx_semantic_segmentation_tpu_torch.config import Config, torch_dtype
+from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
 from rgbx_semantic_segmentation_tpu_torch.models.decoders.mlp_decoder import (
     MLPDecoder)
 from rgbx_semantic_segmentation_tpu_torch.models.encoders import dual_segformer
@@ -45,6 +46,10 @@ _LATER_DECODERS = {
 
 def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
     name = cfg.model.backbone
+    if cfg.model.remat:
+        raise NotImplementedError(
+            "ModelConfig.remat (activation checkpointing) is not ported "
+            "yet: ROADMAP M5 rest")
     if name not in MIT_FACTORIES:
         for key, item in _LATER_BACKBONES.items():
             if key in name:
@@ -102,11 +107,13 @@ class EncoderDecoder(nn.Module):
         return logits.permute(0, 2, 3, 1)
 
 
-def build_model(cfg: Config, device="cpu", seed: Optional[int] = 0
+def build_model(cfg: Config, device=None, seed: Optional[int] = 0
                 ) -> EncoderDecoder:
-    """The model on `device` in eval mode. With a seed, weights are
+    """The model on `device` (None: the card; see device.resolve_device) in
+    eval mode. With a seed, weights are
     initialised from torch.Generator(seed) (see ops/layers.init_weights);
     with seed=None they are left unset, for a state dict to be loaded."""
+    device = resolve_device(device)
     with torch.device("meta"):
         model = EncoderDecoder(cfg)
     model.to_empty(device="cpu")

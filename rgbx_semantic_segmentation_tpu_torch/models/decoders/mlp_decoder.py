@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
-    map_to_tokens, tokens_to_map)
+    Dropout2d, map_to_tokens, tokens_to_map)
 from rgbx_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -63,7 +63,7 @@ class MLPDecoder(nn.Module):
             nn.Conv2d(embed_dim * 4, embed_dim, 1),
             nn.BatchNorm2d(embed_dim, eps=bn_eps, momentum=bn_momentum),
             nn.ReLU())
-        self.dropout = nn.Dropout2d(dropout_ratio)
+        self.dropout = Dropout2d(dropout_ratio)
         self.linear_pred = nn.Conv2d(embed_dim, num_classes, 1)
 
     def forward(self, inputs: Sequence[torch.Tensor]):

@@ -25,7 +25,7 @@ from rgbx_semantic_segmentation_tpu_torch.models import fusion
 from rgbx_semantic_segmentation_tpu_torch.ops.attention import (
     multi_head_attention)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
-    DropPath, map_to_tokens, tokens_to_map)
+    DropPath, Dropout, map_to_tokens, tokens_to_map)
 
 LN_EPS = 1e-6  # MiT LayerNorms (original repo partial(nn.LayerNorm, eps=1e-6))
 
@@ -51,7 +51,7 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.dwconv = DWConv(hidden_features)
         self.fc2 = nn.Linear(hidden_features, in_features)
-        self.drop = nn.Dropout(drop)
+        self.drop = Dropout(drop)
         self.gelu = "tanh" if gelu_approximate else "none"
 
     def forward(self, x, H: int, W: int):
@@ -80,7 +80,8 @@ class Attention(nn.Module):
         self.q = nn.Linear(dim, dim, bias=qkv_bias)
         self.kv = nn.Linear(dim, dim * 2, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
+        self.attn_dropout = Dropout(attn_drop)
         if sr_ratio > 1:
             self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
             self.norm = nn.LayerNorm(dim, eps=LN_EPS)
@@ -96,14 +97,29 @@ class Attention(nn.Module):
         else:
             xk = x
         M = xk.shape[1]
-        kv = self.kv(xk).reshape(B, M, 2, h, d)
-        k = kv[:, :, 0].transpose(1, 2)
-        v = kv[:, :, 1].transpose(1, 2)
+        # unbind, not two selects: its backward is one stack of dk and dv,
+        # which the kernel's backward already writes side by side.
+        k, v = (t.transpose(1, 2)
+                for t in self.kv(xk).reshape(B, M, 2, h, d).unbind(2))
         if self.attn_drop > 0.0 and self.training:
-            raise NotImplementedError(
-                "attention dropout in training: ROADMAP M5 (train step)")
-        out = self._attend(q, k, v, scale)
+            out = self._attend_with_dropout(q, k, v, scale)
+        else:
+            out = self._attend(q, k, v, scale)
         return self.proj_drop(self.proj(out))
+
+    def _attend_with_dropout(self, q, k, v, scale):
+        """attn_drop sits between the softmax and p @ v, so a non-zero
+        training rate takes the plain path with dropout on the fp32 probs
+        (as the JAX module does; the kernels never hold the probs in device
+        memory). Autograd differentiates it as written."""
+        B, h, N, d = q.shape
+        # Autocast off and explicit upcasts, as in sr_attention_reference:
+        # fp32 logits and softmax, probs in v's dtype, fp32 accumulation.
+        with torch.autocast(q.device.type, enabled=False):
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+            probs = self.attn_dropout(torch.softmax(logits, dim=-1))
+            out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+        return out.transpose(1, 2).reshape(B, N, h * d)
 
     def _attend(self, q, k, v, scale):
         """The attention middle: the kernel where the JAX package used its

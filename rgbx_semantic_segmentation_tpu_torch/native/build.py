@@ -5,9 +5,10 @@ Usage:
 
 Each `csrc/<name>.cu` is compiled by nvcc for Hopper (sm_90a) into a shared
 library with a plain C interface, under `_build/` in this package (listed in
-.gitignore). The file name carries a hash of the source and the flags, so a
-changed source builds anew at its first use and an unchanged one is loaded
-as it is. nvcc's report (`-Xptxas=-v`: registers, shared memory, spills)
+.gitignore). The file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so a changed source builds anew at its first
+use and an unchanged one is loaded as it is. `build_all` compiles every
+source at once, one nvcc process each. nvcc's report (`-Xptxas=-v`: registers, shared memory, spills)
 is kept beside the library as `<library>.log`.
 
 The counterpart of rgbx_semantic_segmentation_tpu/native/build.py, which
@@ -15,6 +16,7 @@ builds the host-side C++ image ops.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -42,10 +44,16 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def kernel_names() -> list:
+    return sorted(n[:-3] for n in os.listdir(CSRC_DIR) if n.endswith(".cu"))
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fn in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fn), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -66,6 +74,14 @@ def build(name: str) -> str:
     return out
 
 
+def build_all() -> dict:
+    """Compile every csrc/*.cu that is not built yet, all nvcc processes
+    started together; returns {name: library path}."""
+    names = kernel_names()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (at first use) and load csrc/<name>.cu; one handle per process."""
@@ -73,8 +89,6 @@ def load(name: str) -> ctypes.CDLL:
 
 
 if __name__ == "__main__":
-    for src in sorted(os.listdir(CSRC_DIR)):
-        if src.endswith(".cu"):
-            path = build(src[:-3])
-            print(f"built {path}")
+    for path in build_all().values():
+        print(f"built {path}")
     sys.exit(0)

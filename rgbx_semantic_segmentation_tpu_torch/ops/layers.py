@@ -1,4 +1,5 @@
-"""Shared layer primitives: initializers, DropPath, token/map reshapes.
+"""Shared layer primitives: initializers, DropPath, Dropout, token/map
+reshapes.
 
 Counterpart of rgbx_semantic_segmentation_tpu/ops/layers.py. The layers
 themselves are torch's own: nn.Linear, nn.Conv2d with torch's symmetric
@@ -12,10 +13,17 @@ Initialization follows the JAX package (which follows the original repo's
 Conv2d = normal(0, sqrt(2 / fan_out)), fan_out = kh * kw * out / groups,
 with zero bias; norms = ones / zeros. `init_weights` applies it to a whole
 model from an explicit torch.Generator.
+
+Randomness in training is explicit too: DropPath and Dropout draw their
+masks from the torch.Generator in their `generator` attribute, which
+`set_generator` hands to every such module of a model (the trainer reseeds
+it from (seed, step) before each step). With no generator set they draw
+from torch's global one on their input's device.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -63,19 +71,60 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-class DropPath(nn.Module):
-    """Stochastic depth: the identity at eval (and at rate 0). Dropping
-    residual branches in training comes with the train step."""
+class _Stochastic(nn.Module):
+    """A module that draws a keep mask in training."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"drop rate {rate} outside [0, 1)")
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        raise NotImplementedError
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "drop path in training: ROADMAP M5 (train step)")
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand(self._mask_shape(x), device=x.device,
+                       generator=self.generator)
+        return x * ((u < keep).to(x.dtype) / keep)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
+class DropPath(_Stochastic):
+    """Stochastic depth: drops the whole residual branch per sample in
+    training, kept samples scaled by 1 / keep; the identity at eval and at
+    rate 0."""
+
+    def _mask_shape(self, x):
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
+
+
+class Dropout(_Stochastic):
+    """Elementwise dropout from the explicit generator."""
+
+    def _mask_shape(self, x):
+        return tuple(x.shape)
+
+
+class Dropout2d(_Stochastic):
+    """Drops whole channel maps of an NCHW tensor (torch Dropout2d)."""
+
+    def _mask_shape(self, x):
+        return tuple(x.shape[:2]) + (1, 1)
+
+
+def set_generator(model: nn.Module,
+                  generator: Optional[torch.Generator]) -> None:
+    """Hand `generator` to every DropPath / Dropout / Dropout2d of `model`."""
+    for m in model.modules():
+        if isinstance(m, _Stochastic):
+            m.generator = generator
 
 
 def tokens_to_map(x: torch.Tensor, H: int, W: int) -> torch.Tensor:

@@ -1,30 +1,36 @@
-"""Short-kv SR-attention forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Short-kv SR-attention, forward and backward: the hand-written CUDA
+kernels and their plain PyTorch versions.
 
 Every attention of the MiT encoder is short-kv: the spatial-reduction conv
 shrinks k/v to M = N / r^2 tokens, and all four mit_b2 stages at 480x640 land
-on M = 300 (N = 19200 / 4800 / 1200 / 300, d = 64). The kernel
+on M = 300 (N = 19200 / 4800 / 1200 / 300, d = 64). The forward kernel
 (csrc/sr_attention_fwd.cu, the port of the TPU kernel
 rgbx_semantic_segmentation_tpu/ops/sr_attention.py `_fwd_kernel`) keeps k
 and v of a (batch*head) slice in shared memory and the fp32 logits of its
-current q rows on chip (registers on the bf16 tensor-core path, shared
-memory on the scalar path), so no (N, M) tensor reaches device memory.
+current q rows on chip, so no (N, M) tensor reaches device memory. The
+backward kernel (csrc/sr_attention_bwd.cu, the port of `_bwd_kernel`)
+recomputes the probs from q and k, so the residual of an attention is
+(q, k, v) only.
 
-Device rule of `sr_attention`: a CPU tensor takes the plain version
-(`sr_attention_reference`); a CUDA tensor launches the kernel or raises.
-There is no fallback from the kernel to the plain version.
+`sr_attention` is differentiable (a torch.autograd.Function, the counterpart
+of the JAX `_sr_attention_3d` custom VJP). Device rule of the forward and of
+the backward: a CPU tensor takes the plain version (`sr_attention_reference`,
+`sr_attention_bwd_reference`); a CUDA tensor launches the kernel or raises.
+There is no fallback from a kernel to its plain version.
 
-The kernel reads q, k and v where they lie (any batch, head and row strides;
-the head dim unit-stride) and writes its output as a (B, h, N, d) view of a
-(B, N, h, d) buffer, so the model's head split of its (B, N, h*d) tokens and
-the merge back cost no copy.
+The kernels read q, k, v and the cotangent where they lie (any batch, head
+and row strides; the head dim unit-stride). The forward writes its output as
+a (B, h, N, d) view of a (B, N, h, d) buffer, the backward writes dq the same
+way and dk, dv as the two halves of one (B, M, 2, h, d) buffer, so the
+model's head split of its (B, N, h*d) q tokens and (B, M, 2*h*d) kv tokens,
+the merge back, and their gradients cost no copy around the kernels.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import functools
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -35,6 +41,8 @@ MAX_D = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (batch, head, row) element strides of q, k, v and out.
 _Strides = ctypes.c_longlong * 12
+# ... of q, k, v, g, dq, dk and dv.
+_BwdStrides = ctypes.c_longlong * 21
 
 
 def _round_up(x: int, m: int) -> int:
@@ -63,6 +71,33 @@ def sr_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.matmul(probs.float(), v.float()).to(v.dtype)
 
 
+def sr_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, g: torch.Tensor, scale: float
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain version of the backward kernel, the numerics of the TPU
+    `_bwd_kernel`: probs recomputed in fp32 from q and k; dv = p^T g with p
+    rounded to the input dtype; the softmax backward
+    dl = (dp - rowsum(dp * pf)) * pf * scale with the UNROUNDED fp32 pf,
+    rounded to the input dtype before dq = dl k and dk = dl^T q; every
+    product accumulated in fp32; g cast to q's dtype first. Returns
+    (dq, dk, dv) in the input dtype."""
+    dt = q.dtype
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf = q.float(), k.float(), v.float()
+        gf = g.to(dt).float()
+        logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        pf = torch.softmax(logits, dim=-1)
+        p = pf.to(dt).float()
+        dv = torch.matmul(p.transpose(-1, -2), gf).to(dt)
+        dp = torch.matmul(gf, vf.transpose(-1, -2))
+        dl = ((dp - (dp * pf).sum(-1, keepdim=True)) * pf * scale)
+        dl = dl.to(dt).float()
+        dq = torch.matmul(dl, kf).to(dt)
+        dk = torch.matmul(dl.transpose(-1, -2), qf).to(dt)
+    return dq, dk, dv
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     from rgbx_semantic_segmentation_tpu_torch.native import build
@@ -75,6 +110,22 @@ def _kernel():
     lib.sr_attention_fwd.restype = i
     lib.sr_attention_fwd_error_string.argtypes = [i]
     lib.sr_attention_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    from rgbx_semantic_segmentation_tpu_torch.native import build
+
+    lib = build.load("sr_attention_bwd")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.sr_attention_bwd.argtypes = [vp] * 9 + [i] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, vp]
+    lib.sr_attention_bwd.restype = i
+    lib.sr_attention_bwd_splits.argtypes = [i] * 7
+    lib.sr_attention_bwd_splits.restype = i
+    lib.sr_attention_bwd_error_string.argtypes = [i]
+    lib.sr_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -93,31 +144,38 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{v.dtype}")
 
 
-def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 scale: float) -> torch.Tensor:
-    """Short-kv attention forward. q: (B, h, N, d); k, v: (B, h, M, d) ->
-    (B, h, N, d) in q's dtype.
+def _check_kernel_inputs(name: str, q, k, v) -> None:
+    """What the CUDA kernels take; raises on anything else."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} kernel takes bfloat16 or float32, "
+                        f"got {q.dtype}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError(f"{name} kernel takes q, k, v with a contiguous "
+                         "head dim (stride 1 along d)")
+    if not supported(q.shape, k.shape):
+        raise ValueError(f"{name} kernel does not take q {tuple(q.shape)}"
+                         f", k {tuple(k.shape)} (d <= {MAX_D}, "
+                         f"M <= {MAX_M_PAD})")
 
-    CPU tensors: the plain version. CUDA tensors: the CUDA kernel, which
-    takes bf16 or fp32 tensors with a unit-stride head dim and
-    supported(q.shape, k.shape); anything else raises. On the kernel path the
-    output is a (B, h, N, d) view of a (B, N, h, d) buffer.
-    `sr_attention.launches` counts kernel launches."""
+
+def _on_device(t: torch.Tensor):
+    """The C side launches on the current device: switch only when `t` is
+    elsewhere."""
+    if t.device.index != torch.cuda.current_device():
+        return torch.cuda.device(t.device)
+    return contextlib.nullcontext()
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             scale: float) -> torch.Tensor:
+    """The forward without autograd: plain version on the CPU, kernel on
+    CUDA."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return sr_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"sr_attention: no kernel for device {q.device}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"sr_attention kernel takes bfloat16 or float32, "
-                        f"got {q.dtype}")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("sr_attention kernel takes q, k, v with a contiguous "
-                         "head dim (stride 1 along d)")
-    if not supported(q.shape, k.shape):
-        raise ValueError(f"sr_attention kernel does not take q {tuple(q.shape)}"
-                         f", k {tuple(k.shape)} (d <= {MAX_D}, "
-                         f"M <= {MAX_M_PAD})")
+    _check_kernel_inputs("sr_attention", q, k, v)
     B, h, N, d = q.shape
     M = k.shape[2]
     out = torch.empty(B, N, h, d, dtype=q.dtype,
@@ -125,12 +183,7 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = _Strides(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                        *out.stride()[:3])
     lib = _kernel()
-    # The C side launches on the current device: switch only when q is
-    # elsewhere.
-    switch = (torch.cuda.device(q.device)
-              if q.device.index != torch.cuda.current_device()
-              else contextlib.nullcontext())
-    with switch:
+    with _on_device(q):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.sr_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   out.data_ptr(), B, h, N, M, d, strides,
@@ -140,6 +193,102 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"sr_attention_fwd launch failed ({rc}): {msg}")
     sr_attention.launches += 1
     return out
+
+
+def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     g: torch.Tensor, scale: float, max_splits: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Short-kv attention backward: (dq, dk, dv) from the residual (q, k, v)
+    and the output's cotangent g (B, h, N, d), cast to q's dtype.
+
+    CPU tensors: the plain version. CUDA tensors: the CUDA kernel, under the
+    forward's conditions (g too needs a unit-stride head dim); anything else
+    raises. On the kernel path dq is a (B, h, N, d) view of a (B, N, h, d)
+    buffer and dk, dv are views of one (B, M, 2, h, d) buffer: the layouts
+    of the q and kv projections' outputs. `max_splits` > 0 caps the shares
+    into which the kernel cuts a slice's q rows for dk and dv (for
+    measuring that choice; 0 lets the kernel plan them).
+    `sr_attention_bwd.launches` counts kernel launches."""
+    _check(q, k, v)
+    if g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"sr_attention_bwd: cotangent {tuple(g.shape)} on "
+                         f"{g.device} for q {tuple(q.shape)} on {q.device}")
+    g = g.to(q.dtype)
+    if q.device.type == "cpu":
+        return sr_attention_bwd_reference(q, k, v, g, scale)
+    _check_kernel_inputs("sr_attention_bwd", q, k, v)
+    if g.stride(3) != 1:
+        g = g.contiguous()
+    B, h, N, d = q.shape
+    M = k.shape[2]
+    code = _DTYPE_CODES[q.dtype]
+    lib = _bwd_kernel()
+    with _on_device(q):
+        splits = lib.sr_attention_bwd_splits(B, h, N, M, d, code,
+                                             max_splits)
+        if splits <= 0:
+            msg = lib.sr_attention_bwd_error_string(-splits).decode()
+            raise RuntimeError(f"sr_attention_bwd plan failed ({-splits}): "
+                               f"{msg}")
+        dq = torch.empty(B, N, h, d, dtype=q.dtype,
+                         device=q.device).transpose(1, 2)
+        dkv = torch.empty(B, M, 2, h, d, dtype=q.dtype, device=q.device)
+        dk, dv = dkv[:, :, 0].transpose(1, 2), dkv[:, :, 1].transpose(1, 2)
+        # Row statistics and the per-split fp32 partials of dk and dv.
+        stats = torch.empty(B * h * N * 4, dtype=torch.float32,
+                            device=q.device)
+        partials = torch.empty(2 * B * h * splits * M * d,
+                               dtype=torch.float32, device=q.device)
+        strides = _BwdStrides(*(s for t in (q, k, v, g, dq, dk, dv)
+                                for s in t.stride()[:3]))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.sr_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            partials.data_ptr(), B, h, N, M, d, strides, float(scale), code,
+            max_splits, stream)
+    if rc != 0:
+        msg = lib.sr_attention_bwd_error_string(rc).decode()
+        raise RuntimeError(f"sr_attention_bwd launch failed ({rc}): {msg}")
+    sr_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+sr_attention_bwd.launches = 0
+
+
+class _SRAttention(torch.autograd.Function):
+    """Residual (q, k, v) only, as the JAX `_sr_fwd` / `_sr_bwd`. Inputs
+    arrive in the compute dtype (the projections run under autocast); the
+    backward casts the cotangent to it and runs outside autocast."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = sr_attention_bwd(q, k, v, g, ctx.scale)
+        return dq, dk, dv, None
+
+
+def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """Short-kv attention. q: (B, h, N, d); k, v: (B, h, M, d) ->
+    (B, h, N, d) in q's dtype; differentiable (backward: sr_attention_bwd).
+
+    CPU tensors: the plain versions. CUDA tensors: the CUDA kernels, which
+    take bf16 or fp32 tensors with a unit-stride head dim and
+    supported(q.shape, k.shape); anything else raises, in the forward. On
+    the kernel path the output is a (B, h, N, d) view of a (B, N, h, d)
+    buffer. `sr_attention.launches` counts forward kernel launches."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _SRAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
 
 
 sr_attention.launches = 0

@@ -48,9 +48,9 @@ def setup(tmp_path_factory):
     var = random_variables(lambda: jmod.init(jax.random.PRNGKey(0), x, x),
                            seed=7)
     jev = JaxEvaluator(cfg, lambda v, r, m, train: jmod.apply(v, r, m, train))
-    model = build_model(cfg, seed=None)
+    model = build_model(cfg, device="cpu", seed=None)
     model.load_state_dict(flax_to_torch_state_dict(var), strict=True)
-    return cfg, dataset, var, jev, SegEvaluator(cfg, model)
+    return cfg, dataset, var, jev, SegEvaluator(cfg, model, device="cpu")
 
 
 @pytest.mark.parametrize("with_weights", [True, False])
@@ -69,8 +69,8 @@ def test_eval_cli_main(setup, tmp_path, monkeypatch, capsys, with_weights):
         argv += ["--weights", str(weights)]
         model = tev.model
     else:
-        model = build_model(cfg, seed=0)
-    _, want = SegEvaluator(cfg, model).evaluate(
+        model = build_model(cfg, device="cpu", seed=0)
+    _, want = SegEvaluator(cfg, model, device="cpu").evaluate(
         RGBXDataset(cfg.dataset, "val"), eval_batch=4)
     eval_cli.main(argv)
     printed = capsys.readouterr().out.strip().splitlines()
@@ -129,7 +129,7 @@ def test_unported_protocols_raise(setup):
     cfg, dataset, _, _, tev = setup
     with pytest.raises(NotImplementedError, match="M6"):
         SegEvaluator(cfg.replace(eval=EvalConfig(eval_scale_array=(0.75, 1.0))),
-                     tev.model)
+                     tev.model, device="cpu")
     with pytest.raises(NotImplementedError, match="M6"):
         big = np.zeros((96, 96, 3), np.uint8)
         tev.sliding_eval_rgbx(big, big)

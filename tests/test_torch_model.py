@@ -55,7 +55,7 @@ def test_whole_model_matches_jax(backbone):
     rgb, mx = _pair(1)
     jmod, var = _jax_model_and_vars(cfg, rgb, mx)
     ref = np.asarray(jax.jit(jmod.apply)(var, rgb, mx))
-    model = build_model(cfg, seed=None)
+    model = build_model(cfg, device="cpu", seed=None)
     model.load_state_dict(flax_to_torch_state_dict(var), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(rgb), torch.from_numpy(mx)).numpy()
@@ -71,7 +71,7 @@ def test_state_dict_round_trip():
     cfg = _cfg("mit_tiny")
     rgb, mx = _pair(2, b=1, hw=32)
     jmod, var = _jax_model_and_vars(cfg, rgb, mx, seed=3)
-    model = build_model(cfg, seed=None)
+    model = build_model(cfg, device="cpu", seed=None)
     res = model.load_state_dict(flax_to_torch_state_dict(var), strict=True)
     assert not res.missing_keys and not res.unexpected_keys
     back = jconvert.torch_to_flax_variables(model.state_dict())
@@ -92,7 +92,7 @@ def test_flagship_parameter_count_matches_jax():
         lambda: JaxEncoderDecoder(cfg=cfg).init(jax.random.PRNGKey(0), x, x))
     n_jax = sum(int(np.prod(v.shape))
                 for v in jax.tree_util.tree_leaves(shapes["params"]))
-    model = build_model(cfg, seed=None)
+    model = build_model(cfg, device="cpu", seed=None)
     assert sum(p.numel() for p in model.parameters()) == n_jax
     n_stats = sum(int(np.prod(v.shape))
                   for v in jax.tree_util.tree_leaves(shapes["batch_stats"]))
@@ -104,7 +104,7 @@ def test_unported_names_raise():
     for backbone in ("mit_b2pp", "mit_b2_w_aspp", "swin_s", "resnet50"):
         cfg = mfnet_config().replace(model=ModelConfig(backbone=backbone))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, seed=None)
+            build_model(cfg, device="cpu", seed=None)
     cfg = mfnet_config().replace(model=ModelConfig(decoder="UPernet"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, seed=None)
+        build_model(cfg, device="cpu", seed=None)

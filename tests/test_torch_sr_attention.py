@@ -1,12 +1,15 @@
 """The port's short-kv SR-attention (rgbx_semantic_segmentation_tpu_torch/
-ops/sr_attention.py) against the JAX Pallas kernel, and its CUDA kernel
-against its plain version.
+ops/sr_attention.py), forward and backward, against the JAX Pallas kernels,
+and its CUDA kernels against their plain versions.
 
-On the CPU the wrapper takes the plain version: here it is held against the
-JAX kernel run in Pallas interpret mode, in bf16, at the shapes of
-tests/test_sr_attention.py (M = 1, and N, M not multiples of 8). atol 2e-3
-as in that test: both sides round the probs and the output to bf16, and
-fp32 summation order can move a bf16 rounding by one ulp.
+On the CPU the wrappers take the plain versions: here they are held against
+the JAX kernels run in Pallas interpret mode, in bf16, at the shapes of
+tests/test_sr_attention.py (M = 1, and N, M not multiples of 8). Forward:
+atol 2e-3 as in that test: both sides round the probs and the output to
+bf16, and fp32 summation order can move a bf16 rounding by one ulp.
+Gradients: atol 5e-2, rtol 2e-2 as in that test (bf16 gradients of
+magnitude up to ~10; a flipped rounding of dl or p moves a sum by about one
+bf16 ulp of it).
 
 The `cuda` tests need the card and skip without one; they import no jax,
 so on the GPU machine they run with
@@ -172,3 +175,213 @@ def test_kernel_rounds_probs_before_pv(cuda, G, N, M, d):
     right = (got != ref).float().mean().item()
     wrong = (got != unrounded).float().mean().item()
     assert right <= 0.01 and right < wrong, (right, wrong)
+
+
+# ------------------------------------------------------------ backward ----
+
+
+def _grad_inputs(B, h, N, M, d):
+    return (_mk((B, h, N, d), 3), _mk((B, h, M, d), 4), _mk((B, h, M, d), 5),
+            _mk((B, h, N, d), 6))  # non-uniform cotangent
+
+
+def _torch_grads(fn, q, k, v, w, dtype):
+    tq, tk, tv = (torch.from_numpy(a).to(dtype).requires_grad_()
+                  for a in (q, k, v))
+    out = fn(tq, tk, tv)
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    return [t.grad for t in (tq, tk, tv)]
+
+
+def _jax_grads(fn, q, k, v, w, dtype):
+    import jax
+    import jax.numpy as jnp
+
+    def loss(q, k, v):
+        return jnp.sum(fn(q, k, v).astype(jnp.float32) * w)
+
+    got = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a, dtype) for a in (q, k, v)))
+    return [np.asarray(jax.device_get(a).astype(np.float32)) for a in got]
+
+
+@pytest.mark.parametrize("B,h,N,M,d", SHAPES)
+def test_gradients_match_jax_kernel(B, h, N, M, d):
+    """Port sr_attention on the CPU (forward and backward through their
+    plain versions) against jax.grad of the JAX kernel, interpret mode."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from rgbx_semantic_segmentation_tpu.ops import sr_attention as JS
+
+    q, k, v, w = _grad_inputs(B, h, N, M, d)
+    scale = d ** -0.5
+    ref = _jax_grads(
+        lambda q, k, v: JS.sr_attention(q, k, v, scale, interpret=True),
+        q, k, v, w, jnp.bfloat16)
+    before = S.sr_attention_bwd.launches
+    got = _torch_grads(lambda q, k, v: S.sr_attention(q, k, v, scale),
+                       q, k, v, w, torch.bfloat16)
+    assert S.sr_attention_bwd.launches == before  # CPU: the plain version
+    for name, a, b in zip("qkv", got, ref):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.float().numpy(), b, atol=5e-2, rtol=2e-2,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,h,N,M,d", SHAPES)
+def test_sdpa_backward_matches_jax(B, h, N, M, d):
+    """The plain `_sdpa` (rounded probs in the softmax backward) against
+    jax.grad of the JAX `_sdpa`, bf16, same tolerances."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from rgbx_semantic_segmentation_tpu.ops.attention import _sdpa as jsdpa
+    from rgbx_semantic_segmentation_tpu_torch.ops.attention import _sdpa
+
+    q, k, v, w = _grad_inputs(B, h, N, M, d)
+    scale = d ** -0.5
+    ref = _jax_grads(lambda q, k, v: jsdpa(q, k, v, scale), q, k, v, w,
+                     jnp.bfloat16)
+    got = _torch_grads(lambda q, k, v: _sdpa(q, k, v, scale), q, k, v, w,
+                       torch.bfloat16)
+    for name, a, b in zip("qkv", got, ref):
+        np.testing.assert_allclose(a.float().numpy(), b, atol=5e-2, rtol=2e-2,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,h,N,M,d", SHAPES)
+def test_plain_backwards_agree_in_fp32(B, h, N, M, d):
+    """In fp32 no rounding point separates the kernel's backward from
+    `_sdpa`'s, and both are the autograd gradient of the naive composition:
+    1e-5 (fp32 summation order at gradients of magnitude ~1)."""
+    from rgbx_semantic_segmentation_tpu_torch.ops.attention import _sdpa
+
+    q, k, v, w = _grad_inputs(B, h, N, M, d)
+    scale = d ** -0.5
+
+    def naive(q, k, v):
+        return torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v
+
+    a = _torch_grads(lambda q, k, v: S.sr_attention(q, k, v, scale),
+                     q, k, v, w, torch.float32)
+    b = _torch_grads(lambda q, k, v: _sdpa(q, k, v, scale), q, k, v, w,
+                     torch.float32)
+    c = _torch_grads(naive, q, k, v, w, torch.float32)
+    for name, x, y, z in zip("qkv", a, b, c):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-5, rtol=0,
+                                   err_msg=f"d{name}")
+        np.testing.assert_allclose(x.numpy(), z.numpy(), atol=1e-5, rtol=0,
+                                   err_msg=f"d{name} vs autograd")
+
+
+def test_no_grad_forward_skips_autograd():
+    q = torch.randn(1, 1, 8, 16)
+    with torch.no_grad():
+        assert S.sr_attention(q, q, q, 0.25).grad_fn is None
+    assert S.sr_attention(q, q, q, 0.25).grad_fn is None  # nothing to train
+    out = S.sr_attention(q.requires_grad_(), q, q, 0.25)
+    assert out.grad_fn is not None
+
+
+def test_backward_wrapper_rejects_bad_cotangent():
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="cotangent"):
+        S.sr_attention_bwd(q, q, q, torch.zeros(1, 2, 4, 16), 1.0)
+
+
+def _model_layout(B, h, N, M, d, dtype, device, seed):
+    """q, k, v as the model hands them over (head-split views) and the
+    cotangent as autograd hands it back: a view of a (B, N, h*d) tensor."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, N, h * d, device=device, generator=g).to(dtype)
+    kv = torch.randn(B, M, 2, h, d, device=device, generator=g).to(dtype)
+    w = torch.randn(B, N, h * d, device=device, generator=g).to(dtype)
+    return (x.reshape(B, N, h, d).transpose(1, 2), kv[:, :, 0].transpose(1, 2),
+            kv[:, :, 1].transpose(1, 2), w.reshape(B, N, h, d).transpose(1, 2))
+
+
+def _bf16_ulps(ref, ulps):
+    mag = ref.float().abs().max().item()
+    return ulps * 2.0 ** (np.floor(np.log2(mag)) - 7) if mag > 0 else 0.0
+
+
+BWD_SHAPES = [(8, 2, 4800, 300, 64), (8, 5, 1200, 300, 64),
+              (8, 8, 300, 300, 64)] + SHAPES + [(1, 4, 333, 1000, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,h,N,M,d", BWD_SHAPES)
+def test_backward_kernel_matches_plain(cuda, B, h, N, M, d, dtype):
+    """The backward kernel against its plain version on the card, on the
+    model's layouts. fp32 (TF32 off): 2e-5 of the gradient's magnitude
+    (summation order only). bf16: 4 bf16 ulps of the gradient's largest
+    magnitude: a gradient element is a sum over up to N (dk, dv) or M (dq)
+    products whose bf16 factors p and dl may each round the other way."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, w = _model_layout(B, h, N, M, d, dtype, cuda, 0)
+    ref = S.sr_attention_bwd_reference(q, k, v, w, d ** -0.5)
+    before = S.sr_attention_bwd.launches
+    got = S.sr_attention_bwd(q, k, v, w, d ** -0.5)
+    torch.cuda.synchronize()
+    assert S.sr_attention_bwd.launches == before + 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        tol = (_bf16_ulps(b, 4) if dtype == torch.bfloat16
+               else 2e-5 * max(1.0, b.abs().max().item()))
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,N,M,d", [(2, 2, 300, 300, 64),
+                                       (1, 5, 96, 24, 32), (1, 8, 75, 19, 64)])
+def test_backward_kernel_matches_autograd_fp32(cuda, B, h, N, M, d):
+    """fp32 on the card: gradients through the kernels against autograd of
+    the naive composition, 2e-5 of the gradient's magnitude."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, w = (t.detach().clone().requires_grad_() for t in _model_layout(
+        B, h, N, M, d, torch.float32, cuda, 1))
+    scale = d ** -0.5
+    (S.sr_attention(q, k, v, scale) * w).sum().backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    (torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v * w).sum().backward()
+    for name, a, t in zip("qkv", got, (q, k, v)):
+        tol = 2e-5 * max(1.0, t.grad.abs().max().item())
+        assert (a - t.grad).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+def test_backward_lands_in_projection_layouts(cuda):
+    """dq is a view of a (B, N, h, d) buffer and dk, dv are the halves of one
+    (B, M, 2, h, d) buffer, so the gradients of the q and kv projections'
+    outputs need no copy; the counters count one launch each."""
+    B, h, N, M, d = 2, 2, 300, 75, 64
+    q, k, v, w = _model_layout(B, h, N, M, d, torch.bfloat16, cuda, 2)
+    dq, dk, dv = S.sr_attention_bwd(q, k, v, w, d ** -0.5)
+    torch.cuda.synchronize()
+    assert dq.transpose(1, 2).is_contiguous()
+    assert dk.transpose(1, 2).stride() == (M * 2 * h * d, 2 * h * d, d, 1)
+    assert dv.data_ptr() == dk.data_ptr() + h * d * dk.element_size()
+    again = S.sr_attention_bwd(q, k, v, w, d ** -0.5)
+    torch.cuda.synchronize()
+    for a, b in zip((dq, dk, dv), again):
+        assert torch.equal(a, b)  # no atomics: the same bits every run
+
+
+@pytest.mark.cuda
+def test_backward_raises_before_the_backward(cuda):
+    """What the backward kernel cannot take is refused by the forward."""
+    q = torch.zeros(1, 1, 64, 64, device=cuda, dtype=torch.float16,
+                    requires_grad=True)
+    with pytest.raises(TypeError):
+        S.sr_attention(q, q, q, 1.0)
+    k = torch.zeros(1, 1, 2048, 64, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="does not take"):
+        S.sr_attention(q.float(), k, k, 1.0)
+    with pytest.raises(ValueError, match="does not take"):
+        S.sr_attention_bwd(q.float(), k, k, q.float(), 1.0)
