@@ -1,8 +1,10 @@
-// Helpers shared by the short-kv SR-attention kernels (sr_attention_fwd.cu,
-// sr_attention_bwd.cu): operand layouts, dtype conversion, warp reductions,
-// the bf16 mma.sync m16n8k16 fragment helpers and the per-device state of
-// the host side. Each .cu that includes this file is built into its own
-// shared library; everything here has internal linkage.
+// Helpers shared by the attention kernels (sr_attention_fwd.cu,
+// sr_attention_bwd.cu, window_attention_fwd.cu, window_attention_bwd.cu):
+// operand layouts, dtype conversion, warp reductions, the bf16 mma.sync
+// m16n8k16 fragment helpers, the Philox4x32-10 generator of the in-kernel
+// dropout and the per-device state of the host side. Each .cu that includes
+// this file is built into its own shared library; everything here has
+// internal linkage.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,6 +100,77 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed on the way: lane l
+// gives the address of row l % 8 of matrix l / 8 (16 bytes, 16-byte
+// aligned); r[m] then holds elements (2 * (lane % 4), lane / 4) and
+// (2 * (lane % 4) + 1, lane / 4) of matrix m. From a row-major [k][n] tile
+// this yields the B fragments (k-major pairs) of mma16816, from a row-major
+// [k][m] tile the A fragments of the transposed matrix.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3", SC 2011): 128 counter bits and 64 key bits to 128 random bits.
+// ops/window_attention.philox4x32 is the same function in PyTorch integer
+// ops; the tests hold it to the published known-answer vectors.
+__device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
+                                              uint32_t c2, uint32_t c3,
+                                              uint32_t k0, uint32_t k1,
+                                              uint32_t (&out)[4]) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(kM0, c0), lo0 = kM0 * c0;
+    const uint32_t hi1 = __umulhi(kM1, c2), lo1 = kM1 * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += kW0;
+    k1 += kW1;
+  }
+  out[0] = c0;
+  out[1] = c1;
+  out[2] = c2;
+  out[3] = c3;
+}
+
+// The dropout stream of the window attention. One Philox call serves the
+// four probabilities that one thread holds of an mma accumulator tile: rows
+// r and r + 8 of a 16-row tile, columns c and c + 1 (c even). Counter:
+// (c / 2, 8 * (r / 16) + r % 8, unit, batch); key: the 64-bit seed. Element
+// (r, c) keeps its probability iff its 32 bits are >= thr:
+// bits[2 * ((r % 16) / 8) + c % 2]. ops/window_attention.keep_mask draws the
+// same mask in PyTorch.
+struct Dropout {
+  uint32_t k0, k1;  // the seed's low and high word
+  uint32_t thr;     // min(rate * 2^32, 2^32 - 1)
+  float inv_keep;   // 1 / (1 - rate)
+  int on;
+};
+
+__device__ __forceinline__ void dropout_bits(const Dropout& dr, int col_pair,
+                                             int row_group, int unit, int b,
+                                             uint32_t (&bits)[4]) {
+  philox4x32_10((uint32_t)col_pair, (uint32_t)row_group, (uint32_t)unit,
+                (uint32_t)b, dr.k0, dr.k1, bits);
+}
+
+// The bits of the single element (row, col), for the scalar kernels.
+__device__ __forceinline__ uint32_t dropout_bits_at(const Dropout& dr, int row,
+                                                    int col, int unit, int b) {
+  uint32_t bits[4];
+  dropout_bits(dr, col >> 1, 8 * (row >> 4) + (row & 7), unit, b, bits);
+  return bits[2 * ((row & 15) >> 3) + (col & 1)];
 }
 
 constexpr int kMaxDevices = 64;

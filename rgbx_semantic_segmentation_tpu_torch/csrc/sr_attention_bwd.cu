@@ -64,7 +64,7 @@
 // caller allocates the workspaces (`sr_attention_bwd_splits` says how many
 // splits the kv kernel will use for a shape; `max_splits` > 0 caps them).
 
-#include "sr_attention_common.cuh"
+#include "attention_common.cuh"
 
 namespace {
 

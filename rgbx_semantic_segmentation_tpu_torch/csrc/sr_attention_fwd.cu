@@ -53,7 +53,7 @@
 // device's limits and each kernel's shared-memory opt-in are set up once per
 // device, not per launch.
 
-#include "sr_attention_common.cuh"
+#include "attention_common.cuh"
 
 namespace {
 

@@ -1,9 +1,11 @@
 """Config-driven model assembly (counterpart of
 rgbx_semantic_segmentation_tpu/models/builder.py).
 
-This slice builds the MiT family (mit_tiny, mit_b0..b5) with FRM/FFM fusion
-and the MLPDecoder head. Every other backbone or decoder name the JAX
-registry knows raises NotImplementedError naming its ROADMAP item.
+Built so far: the MiT family (mit_tiny, mit_b0..b5) and the dual Swin
+family (swin_s, swin_b), both with FRM/FFM fusion, and the MLPDecoder head.
+Every other backbone or decoder name the JAX registry knows, and the Swin
+knobs `swin_ape` and `swin_frozen_stages`, raise NotImplementedError naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from rgbx_semantic_segmentation_tpu_torch.config import Config, torch_dtype
 from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
 from rgbx_semantic_segmentation_tpu_torch.models.decoders.mlp_decoder import (
     MLPDecoder)
-from rgbx_semantic_segmentation_tpu_torch.models.encoders import dual_segformer
+from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+    dual_segformer, dual_swin)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import init_weights
 from rgbx_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
 
@@ -26,13 +29,13 @@ MIT_FACTORIES = {
     "mit_b2": dual_segformer.mit_b2, "mit_b3": dual_segformer.mit_b3,
     "mit_b4": dual_segformer.mit_b4, "mit_b5": dual_segformer.mit_b5,
 }
+SWIN_FACTORIES = {"swin_s": dual_swin.swin_s, "swin_b": dual_swin.swin_b}
 # Names of the JAX registry (models/builder.py BACKBONES / build_decoder)
 # that this port does not build yet, with the ROADMAP item that ports them.
 _LATER_BACKBONES = {
     "_w_aspp": "M10 item 1 (ASPP variants)",
     "_w_ef_aspp": "M10 item 1 (ASPP variants)",
     "pp": "M10 item 4 (IFRM/IFFM, needs K5)",
-    "swin": "M10 item 5 (dual Swin, needs K3/K4)",
     "segnext": "M10 item 6 (SegNeXt)",
     "resnet": "M10 item 7 (ResNet)",
 }
@@ -50,12 +53,15 @@ def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
         raise NotImplementedError(
             "ModelConfig.remat (activation checkpointing) is not ported "
             "yet: ROADMAP M5 rest")
+    if name in SWIN_FACTORIES:
+        return _build_swin(cfg), dual_swin.CHANNELS[name]
     if name not in MIT_FACTORIES:
         for key, item in _LATER_BACKBONES.items():
             if key in name:
                 raise NotImplementedError(
                     f"backbone {name!r} is not ported yet: ROADMAP {item}")
-        raise KeyError(f"unknown backbone {name!r}; have {sorted(MIT_FACTORIES)}")
+        raise KeyError(f"unknown backbone {name!r}; have "
+                       f"{sorted(MIT_FACTORIES) + sorted(SWIN_FACTORIES)}")
     module = MIT_FACTORIES[name](
         frm=cfg.model.feature_rectify_module,
         ffm=cfg.model.feature_fusion_module,
@@ -64,6 +70,23 @@ def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
         gelu_approximate=cfg.model.gelu_approximate,
         dtype=torch_dtype(cfg.model))
     return module, dual_segformer.CHANNELS[name]
+
+
+def _build_swin(cfg: Config) -> nn.Module:
+    if cfg.model.swin_ape:
+        raise NotImplementedError(
+            "ModelConfig.swin_ape (absolute position embedding, needs the "
+            "bicubic resize) is not ported yet: ROADMAP M1 rest")
+    if cfg.model.swin_frozen_stages >= 0:
+        raise NotImplementedError(
+            "ModelConfig.swin_frozen_stages (needs optim.frozen_mask) is not "
+            "ported yet: ROADMAP M11")
+    return SWIN_FACTORIES[cfg.model.backbone](
+        frm=cfg.model.feature_rectify_module,
+        ffm=cfg.model.feature_fusion_module,
+        drop_path_rate=cfg.model.drop_path_rate,
+        use_pallas=cfg.model.use_pallas_kernels,
+        dtype=torch_dtype(cfg.model))
 
 
 def build_decoder(cfg: Config, channels: Sequence[int]) -> nn.Module:

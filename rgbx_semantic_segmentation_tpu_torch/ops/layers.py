@@ -9,8 +9,8 @@ nn.BatchNorm2d, whose eval mode normalises with the running statistics
 (the JAX TorchBatchNorm exists to re-create exactly torch's semantics).
 
 Initialization follows the JAX package (which follows the original repo's
-`_init_weights`): Linear = truncated normal (std 0.02) with zero bias;
-Conv2d = normal(0, sqrt(2 / fan_out)), fan_out = kh * kw * out / groups,
+`_init_weights`): Linear and the Swin relative-position bias tables =
+truncated normal (std 0.02), Linear bias zero; Conv2d = normal(0, sqrt(2 / fan_out)), fan_out = kh * kw * out / groups,
 with zero bias; norms = ones / zeros. `init_weights` applies it to a whole
 model from an explicit torch.Generator.
 
@@ -53,8 +53,13 @@ def conv_kaiming_normal_(w: torch.Tensor, groups: int,
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Initialise every Linear, Conv2d, LayerNorm and BatchNorm2d of `model`
-    in place (see module docstring); BatchNorm running stats are reset."""
+    """Initialise every Linear, Conv2d, LayerNorm, BatchNorm2d and
+    `relative_position_bias_table` parameter of `model` in place (see module
+    docstring); BatchNorm running stats are reset."""
+    for name, p in model.named_parameters():
+        # A bare nn.Parameter of the Swin WindowAttention, not a module.
+        if name.endswith("relative_position_bias_table"):
+            trunc_normal_(p, 0.02, generator)
     for m in model.modules():
         if isinstance(m, nn.Linear):
             trunc_normal_(m.weight, 0.02, generator)

@@ -1,8 +1,10 @@
 """The port imports no jax, flax or optax and nothing of the JAX package
 (rgbx_semantic_segmentation_tpu, not even its jax-free modules): a fresh
 interpreter imports it, builds mit_tiny, runs one forward and one train
-step with none of them in sys.modules, and a static scan of the package
-sources and chip_smoke.py finds no such import."""
+step, imports the window-attention op and the Swin encoder and runs a small
+Swin tower forward and backward, with none of them in sys.modules, and a
+static scan of the package sources (the CUDA sources too) and chip_smoke.py
+finds no such import."""
 import os
 import re
 import subprocess
@@ -38,6 +40,18 @@ batch = {"rgb": torch.zeros(2, 32, 32, 3, dtype=torch.uint8),
          "label": torch.zeros(2, 32, 32, dtype=torch.uint8)}
 loss = float(trainer.step(batch)["loss"])
 assert loss == loss, loss
+from rgbx_semantic_segmentation_tpu_torch.models.encoders import dual_swin
+from rgbx_semantic_segmentation_tpu_torch.ops import window_attention
+swin = dual_swin.DualSwinTransformer(
+    embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 2, 4),
+    attn_drop_rate=0.3, use_pallas=True).train()
+outs = swin(torch.zeros(1, 3, 64, 64), torch.zeros(1, 3, 64, 64))
+assert [o.shape[1] for o in outs] == [16, 32, 64, 128], outs
+assert all(torch.isfinite(o).all() for o in outs)
+sum(o.sum() for o in outs).backward()
+grads = [p.grad for p in swin.parameters() if p.grad is not None]
+assert grads and all(torch.isfinite(g).all() for g in grads)
+assert window_attention.window_attention.launches == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "rgbx_semantic_segmentation_tpu"))
@@ -63,9 +77,14 @@ def test_no_jax_import_in_sources():
     root = os.path.dirname(os.path.abspath(port.__file__))
     sources = [os.path.join(os.path.dirname(root), "chip_smoke.py")]
     for dirpath, _, files in os.walk(root):
-        sources += [os.path.join(dirpath, n) for n in files if n.endswith(".py")]
+        sources += [os.path.join(dirpath, n) for n in files
+                    if n.endswith((".py", ".cu", ".cuh"))]
     for path in sources:
         with open(path) as f:
             hits = pattern.findall(f.read())
         assert not hits, (path, hits)
+    names = {os.path.relpath(p, root) for p in sources}
+    assert {"ops/window_attention.py", "models/encoders/dual_swin.py",
+            "csrc/window_attention_fwd.cu", "csrc/window_attention_bwd.cu",
+            "csrc/attention_common.cuh"} <= names
     assert len(sources) >= 10
