@@ -8,14 +8,16 @@ source, started together) and holds each against its plain PyTorch version
 at the shapes the models give it: the SR-attention forward and backward
 (dq, dk, dv) of the MiT towers and the window-attention forward and backward
 (dqkv, db; with and without the in-kernel dropout, whose mask must be the
-plain version's bit for bit) of the Swin towers, on the models' layouts,
+plain version's bit for bit) of the Swin towers, and the long-kv flash
+attention (forward, dk/dv and dq kernels) of the IFFM cross-attention of
+the mit_*pp family, on the models' layouts,
 with their times beside the plain version's, a library call's
 (F.scaled_dot_product_attention, a yardstick only: the port never calls it)
 and the card's bound for the same work. Then it drives the port's paths
 through the entry points a user would call, at the full width and depth of
 the MFNet preset (480x640, batch 8, bf16, seeded random weights, synthetic
-pairs made in memory), once with the preset's CMX mit_b2 + MLPDecoder and
-once with backbone swin_s:
+pairs made in memory), with the preset's CMX mit_b2 + MLPDecoder, with
+backbone swin_s and with backbone mit_b2pp (IFRM/IFFM):
 
   * whole-image evaluation (SegEvaluator.evaluate), counting the forward
     kernel's launches, and holding the model's logits on the kernel path
@@ -25,7 +27,9 @@ once with backbone swin_s:
     forward and the backward kernel, checking that the loss falls and that
     parameters and BatchNorm statistics move, and holding one step's loss
     and gradients on the kernel path against the plain attention path, in
-    bf16 and in fp32 (for swin_s the bias tables' gradients among them).
+    bf16 and in fp32 (for swin_s the bias tables' gradients among them;
+    for mit_b2pp the IFFM projections' among them, its fp32 runs at batch 2:
+    the fp32 flash kernels are scalar and N does not depend on the batch).
 
 Any failed check raises and the exit code is non-zero. Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -130,6 +134,74 @@ FP32_LOSS_RTOL, FP32_GRAD_RTOL = 1e-5, 1e-3
 # bf16 logits, tensor-core kernel path vs plain path: bf16 ulps at the
 # logit scale (max |plain logit|). Measured 2 on the H100 (PERF.md).
 BF16_LOGITS_ULPS = 4
+
+
+# Long-kv flash attention (K5) against its plain version. The ragged cases:
+# N and M not multiples of the tiles, M = 1025, d = 32 / 40 / 128, h > 1,
+# B = 1, a single tile. bf16 forward: the online softmax rounds p against the
+# running max, the plain version against the row max, so each p_j carries
+# another rounding error of <= 2^-9 p_j in the two. Over a row these errors
+# add up like noise of size 2^-9 R, R = sqrt(sum_j p_j^2 v_j^2) (about |out|
+# itself where v has random signs), and the output's own rounding adds an ulp.
+# Bound of every output element: FLASH_FWD_ULPS bf16 ulps of the element
+# itself plus FLASH_FWD_NOISE * 2^-8 * R of its row and column (13 sigma of
+# that noise), so the bound scales with the outputs (0.01 at the first
+# mit_b2pp stage, where sum_j p_j |v_j| is 0.8); and of the whole tensor:
+# relative L2 error <= FLASH_REL_L2 (a model of the two roundings on the CPU
+# gives 0.0014-0.0025 and element errors up to half the bound; an output 2%
+# off fails both). That holds where q, k, v are independent draws. On the
+# model's own activations at seeded weights the logits are nearly flat, every
+# p_j of a row is nearly the same number and is rounded the same way, so the
+# errors add up in line, not like noise: there only the worst case holds,
+# 2^-9 A for each of the two, A = sum_j p_j |v_j| (2-4 times |out| there),
+# and the row term of the bound is 2^-8 A. Everywhere the kernel may lie at
+# most FLASH_EXACT_FACTOR times as far (relative L2, + 1e-4) from the fp32
+# attention with unrounded p as the plain version does. Backward (the same
+# residual into both): 2 bf16 ulps of
+# each gradient's largest magnitude and the same relative L2 bound. fp32:
+# 1e-5 forward, BWD_FP32_RTOL backward. lse: 1e-5. No atomics anywhere: two
+# runs give the same bits.
+FLASH_RAGGED = [(1, 2, 200, 130, 32), (2, 1, 77, 1025, 64),
+                (1, 3, 1030, 65, 40), (2, 2, 64, 64, 128),
+                (1, 1, 130, 300, 64)]
+FLASH_FWD_ULPS, FLASH_BWD_ULPS, LSE_ATOL = 2, 2, 1e-5
+FLASH_FWD_NOISE, FLASH_REL_L2, FLASH_EXACT_FACTOR = 4, 5e-3, 1.25
+# On inputs whose row max lies in the first kv tile the kernel and the plain
+# version round p alike: at most this share of the outputs may differ, and a
+# kernel that left p unrounded must differ in more than the second share.
+FLASH_MISMATCH_MAX, FLASH_UNROUNDED_MIN = 0.01, 0.05
+# mit_b2pp: K5 serves the IFFM of stages 1-3 (two calls each); stage 4's
+# two calls are short-kv and go to K1/K2 beside the 32 of the towers.
+PP_FLASH_CALLS, PP_SR_CALLS = 6, 34
+PP_GRAD_NAMES = [
+    "backbone.patch_embed1.proj.weight",
+    "backbone.block1.0.attn.q.weight",
+    "backbone.FRMs.0.channel_weights.mlp.0.weight",
+    "backbone.FFMs.0.cross.cross_attn.q1.weight",
+    "backbone.FFMs.0.cross.cross_attn.kv2.weight",
+    "backbone.FFMs.2.cross.cross_attn.proj1.weight",
+    "backbone.block4.2.mlp.fc2.weight",
+    "decode_head.linear_pred.weight"]
+PP_FP32_BATCH = 2
+# mit_b2pp at seeded random weights is ill-conditioned in bf16: each IFRM
+# (unbounded spatial gates, then a LayerNorm) multiplies the relative
+# rounding error of its input by 2-3 (PERF.md section 6), so the bf16
+# plain path itself lies ~10% (L2) from the fp32 model at the logits, and
+# two bf16 paths that round at different points half as far from each
+# other, far beyond a few bf16 ulps. Its bf16 kernel path is
+# therefore held to the fp32 plain path ("truth") beside the bf16 plain
+# path: it may be at most this factor further from the truth than the bf16
+# plain path is (the two are samples of the same rounding noise), plus a
+# floor for quantities both paths get nearly right; its argmax may agree
+# with the truth's at most PP_ARGMAX_SLACK less often than the plain path's.
+# The two bf16 paths may lie at most PP_PATHS_FACTOR times as far from each
+# other as the plain path lies from the truth, plus the floor (two
+# independent samples of one noise lie sqrt(2) apart; read: 0.4-1.6). What
+# holds the tensor-core K5 kernels tightly inside the model is another
+# check: flash_in_model_phase, on the model's own activations and
+# cotangents, by the kernel phase's bounds.
+PP_TRUTH_FACTOR, PP_TRUTH_FLOOR, PP_ARGMAX_SLACK = 1.5, 0.01, 0.02
+PP_PATHS_FACTOR = 2.0
 
 
 def check(ok: bool, msg: str) -> None:
@@ -591,6 +663,162 @@ def window_bwd_kernel_phase(W, T):
     return stage_err, rows
 
 
+def bf16_ulp(x):
+    """The bf16 ulp at each element's magnitude."""
+    import torch
+
+    return 2.0 ** (torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def first_tile_max_inputs(T5, shape, gen):
+    """bf16 q, k, v (the model's layouts) whose every row's largest logits
+    belong to keys 0-3: q and those keys share a large first component. The
+    running max of the kernel is then the row max from the first kv tile on,
+    so kernel and plain version round the same p, and the four comparable
+    probabilities make the rounding of p show in the output."""
+    import torch
+
+    B, h, N, M, d = shape
+    q, k, v, _ = T5.inputs(shape, torch.float32, gen)
+    q[..., 0] = 16.0
+    k[..., 0] = 0.0
+    k[:, :, :4, 0] = torch.tensor([4.0, 3.9, 3.8, 3.7], device=k.device)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+def flash_row_noise(FA, q, k, v, lse, scale):
+    """R = sqrt(sum_j p_j^2 v_j^2) per output element, in fp32, from the
+    plain version: p_j^2 is the softmax at twice the scale times
+    exp(lse_2 - 2 lse)."""
+    import torch
+
+    out2, lse2 = FA.flash_attention_reference(q.float(), k.float(),
+                                              v.float().square(), 2 * scale)
+    return (out2 * torch.exp(lse2 - 2 * lse).unsqueeze(-1)).sqrt()
+
+
+def hold_flash_case(FA, label, q, k, v, w, sc, independent=True):
+    """K5's three kernels against their plain versions on one set of inputs
+    (q, k, v and the cotangent w where they lie), by the bounds above
+    (`independent`: the inputs are independent draws, so the noise term
+    bounds a row; else the worst case does); two runs bit-equal. Returns the
+    largest absolute errors {fwd, dkv, dq}."""
+    import torch
+
+    bf16 = q.dtype == torch.bfloat16
+    ref, lse_ref = FA.flash_attention_reference(q, k, v, sc)
+    got, lse = FA._forward(q, k, v, sc)
+    again, _ = FA._forward(q, k, v, sc)
+    torch.cuda.synchronize()
+    gf, rf = got.float(), ref.float()
+    err = (gf - rf).abs()
+    rel = float(err.norm() / rf.norm())
+    if bf16:
+        f32 = (q.float(), k.float(), v.float())
+        if independent:
+            row = FLASH_FWD_NOISE * flash_row_noise(FA, q, k, v, lse_ref, sc)
+        else:
+            row = FA.flash_attention_reference(f32[0], f32[1], f32[2].abs(),
+                                               sc)[0]
+        tol = (FLASH_FWD_ULPS * bf16_ulp(torch.maximum(gf.abs(), rf.abs()))
+               + 2.0 ** -8 * row)
+        share = float((err / tol).max())
+        exact = FA.flash_attention_reference(*f32, sc)[0]
+        far_k, far_p = (float((t - exact).norm() / exact.norm())
+                        for t in (gf, rf))
+        ok = (share <= 1.0 and rel <= FLASH_REL_L2
+              and far_k <= FLASH_EXACT_FACTOR * far_p + 1e-4)
+        bound = (f"{share:.3f} of the element bound ({FLASH_FWD_ULPS} ulps + "
+                 + (f"{FLASH_FWD_NOISE} * 2^-8 R" if independent else "2^-8 A")
+                 + f"; <= 1), rel L2 {rel:.2e} (<= {FLASH_REL_L2:.0e}), from "
+                 f"unrounded-p fp32 {far_k:.2e} (kernel, <= "
+                 f"{FLASH_EXACT_FACTOR} x plain + 1e-4) and {far_p:.2e} "
+                 f"(plain), mean |out| {float(rf.abs().mean()):.2e}")
+        del tol, row, exact, f32
+    else:
+        ok, bound = float(err.max()) <= FP32_ATOL, f"tol {FP32_ATOL:.0e}"
+    lse_err = float((lse - lse_ref).abs().max())
+    worst = {"fwd": float(err.max()), "dkv": 0.0, "dq": 0.0}
+    print(f"flash fwd {str(q.dtype)[6:]:8s} {label}: max_abs_err "
+          f"{worst['fwd']:.3e}, {bound}; lse err {lse_err:.2e}; "
+          f"differing {float((got != ref).float().mean()):.4f}")
+    check(ok and lse_err <= LSE_ATOL and bool(torch.isfinite(got).all()),
+          f"flash forward kernel vs plain at {label} {q.dtype}")
+    check(bool(torch.equal(got, again)), "flash forward differs between "
+          f"two runs at {label}")
+    del err, again, gf, rf
+    dref = FA.flash_attention_bwd_reference(q, k, v, ref, lse_ref, w, sc)
+    dgot = FA.flash_attention_bwd(q, k, v, ref, lse_ref, w, sc)
+    dagain = FA.flash_attention_bwd(q, k, v, ref, lse_ref, w, sc)
+    torch.cuda.synchronize()
+    line = []
+    for name, a, b, c in zip(("dq", "dk", "dv"), dgot, dref, dagain):
+        e = float((a.float() - b.float()).abs().max())
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        tol = (bf16_atol(b, FLASH_BWD_ULPS) if bf16
+               else BWD_FP32_RTOL * max(1.0, float(b.abs().max())))
+        line.append(f"{name} {e:.3e} (tol {tol:.3e}), rel L2 {rel:.2e}")
+        check(e <= tol and bool(torch.isfinite(a).all())
+              and (rel <= FLASH_REL_L2 or not bf16),
+              f"flash backward kernel vs plain, {name} at {label} {q.dtype}: "
+              f"{e} > {tol} or rel L2 {rel} > {FLASH_REL_L2}")
+        check(bool(torch.equal(a, c)),
+              f"flash backward {name} differs between two runs at {label}")
+        key = "dq" if name == "dq" else "dkv"
+        worst[key] = max(worst[key], e)
+    print(f"flash bwd {str(q.dtype)[6:]:8s} {label}: max_abs_err "
+          + ", ".join(line) + (f" (rel L2 <= {FLASH_REL_L2:.0e})" if bf16
+                               else "") + "; two runs bit-equal")
+    return worst
+
+
+def flash_kernel_phase(FA, T5):
+    """K5 against its plain version: the forward kernel, the dk/dv kernel
+    and the dq kernel at the three mit_b2pp shapes and the ragged cases, in
+    bf16 and (the full shapes at batch 1) in fp32; two runs bit-equal; the
+    rounding point of p; then their times. Returns ({kernel: worst error at
+    the full bf16 shapes}, {kernel: rows})."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    cases = [(s, torch.bfloat16) for s in T5.SHAPES + FLASH_RAGGED] + \
+            [((1, *s[1:]), torch.float32) for s in T5.SHAPES] + \
+            [(s, torch.float32) for s in FLASH_RAGGED]
+    for shape, dtype in cases:
+        q, k, v, w = T5.inputs(shape, dtype, gen)
+        errs = hold_flash_case(FA, f"(B,h,N,M,d)={shape}", q, k, v, w,
+                               shape[4] ** -0.5)
+        if dtype == torch.bfloat16 and shape in T5.SHAPES:
+            worst = {key: max(worst[key], e) for key, e in errs.items()}
+    # The rounding point of p, where kernel and plain round the same p.
+    for shape in (T5.SHAPES[2], (2, 2, 1100, 1300, 32)):
+        q, k, v = first_tile_max_inputs(T5, shape, gen)
+        sc = shape[4] ** -0.5
+        ref, _ = FA.flash_attention_reference(q, k, v, sc)
+        wrong, _ = FA.flash_attention_reference(q, k, v, sc, round_p=False)
+        got, _ = FA._forward(q, k, v, sc)
+        right_frac = float((got != ref).float().mean())
+        wrong_frac = float((got != wrong).float().mean())
+        print(f"flash fwd, row max in the first kv tile, {shape}: outputs "
+              f"differing from plain {right_frac:.5f} (<= {FLASH_MISMATCH_MAX})"
+              f", from unrounded-p plain {wrong_frac:.5f} "
+              f"(> {FLASH_UNROUNDED_MIN})")
+        check(right_frac <= FLASH_MISMATCH_MAX
+              and wrong_frac > FLASH_UNROUNDED_MIN,
+              f"bf16 flash kernel at {shape} does not round p as the plain "
+              f"version does: {right_frac} vs {wrong_frac}")
+    torch.cuda.empty_cache()
+    rows = {"fwd": [], "dkv": [], "dq": []}
+    for shape in T5.SHAPES:
+        timed = T5.time_shape(shape, gen)
+        T5.print_rows(shape, timed)
+        for which, row in timed.items():
+            rows[which].append(row)
+    torch.cuda.empty_cache()
+    return worst, rows
+
+
 def synthetic_items(n, hw, num_classes, seed=0):
     """MFNet-shaped uint8 pairs with structured labels, made in memory
     (class bands, thermal tracking the label, 2% ignore pixels)."""
@@ -614,17 +842,108 @@ def synthetic_items(n, hw, num_classes, seed=0):
     return items
 
 
-def slice_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer):
+def pp_cfg(cfg_lib):
+    cfg = cfg_lib.mfnet_config()
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 backbone="mit_b2pp"))
+
+
+def flash_in_model_phase(FA, model, rgb_t, mx_t):
+    """K5 on the model's own activations: one bf16 forward and backward of
+    the model (kernel path) with ImprovedCrossAttention._attend watched,
+    then every long-kv call's q, k, v (the strided views the projections
+    give) and the cotangent autograd handed it go through the three kernels
+    and their plain versions, by the kernel phase's bounds. Returns the
+    largest absolute errors {fwd, dkv, dq} over the calls."""
     import torch
 
-    cfg = cfg_lib.mfnet_config()
-    check(cfg.model.backbone == "mit_b2" and cfg.model.use_mixed_precision,
-          "mfnet preset is mit_b2 in bf16")
-    items = synthetic_items(N_IMAGES, HW, cfg.dataset.num_classes)
+    from rgbx_semantic_segmentation_tpu_torch.models import fusion
+
+    calls = []
+    attend = fusion.ImprovedCrossAttention._attend
+
+    def watched(self, q, k, v, scale):
+        out = attend(self, q, k, v, scale)
+        if FA.supported(q.shape, k.shape):
+            call = {"qkv": (q.detach(), k.detach(), v.detach()),
+                    "scale": scale}
+            out.register_hook(
+                lambda g, call=call: call.__setitem__("g", g.detach()))
+            calls.append(call)
+        return out
+
+    fusion.ImprovedCrossAttention._attend = watched
+    try:
+        model(rgb_t, mx_t).float().logsumexp(-1).mean().backward()
+    finally:
+        fusion.ImprovedCrossAttention._attend = attend
+    model.zero_grad(set_to_none=True)
+    check(len(calls) == PP_FLASH_CALLS and all("g" in c for c in calls),
+          f"{len(calls)} long-kv attention calls watched in the model")
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    for i, call in enumerate(calls):
+        q, k, v = call["qkv"]
+        B, h, N, d = q.shape
+        check(q.dtype == torch.bfloat16, "the model's attention runs in bf16")
+        w = call["g"].reshape(B, N, h, d).transpose(1, 2)
+        errs = hold_flash_case(
+            FA, f"in the model, stage {i // 2 + 1} call {i % 2 + 1}, (B,h,N,M,"
+            f"d)={(B, h, N, k.shape[2], d)}, max |cotangent| "
+            f"{float(w.abs().max()):.2e}", q, k, v, w, call["scale"],
+            independent=False)
+        worst = {key: max(worst[key], e) for key, e in errs.items()}
+    del calls
+    torch.cuda.empty_cache()
+    return worst
+
+
+def stage_outputs(model, rgb_t, mx_t):
+    """One forward; {name: fp32 copy of the RGB tower's output before each
+    fusion stage, of each rectify module's RGB output and of each fusion
+    module's output}, in the order they run."""
+    import torch
+
+    outs, handles = {}, []
+
+    def keep(name):
+        def hook(_module, _args, out):
+            out = out[0] if isinstance(out, tuple) else out
+            outs[name] = out.detach().float()
+        return hook
+
+    for s in range(4):
+        for name in (f"norm{s + 1}", f"FRMs.{s}", f"FFMs.{s}"):
+            module = model.backbone.get_submodule(name)
+            handles.append(module.register_forward_hook(keep(name)))
+    try:
+        with torch.no_grad():
+            outs["logits"] = model(rgb_t, mx_t).float()
+    finally:
+        for handle in handles:
+            handle.remove()
+    return outs
+
+
+def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
+                sr_calls=32, flash_calls=0, fp32_batch=EVAL_BATCH,
+                vs_truth=False):
+    """SegEvaluator.evaluate on a MiT-family model at full width and depth,
+    counting the launches of K1 (`sr_calls` per forward) and of K5's forward
+    (`flash_calls`), and the logits of the kernel path against the plain
+    attention path in bf16 and (the first `fp32_batch` images) in fp32.
+    `vs_truth`: the bf16 kernel path is held to the fp32 plain path beside
+    the bf16 plain path (see PP_TRUTH_FACTOR), not to the bf16 plain path."""
+    import torch
+
+    tag = cfg.model.backbone
+    check(cfg.model.use_mixed_precision and cfg.model.use_pallas_kernels,
+          "the preset runs bf16 on the kernels")
     model = builder.build_model(cfg, seed=0)   # device=None: the card
     ev = evaluator_lib.SegEvaluator(cfg, model)
     ev.evaluate(items[:EVAL_BATCH], eval_batch=EVAL_BATCH)  # warm-up
 
+    FA.flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     S.sr_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -632,12 +951,18 @@ def slice_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = S.sr_attention.launches
+    flash_launches = FA.flash_attention.launches
     forwards = N_IMAGES // EVAL_BATCH
-    print(f"eval: {N_IMAGES} images, {forwards} forwards of batch "
-          f"{EVAL_BATCH}, {launches} kernel launches "
-          f"(expected {32 * forwards}), {N_IMAGES / dt:.2f} img/s "
+    print(f"{tag} eval: {N_IMAGES} images, {forwards} forwards of batch "
+          f"{EVAL_BATCH}, {launches} SR kernel launches "
+          f"(expected {sr_calls * forwards}), {flash_launches} flash forward "
+          f"launches (expected {flash_calls * forwards}), "
+          f"{N_IMAGES / dt:.2f} img/s "
           f"({dt:.3f} s, host normalisation included)")
-    check(launches == 32 * forwards, f"{launches} launches != 32 x {forwards}")
+    check(launches == sr_calls * forwards
+          and flash_launches == flash_calls * forwards,
+          f"{launches} / {flash_launches} launches != ({sr_calls}, "
+          f"{flash_calls}) x {forwards}")
     print("eval mIoU line (synthetic data, random weights):")
     print(line.splitlines()[-1])
     check(np.isfinite(scores.pixel_acc), "pixel_acc is finite")
@@ -661,36 +986,50 @@ def slice_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer):
     # differs from the plain version by at most ~1 bf16 ulp in ~0.1% of its
     # outputs, and 32 calls through a bf16 network move the logits by a few
     # bf16 ulps and flip near-tied pixels; >= 0.99 of them must agree.
-    print(f"bf16 logits {tuple(logits.shape)} finite; kernel vs plain "
+    print(f"{tag} bf16 logits {tuple(logits.shape)} finite; kernel vs plain "
           f"attention path (bf16): max_abs_err {err_bf16:.3e} "
-          f"(tol {tol_bf16:.3e}), argmax agreement {agree_bf16:.6f} (>= 0.99)")
-    check(err_bf16 <= tol_bf16 and agree_bf16 >= 0.99,
-          "bf16 kernel path vs plain path")
+          f"(tol {tol_bf16:.3e}), argmax agreement {agree_bf16:.6f} (>= 0.99)"
+          + ("; not checked: held to the fp32 model below" if vs_truth else ""))
+    check(vs_truth or (err_bf16 <= tol_bf16 and agree_bf16 >= 0.99),
+          f"{tag} bf16 kernel path vs plain path")
     fwd, plain_fwd = [], []
     with torch.no_grad():  # kernel, plain, plain, kernel: one window
         for runs in (fwd, plain_fwd, plain_fwd, fwd):
             with contextlib.ExitStack() as stack:
                 if runs is plain_fwd:
                     stack.enter_context(dual_segformer.plain_attention(model))
-                runs.append(median_ms(model, rgb_t, mx_t, iters=10))
+                runs.append(median_ms(model, rgb_t, mx_t,
+                                      iters=10 if flash_calls == 0 else 4))
     fwd_ms, plain_fwd_ms = np.mean(fwd), np.mean(plain_fwd)
-    print(f"model forward alone, batch {EVAL_BATCH} bf16 (CUDA events, host "
+    print(f"{tag} forward alone, batch {EVAL_BATCH} bf16 (CUDA events, host "
           f"dispatch included): {fwd[0]:.3f}/{fwd[1]:.3f} ms "
           f"({EVAL_BATCH * 1e3 / fwd_ms:.2f} img/s); on the plain attention "
           f"path {plain_fwd[0]:.3f}/{plain_fwd[1]:.3f} ms "
           f"({EVAL_BATCH * 1e3 / plain_fwd_ms:.2f} img/s)")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          " GiB")
-    del model, ev, logits, plain_bf16
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"peak device memory {peak:.2f} GiB (eval and both forward paths)")
+    if flash_calls:
+        in_model = flash_in_model_phase(FA, model, rgb_t, mx_t)
+        print(f"{tag}: K5 on the model's activations and cotangents, "
+              f"{flash_calls} calls, within the kernel phase's bounds; largest "
+              f"errors {in_model}")
+    logits, plain_bf16 = (t[:fp32_batch].float() for t in (logits, plain_bf16))
+    if vs_truth:
+        by_stage = [stage_outputs(model, rgb_t[:fp32_batch], mx_t[:fp32_batch])]
+        with dual_segformer.plain_attention(model):
+            by_stage.append(stage_outputs(model, rgb_t[:fp32_batch],
+                                          mx_t[:fp32_batch]))
+    del model, ev
 
     # fp32, TF32 off: the kernel path against the plain path, same weights.
-    # fp32 runs the scalar kernel (sr_attention_fwd_kernel<float>) only; the
-    # tensor-core kernel is held by the bf16 checks above.
+    # fp32 runs the scalar kernels only; the tensor-core kernels are held by
+    # the bf16 checks above.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg32 = cfg.replace(model=dataclasses.replace(cfg.model,
                                                   use_mixed_precision=False))
     model32 = builder.build_model(cfg32, seed=0)
+    rgb_t, mx_t = rgb_t[:fp32_batch], mx_t[:fp32_batch]
     with torch.no_grad():
         k32 = model32(rgb_t, mx_t)
         with dual_segformer.plain_attention(model32):
@@ -700,13 +1039,44 @@ def slice_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer):
     # Both paths fp32 with TF32 off; only summation order differs (~1e-6
     # relative per op), compounded over ~40 layers: 1e-4 of the logit scale.
     tol = 1e-4 * max(1.0, float(p32.abs().max()))
-    print(f"fp32 logits, kernel vs plain attention: max_abs_err {err:.3e} "
+    print(f"{tag} fp32 logits, batch {fp32_batch}, kernel vs plain attention: "
+          f"max_abs_err {err:.3e} "
           f"(tol {tol:.3e}), argmax agreement {agree:.6f} (>= 0.999), "
           f"logit range {float(p32.min()):.3f}..{float(p32.max()):.3f}")
-    check(err <= tol and agree >= 0.999, "fp32 kernel path vs plain path")
-    del model32, k32, p32
+    check(err <= tol and agree >= 0.999,
+          f"{tag} fp32 kernel path vs plain path")
+    if vs_truth:
+        # Where the bf16 paths leave the fp32 model (printed, not checked).
+        with dual_segformer.plain_attention(model32):
+            truth = stage_outputs(model32, rgb_t, mx_t)
+        print(f"{tag}: rel L2 distance from the fp32 plain path, batch "
+              f"{fp32_batch}, bf16 kernel path / bf16 plain path:")
+        for name, t in truth.items():
+            far = [float((o[name] - t).norm() / t.norm()) for o in by_stage]
+            print(f"  {name:8s} {far[0]:.4f} / {far[1]:.4f}")
+        del truth, by_stage
+        rel_k, rel_p = (float((t - p32).norm() / p32.norm())
+                        for t in (logits, plain_bf16))
+        agree_k, agree_p = (float((t.argmax(-1) == p32.argmax(-1))
+                                  .float().mean()) for t in (logits, plain_bf16))
+        bound = PP_TRUTH_FACTOR * rel_p + PP_TRUTH_FLOOR
+        rel_kp = float((logits - plain_bf16).norm() / p32.norm())
+        apart = PP_PATHS_FACTOR * rel_p + PP_TRUTH_FLOOR
+        print(f"{tag} bf16 logits against the fp32 plain path, batch "
+              f"{fp32_batch}: kernel path rel L2 {rel_k:.4f} (bound {bound:.4f}"
+              f"), plain path {rel_p:.4f}, kernel vs plain {rel_kp:.4f} (bound "
+              f"{apart:.4f}); argmax agreement with fp32 "
+              f"{agree_k:.4f} (kernel, >= plain - {PP_ARGMAX_SLACK}), "
+              f"{agree_p:.4f} (plain)")
+        check(rel_k <= bound and rel_kp <= apart
+              and agree_k >= agree_p - PP_ARGMAX_SLACK,
+              f"{tag} bf16 kernel path is further from the fp32 model than "
+              "the bf16 plain path allows")
+    del model32, k32, p32, logits, plain_bf16
     torch.cuda.empty_cache()
-    return launches, items
+    return {"launches": launches, "flash_launches": flash_launches,
+            "img_per_s": N_IMAGES / dt, "forward_ms": float(fwd_ms),
+            "plain_forward_ms": float(plain_fwd_ms), "peak_gib": peak}
 
 
 def uint8_batches(items, batch):
@@ -740,15 +1110,15 @@ def cycle(batches):
 
 
 def one_step_losses_and_grads(train_lib, encoder, cfg, batch, names,
-                              prepare=None):
+                              prepare=None, paths=(False, True)):
     """One Trainer.step from seed-0 weights on the kernel path and one on
     the plain attention path (`encoder.plain_attention`): (loss, {name:
-    gradient}) of each. The step leaves its gradients in .grad. `prepare`
-    is applied to each fresh model first."""
+    gradient}) of each (`paths`: plain or not, in turn). The step leaves its
+    gradients in .grad. `prepare` is applied to each fresh model first."""
     import torch
 
     out = []
-    for plain in (False, True):
+    for plain in paths:
         trainer = train_lib.Trainer(cfg, seed=0)
         if prepare is not None:
             prepare(trainer.model)
@@ -816,10 +1186,51 @@ def compare_step(tag, kernel, plain, loss_rtol, grad_rtol, names=None,
     return rel, worst
 
 
-def train_phase(S, cfg_lib, train_lib, dual_segformer, items):
+def compare_step_to_truth(tag, kernel, plain, truth, names):
+    """One bf16 step on the kernel path and on the plain path against the
+    fp32 plain path: the kernel path's loss and named gradients may lie at
+    most PP_TRUTH_FACTOR times as far from the truth as the plain path's,
+    plus PP_TRUTH_FLOOR of the truth, and at most PP_PATHS_FACTOR times that
+    distance (plus the floor) from the plain path's. Returns the worst ratio
+    (kernel error) / (plain error) and the worst kernel error."""
+    (lk, gk), (lp, gp), (lt, gt) = kernel, plain, truth
+    ek, ep = abs(lk - lt) / abs(lt), abs(lp - lt) / abs(lt)
+    print(f"{tag} one step against the fp32 plain path: loss {lk:.6f} "
+          f"(kernel), {lp:.6f} (plain), {lt:.6f} (fp32): rel {ek:.2e} vs "
+          f"{ep:.2e}")
+    check(np.isfinite(lk) and ek <= PP_TRUTH_FACTOR * ep + PP_TRUTH_FLOOR,
+          f"{tag} step loss")
+    worst_ratio = worst = 0.0
+    for name in names:
+        norm = float(gt[name].norm())
+        ek = float((gk[name] - gt[name]).norm()) / norm
+        ep = float((gp[name] - gt[name]).norm()) / norm
+        ekp = float((gk[name] - gp[name]).norm()) / norm
+        bound = PP_TRUTH_FACTOR * ep + PP_TRUTH_FLOOR
+        worst, worst_ratio = max(worst, ek), max(worst_ratio, ek / ep)
+        apart = PP_PATHS_FACTOR * ep + PP_TRUTH_FLOOR
+        print(f"  grad {name}: rel L2 err to fp32 {ek:.3e} (kernel, bound "
+              f"{bound:.3e}), {ep:.3e} (plain); kernel vs plain {ekp:.3e} "
+              f"(bound {apart:.3e}); |g| {norm:.3e}")
+        check(np.isfinite(ek) and ek <= bound and ekp <= apart,
+              f"{tag} gradient of {name}: {ek} > {bound} or {ekp} > {apart}")
+    return worst_ratio, worst
+
+
+def train_phase(S, FA, cfg, train_lib, dual_segformer, items, sr_calls=32,
+                flash_calls=0, grad_names=None, fp32_batch=None,
+                vs_truth=False):
+    """Trainer.fit_epoch on a MiT-family model: a few counted steps with the
+    launches of K1, K2 (`sr_calls` per step each) and of K5's three kernels
+    (`flash_calls` each), the loss and the parameters moving; then one step
+    with drop rates 0 on the kernel path against the plain attention path,
+    in bf16 and (at `fp32_batch`, default the preset's) in fp32. `vs_truth`:
+    the bf16 step is held to an fp32 step on the plain path instead (see
+    PP_TRUTH_FACTOR)."""
     import torch
 
-    cfg = cfg_lib.mfnet_config()
+    tag = cfg.model.backbone
+    grad_names = grad_names or GRAD_NAMES
     # No warm-up: WarmUpPolyLR is 0 at step 0, and these few steps should
     # move the weights at the preset's lr.
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, warm_up_epoch=0))
@@ -831,11 +1242,15 @@ def train_phase(S, cfg_lib, train_lib, dual_segformer, items):
     before = {k: v.clone() for k, v in model.state_dict().items()}
     data = cycle(batches)
     log = LossLog()
-    print("train: warm-up, 2 steps")
+    print(f"{tag} train: warm-up, 2 steps")
     trainer.fit_epoch(data, 2, log_every=1, logger=log)
 
-    S.sr_attention.launches = 0
-    S.sr_attention_bwd.launches = 0
+    counters = {"fwd": S.sr_attention, "bwd": S.sr_attention_bwd,
+                "flash_fwd": FA.flash_attention,
+                "flash_dkv": FA.flash_attention_dkv,
+                "flash_dq": FA.flash_attention_dq}
+    for fn in counters.values():
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -846,25 +1261,30 @@ def train_phase(S, cfg_lib, train_lib, dual_segformer, items):
     b.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd_launches = S.sr_attention.launches
-    bwd_launches = S.sr_attention_bwd.launches
+    counts = {k: fn.launches for k, fn in counters.items()}
+    fwd_launches, bwd_launches = counts["fwd"], counts["bwd"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ev_ms = a.elapsed_time(b) / TRAIN_STEPS
     bs = cfg.train.batch_size
-    print(f"train: {TRAIN_STEPS} steps of batch {bs} at {HW}, bf16: "
+    print(f"{tag} train: {TRAIN_STEPS} steps of batch {bs} at {HW}, bf16: "
           f"{ev_ms:.2f} ms/step (CUDA events), {wall * 1e3 / TRAIN_STEPS:.2f} "
           f"ms/step (wall), {bs * TRAIN_STEPS / wall:.2f} img/s, mean loss "
-          f"{mean_loss:.4f}, peak memory {peak:.2f} GiB; kernel launches "
+          f"{mean_loss:.4f}, peak memory {peak:.2f} GiB; SR kernel launches "
           f"forward {fwd_launches}, backward {bwd_launches} "
-          f"(expected {32 * TRAIN_STEPS} each)")
-    check(fwd_launches == 32 * TRAIN_STEPS and bwd_launches == 32 * TRAIN_STEPS,
-          f"launches {fwd_launches}/{bwd_launches} != 32 x {TRAIN_STEPS}")
+          f"(expected {sr_calls * TRAIN_STEPS} each); flash launches forward "
+          f"{counts['flash_fwd']}, dk/dv {counts['flash_dkv']}, dq "
+          f"{counts['flash_dq']} (expected {flash_calls * TRAIN_STEPS} each)")
+    check(fwd_launches == sr_calls * TRAIN_STEPS
+          and bwd_launches == sr_calls * TRAIN_STEPS
+          and all(counts[k] == flash_calls * TRAIN_STEPS
+                  for k in ("flash_fwd", "flash_dkv", "flash_dq")),
+          f"launches {counts} != ({sr_calls}, {flash_calls}) x {TRAIN_STEPS}")
     check(np.isfinite(mean_loss), "mean loss is finite")
-    print("train: 2 more steps")
+    print(f"{tag} train: 2 more steps")
     trainer.fit_epoch(data, 2, log_every=1, logger=log)
     check(all(np.isfinite(x) for x in log.losses), "every loss is finite")
     # Steps 0 and 8 both see batch 0.
-    print(f"train: loss on batch 0 at step 0 {log.losses[0]:.4f}, at step "
+    print(f"{tag} train: loss on batch 0 at step 0 {log.losses[0]:.4f}, at step "
           f"{TRAIN_STEPS + 2} {log.losses[2]:.4f}")
     check(log.losses[2] < log.losses[0], "the loss fell on the repeated batch")
     after = model.state_dict()
@@ -872,11 +1292,26 @@ def train_phase(S, cfg_lib, train_lib, dual_segformer, items):
              and not torch.equal(v, before[k])]
     stats = [k for k in moved if k.endswith(("running_mean", "running_var"))]
     n_float = sum(v.is_floating_point() for v in after.values())
-    print(f"train: {len(moved)} of {n_float} float tensors changed, "
-          f"{len(stats)} of them BatchNorm running statistics")
+    n_stats = 2 * sum(isinstance(m, torch.nn.BatchNorm2d)
+                      for m in model.modules())
+    print(f"{tag} train: {len(moved)} of {n_float} float tensors changed, "
+          f"{len(stats)} of them BatchNorm running statistics (of {n_stats})")
     # A bias in front of a BatchNorm has a zero true gradient and may stay.
-    check(len(moved) >= 0.95 * n_float and len(stats) == 18,
+    check(len(moved) >= 0.95 * n_float and len(stats) == n_stats,
           "the parameters and every BatchNorm statistic moved")
+    fusion_params = [k for k in after if ".FRMs." in k or ".FFMs." in k]
+    lambdas = [k for k in after if k.endswith(("lambda_channel",
+                                               "lambda_spatial"))]
+    if flash_calls:
+        still = [k for k in fusion_params if after[k].is_floating_point()
+                 and k not in moved and not k.endswith(".bias")]
+        print(f"{tag} train: {len(lambdas)} lambdas, all moved: "
+              f"{set(lambdas) <= set(moved)} (FRMs.0: "
+              f"{float(after['backbone.FRMs.0.lambda_channel']):.6f}, "
+              f"{float(after['backbone.FRMs.0.lambda_spatial']):.6f}); IFRM/"
+              f"IFFM tensors that stayed (biases aside): {still}")
+        check(len(lambdas) == 8 and set(lambdas) <= set(moved) and not still,
+              "the IFRM/IFFM parameters and both lambdas of every stage moved")
 
     # Kernel path against plain path, same trainer: windows of 2 steps,
     # kernel, plain, plain, kernel; peak memory of the plain path.
@@ -897,36 +1332,54 @@ def train_phase(S, cfg_lib, train_lib, dual_segformer, items):
     plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     k2 = steps_ms()
     step_ms, plain_step_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"train step (CUDA events, host dispatch included): kernel path "
+    print(f"{tag} train step (CUDA events, host dispatch included): kernel path "
           f"{k1:.2f}/{k2:.2f} ms ({bs * 1e3 / step_ms:.2f} img/s, peak "
           f"{peak:.2f} GiB); plain attention path {p1:.2f}/{p2:.2f} ms "
           f"({bs * 1e3 / plain_step_ms:.2f} img/s, peak {plain_peak:.2f} GiB)")
 
-    profile_steps(trainer, data)
+    prof = profile_steps(trainer, data)
     del trainer, model, before, after
     torch.cuda.empty_cache()
 
     # One step with drop rates 0, kernel path against plain path.
     cfg0 = cfg.replace(model=dataclasses.replace(
         cfg.model, drop_path_rate=0.0, decoder_dropout_ratio=0.0))
-    bf16 = compare_step(
-        "bf16", *one_step_losses_and_grads(train_lib, dual_segformer, cfg0,
-                                           batches[0], GRAD_NAMES),
-        BF16_LOSS_RTOL, BF16_GRAD_RTOL)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg32 = cfg0.replace(model=dataclasses.replace(
         cfg0.model, use_mixed_precision=False))
+    both = one_step_losses_and_grads(train_lib, dual_segformer, cfg0,
+                                     batches[0], grad_names)
+    if vs_truth:
+        truth = one_step_losses_and_grads(
+            train_lib, dual_segformer, cfg32, batches[0], grad_names,
+            paths=(True,))[0]
+        bf16 = compare_step_to_truth(f"{tag} bf16", *both, truth, grad_names)
+    else:
+        bf16 = compare_step(f"{tag} bf16", *both, BF16_LOSS_RTOL,
+                            BF16_GRAD_RTOL, grad_names)
+    batch32 = batches[0]
+    if fp32_batch:
+        cfg32 = cfg32.replace(train=dataclasses.replace(
+            cfg32.train, batch_size=fp32_batch))
+        batch32 = {k: v[:fp32_batch] for k, v in batch32.items()}
     fp32 = compare_step(
-        "fp32 (TF32 off)", *one_step_losses_and_grads(
-            train_lib, dual_segformer, cfg32, batches[0], GRAD_NAMES),
-        FP32_LOSS_RTOL, FP32_GRAD_RTOL)
+        f"{tag} fp32 (TF32 off, batch {cfg32.train.batch_size})",
+        *one_step_losses_and_grads(train_lib, dual_segformer, cfg32, batch32,
+                                   grad_names),
+        FP32_LOSS_RTOL, FP32_GRAD_RTOL, grad_names)
     return {"fwd_launches": fwd_launches, "bwd_launches": bwd_launches,
+            "flash_launches": [counts["flash_fwd"], counts["flash_dkv"],
+                               counts["flash_dq"]],
+            "device_kernels": prof[0] if prof else None,
+            "device_ms": prof[1] if prof else None,
             "step_ms": step_ms, "plain_step_ms": plain_step_ms,
             "img_per_s": bs * 1e3 / step_ms, "peak_gib": peak,
-            "plain_peak_gib": plain_peak, "bf16_loss_rel": bf16[0],
-            "bf16_grad_rel": bf16[1], "fp32_loss_rel": fp32[0],
-            "fp32_grad_rel": fp32[1]}
+            "plain_peak_gib": plain_peak,
+            **({"bf16_worst_kernel_to_plain_error_ratio": bf16[0],
+                "bf16_grad_rel_to_fp32": bf16[1]} if vs_truth else
+               {"bf16_loss_rel": bf16[0], "bf16_grad_rel": bf16[1]}),
+            "fp32_loss_rel": fp32[0], "fp32_grad_rel": fp32[1]}
 
 
 def swin_cfg(cfg_lib):
@@ -1146,8 +1599,11 @@ def main() -> int:
     from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
         dual_segformer, dual_swin)
     from rgbx_semantic_segmentation_tpu_torch.native import build
+    from rgbx_semantic_segmentation_tpu_torch.ops import flash_attention as FA
     from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
     from rgbx_semantic_segmentation_tpu_torch.ops import window_attention as W
+    from rgbx_semantic_segmentation_tpu_torch.tools import (
+        bench_flash_attention as T5)
     from rgbx_semantic_segmentation_tpu_torch.tools import (
         bench_window_attention as T)
 
@@ -1187,21 +1643,42 @@ def main() -> int:
               f"plain {per_step(rows, 'plain_ms', SWIN_CALLS):.3f} ms, SDPA "
               f"{per_step(rows, 'library_ms', SWIN_CALLS):.3f} ms, bound "
               f"{per_step(rows, 'bound_ms', SWIN_CALLS):.3f} ms")
-    eval_launches, items = slice_phase(S, cfg_lib, builder, evaluator_lib,
-                                       dual_segformer)
-    train = train_phase(S, cfg_lib, train_lib, dual_segformer, items)
+    flash_err, flash_rows = flash_kernel_phase(FA, T5)
+    for which, tag in (("fwd", "forward"), ("dkv", "dk/dv"), ("dq", "dq")):
+        rows = flash_rows[which]
+        print(f"flash attention {tag}, the 6 calls of a mit_b2pp step: kernel "
+              f"{per_step(rows, 'ms', T5.CALLS):.3f} ms, plain "
+              f"{per_step(rows, 'plain_ms', T5.CALLS):.3f} ms, SDPA "
+              f"{per_step(rows, 'library_ms', T5.CALLS):.3f} ms, bound "
+              f"{per_step(rows, 'bound_ms', T5.CALLS):.3f} ms")
+    cfg = cfg_lib.mfnet_config()
+    check(cfg.model.backbone == "mit_b2", "mfnet preset is mit_b2")
+    items = synthetic_items(N_IMAGES, HW, cfg.dataset.num_classes)
+    mit_eval = slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer,
+                           items)
+    train = train_phase(S, FA, cfg, train_lib, dual_segformer, items)
     swin_eval = swin_eval_phase(S, W, T, cfg_lib, builder, evaluator_lib,
                                 dual_swin, items)
     swin_train = swin_train_phase(S, W, T, cfg_lib, train_lib, dual_swin,
                                   items)
+    pp_eval = slice_phase(S, FA, pp_cfg(cfg_lib), builder, evaluator_lib,
+                          dual_segformer, items, sr_calls=PP_SR_CALLS,
+                          flash_calls=PP_FLASH_CALLS, fp32_batch=PP_FP32_BATCH,
+                          vs_truth=True)
+    pp_train = train_phase(S, FA, pp_cfg(cfg_lib), train_lib, dual_segformer,
+                           items, sr_calls=PP_SR_CALLS,
+                           flash_calls=PP_FLASH_CALLS,
+                           grad_names=PP_GRAD_NAMES, fp32_batch=PP_FP32_BATCH,
+                           vs_truth=True)
     print(card)
 
-    def kernel_entry(name, replaces, launches, err, rows, calls):
+    def kernel_entry(name, replaces, launches, err, rows, calls, source=None):
         # Times are those of the calls of one forward (backward) of the
-        # model that runs the kernel (32 for mit_b2, 48 for swin_s);
-        # `per_call` has them per shape.
+        # model that runs the kernel (32 for mit_b2, 48 for swin_s, 6 for
+        # mit_b2pp's flash attention); `per_call` has them per shape.
         return {"name": name, "route": "cuda",
-                "source": f"rgbx_semantic_segmentation_tpu_torch/csrc/{name}.cu",
+                "source": "rgbx_semantic_segmentation_tpu_torch/csrc/"
+                          f"{source or name}.cu",
                 "replaces": f"rgbx_semantic_segmentation_tpu/ops/{replaces}",
                 "launches": launches, "max_abs_err": err,
                 "ms": per_step(rows, "ms", calls),
@@ -1213,21 +1690,37 @@ def main() -> int:
                 "library_ms": per_step(rows, "library_ms", calls),
                 "per_call": rows}
 
+    # K5 replaces the three upstream Pallas kernels that attention.py:50
+    # (`_flash_attention`) reaches: jax/experimental/pallas/ops/tpu/
+    # flash_attention.py :758 (forward), :1121 (dk/dv), :1456 (dq).
+    flash_eval = pp_eval["flash_launches"]
+    flash_train = pp_train["flash_launches"]
     print(json.dumps({"kernels": [
         kernel_entry("sr_attention_fwd", "sr_attention.py:104",
-                     eval_launches + train["fwd_launches"], fwd_err, fwd_rows,
-                     CALLS_PER_FORWARD),
+                     mit_eval["launches"] + train["fwd_launches"]
+                     + pp_eval["launches"] + pp_train["fwd_launches"],
+                     fwd_err, fwd_rows, CALLS_PER_FORWARD),
         kernel_entry("sr_attention_bwd", "sr_attention.py:123",
-                     train["bwd_launches"], bwd_err, bwd_rows,
-                     CALLS_PER_FORWARD),
+                     train["bwd_launches"] + pp_train["bwd_launches"],
+                     bwd_err, bwd_rows, CALLS_PER_FORWARD),
         kernel_entry("window_attention_fwd", "window_attention.py:179",
                      swin_eval["launches"] + swin_train["fwd_launches"],
                      wfwd_err, wfwd_rows, SWIN_CALLS),
         kernel_entry("window_attention_bwd", "window_attention.py:205",
                      swin_train["bwd_launches"], wbwd_err, wbwd_rows,
-                     SWIN_CALLS)],
-        "eval_launches": eval_launches, "train": train,
-        "swin_eval": swin_eval, "swin_train": swin_train, "card": card}))
+                     SWIN_CALLS),
+        kernel_entry("flash_attention_fwd", "attention.py:50",
+                     flash_eval + flash_train[0], flash_err["fwd"],
+                     flash_rows["fwd"], T5.CALLS),
+        kernel_entry("flash_attention_bwd_dkv", "attention.py:50",
+                     flash_train[1], flash_err["dkv"], flash_rows["dkv"],
+                     T5.CALLS, source="flash_attention_bwd"),
+        kernel_entry("flash_attention_bwd_dq", "attention.py:50",
+                     flash_train[2], flash_err["dq"], flash_rows["dq"],
+                     T5.CALLS, source="flash_attention_bwd")],
+        "eval_launches": mit_eval["launches"], "mit_eval": mit_eval,
+        "train": train, "swin_eval": swin_eval, "swin_train": swin_train,
+        "pp_eval": pp_eval, "pp_train": pp_train, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

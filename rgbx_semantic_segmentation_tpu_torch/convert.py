@@ -13,6 +13,7 @@ module:
   - batch_stats mean / var          -> running_mean / running_var, plus a
                                        zero num_batches_tracked
   - a path segment `a_b_<digits>`   -> `a_b.<digits>`
+  - any other leaf (biases, the 0-d IFRM lambdas) as it is
 
 `flax_params_to_torch` applies the same transform to any tree shaped like
 `params` (gradients, updated parameters). BatchNorm running statistics

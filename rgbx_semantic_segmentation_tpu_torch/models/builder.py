@@ -1,9 +1,10 @@
 """Config-driven model assembly (counterpart of
 rgbx_semantic_segmentation_tpu/models/builder.py).
 
-Built so far: the MiT family (mit_tiny, mit_b0..b5) and the dual Swin
-family (swin_s, swin_b), both with FRM/FFM fusion, and the MLPDecoder head.
-Every other backbone or decoder name the JAX registry knows, and the Swin
+Built so far: the MiT family (mit_tiny, mit_b0..b5, with the config's
+FRM/FFM or IFRM/IFFM fusion, and the `mit_*pp` names that hardwire
+IFRM/IFFM) and the dual Swin family (swin_s, swin_b) with FRM/FFM, and the
+MLPDecoder head. Every other backbone or decoder name the JAX registry knows, and the Swin
 knobs `swin_ape` and `swin_frozen_stages`, raise NotImplementedError naming
 their ROADMAP item.
 """
@@ -35,7 +36,6 @@ SWIN_FACTORIES = {"swin_s": dual_swin.swin_s, "swin_b": dual_swin.swin_b}
 _LATER_BACKBONES = {
     "_w_aspp": "M10 item 1 (ASPP variants)",
     "_w_ef_aspp": "M10 item 1 (ASPP variants)",
-    "pp": "M10 item 4 (IFRM/IFFM, needs K5)",
     "segnext": "M10 item 6 (SegNeXt)",
     "resnet": "M10 item 7 (ResNet)",
 }
@@ -55,21 +55,25 @@ def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
             "yet: ROADMAP M5 rest")
     if name in SWIN_FACTORIES:
         return _build_swin(cfg), dual_swin.CHANNELS[name]
-    if name not in MIT_FACTORIES:
+    # mit_*pp: the same towers with IFRM/IFFM whatever the config names.
+    fusion = ({"frm": "IFRM", "ffm": "IFFM"} if name.endswith("pp") else
+              {"frm": cfg.model.feature_rectify_module,
+               "ffm": cfg.model.feature_fusion_module})
+    base = name[:-2] if name.endswith("pp") else name
+    if base not in MIT_FACTORIES:
         for key, item in _LATER_BACKBONES.items():
             if key in name:
                 raise NotImplementedError(
                     f"backbone {name!r} is not ported yet: ROADMAP {item}")
         raise KeyError(f"unknown backbone {name!r}; have "
                        f"{sorted(MIT_FACTORIES) + sorted(SWIN_FACTORIES)}")
-    module = MIT_FACTORIES[name](
-        frm=cfg.model.feature_rectify_module,
-        ffm=cfg.model.feature_fusion_module,
+    module = MIT_FACTORIES[base](
+        **fusion,
         drop_path_rate=cfg.model.drop_path_rate,
         use_pallas=cfg.model.use_pallas_kernels,
         gelu_approximate=cfg.model.gelu_approximate,
         dtype=torch_dtype(cfg.model))
-    return module, dual_segformer.CHANNELS[name]
+    return module, dual_segformer.CHANNELS[base]
 
 
 def _build_swin(cfg: Config) -> nn.Module:

@@ -209,9 +209,13 @@ class RGBXTransformer(nn.Module):
             cur += depths[s]
         self.FRMs = nn.ModuleList([frm_cls(dim=d, reduction=1)
                                    for d in embed_dims])
+        # IFFM's quadratic cross-attention needs the kernels to fit at
+        # production resolution; plain FFM has no such knob.
+        ffm_kw = {"use_pallas": use_pallas} if ffm == "IFFM" else {}
         self.FFMs = nn.ModuleList([
             ffm_cls(dim=d, reduction=1, num_heads=h, bn_momentum=bn_momentum,
-                    bn_eps=bn_eps) for d, h in zip(embed_dims, num_heads)])
+                    bn_eps=bn_eps, **ffm_kw)
+            for d, h in zip(embed_dims, num_heads)])
 
     def forward(self, x_rgb, x_e) -> List[torch.Tensor]:
         outs = []
@@ -234,9 +238,11 @@ class RGBXTransformer(nn.Module):
 
 @contextlib.contextmanager
 def plain_attention(model: nn.Module) -> Iterator[nn.Module]:
-    """Run `model`'s MiT attentions on the plain `_sdpa` path inside the
-    block (for holding the kernel path against it); restores on exit."""
-    mods = [m for m in model.modules() if isinstance(m, Attention)]
+    """Run `model`'s MiT attentions and IFFM cross-attentions on the plain
+    path inside the block (for holding the kernel path against it; see
+    ops/attention.multi_head_attention); restores on exit."""
+    mods = [m for m in model.modules()
+            if isinstance(m, (Attention, fusion.ImprovedCrossAttention))]
     saved = [m.use_pallas for m in mods]
     try:
         for m in mods:

@@ -1,16 +1,22 @@
-"""Cross-modal fusion: FRM / FFM (counterpart of
-rgbx_semantic_segmentation_tpu/models/fusion.py, FRM/FFM path only).
+"""Cross-modal fusion: FRM / FFM and their Improved variants IFRM / IFFM
+(counterpart of rgbx_semantic_segmentation_tpu/models/fusion.py).
 
 Maps are NCHW, tokens (B, N, C). Submodule paths are the original repo's
-(`channel_weights.mlp.0`, `channel_emb.channel_embed.4`, ...).
+(`channel_weights.mlp.0`, `channel_weights.gate.0`,
+`cross.cross_attn.kv1`, `channel_emb.channel_embed.4`, ...). LayerNorms
+here use torch's default eps 1e-5 (the JAX `layer_norm` default), not the
+MiT blocks' 1e-6.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from rgbx_semantic_segmentation_tpu_torch.ops.attention import (
+    multi_head_attention)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
-    map_to_tokens, tokens_to_map)
+    Dropout, map_to_tokens, tokens_to_map)
 
 
 class ChannelWeights(nn.Module):
@@ -66,6 +72,73 @@ class FeatureRectifyModule(nn.Module):
         return out_x1, out_x2
 
 
+class ImprovedChannelWeights(nn.Module):
+    """LayerNorm + GELU MLP over the pooled statistics with a learned
+    sigmoid gate on its output. Returns (w0, w1), each (B, C, 1, 1)."""
+
+    def __init__(self, dim: int, reduction: int = 1):
+        super().__init__()
+        self.dim = dim
+        hidden = dim * 4 // reduction
+        self.mlp = nn.Sequential(
+            nn.Linear(dim * 4, hidden), nn.LayerNorm(hidden), nn.GELU(),
+            nn.Linear(hidden, dim * 2), nn.LayerNorm(dim * 2))
+        self.gate = nn.Sequential(nn.Linear(dim * 2, dim * 2), nn.Sigmoid())
+
+    def forward(self, x1, x2):
+        B = x1.shape[0]
+        x = torch.cat([x1, x2], dim=1)
+        y = self.mlp(torch.cat([x.mean(dim=(2, 3)), x.amax(dim=(2, 3))],
+                               dim=1))
+        y = y * self.gate(y)
+        C = self.dim
+        return y[:, :C].reshape(B, C, 1, 1), y[:, C:].reshape(B, C, 1, 1)
+
+
+class ImprovedSpatialWeights(nn.Module):
+    """Three 1x1 convs with BatchNorm + GELU and a residual around the
+    second; no final sigmoid. Returns (w0, w1), each (B, 1, H, W)."""
+
+    def __init__(self, dim: int, reduction: int = 1):
+        super().__init__()
+        mid = dim // reduction
+        self.conv1 = nn.Conv2d(dim * 2, mid, 1)
+        self.norm1 = nn.BatchNorm2d(mid)
+        self.conv2 = nn.Conv2d(mid, mid, 1)
+        self.norm2 = nn.BatchNorm2d(mid)
+        self.conv3 = nn.Conv2d(mid, 2, 1)
+
+    def forward(self, x1, x2):
+        y = F.gelu(self.norm1(self.conv1(torch.cat([x1, x2], dim=1))))
+        y = F.gelu(self.norm2(self.conv2(y))) + y
+        y = self.conv3(y)
+        return y[:, 0:1], y[:, 1:2]
+
+
+class ImprovedFeatureRectifyModule(nn.Module):
+    """IFRM: learnable lambdas (0-d parameters, 0.5 at the start) and one
+    LayerNorm over channels shared by both outputs."""
+
+    def __init__(self, dim: int, reduction: int = 1):
+        super().__init__()
+        self.channel_weights = ImprovedChannelWeights(dim, reduction)
+        self.spatial_weights = ImprovedSpatialWeights(dim, reduction)
+        self.lambda_channel = nn.Parameter(torch.tensor(0.5))
+        self.lambda_spatial = nn.Parameter(torch.tensor(0.5))
+        self.norm = nn.LayerNorm(dim)
+
+    def _norm(self, x):
+        return self.norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+    def forward(self, x1, x2):
+        cw0, cw1 = self.channel_weights(x1, x2)
+        sw0, sw1 = self.spatial_weights(x1, x2)
+        lam_c, lam_s = self.lambda_channel, self.lambda_spatial
+        out_x1 = x1 + lam_c * cw1 * x2 + lam_s * sw1 * x2
+        out_x2 = x2 + lam_c * cw0 * x1 + lam_s * sw0 * x1
+        return self._norm(out_x1), self._norm(out_x2)
+
+
 class CrossAttention(nn.Module):
     """Linear cross-modal exchange: per modality i,
     ctx_i = softmax over axis -2 of (k_i^T v_i) * scale, a (B, h, d, d)
@@ -106,6 +179,66 @@ class CrossAttention(nn.Module):
                 y2.transpose(1, 2).reshape(B, N, C))
 
 
+class ImprovedCrossAttention(nn.Module):
+    """Softmax cross-attention q1 k2^T -> v2 and q2 k1^T -> v1 with q, kv
+    and output projections. Quadratic in the tokens: at the first stage of
+    a 480x640 image N = M = 19200, and the probabilities of one call would
+    be 11.8 GB in fp32 at batch 8. With `use_pallas` the middle goes through
+    ops/attention.multi_head_attention to the hand-written kernels (long kv:
+    the flash attention kernels; the short last stage: the SR kernels) and
+    no (N, M) tensor reaches device memory. `attn_drop` sits between the
+    softmax and p @ v, so a non-zero rate in training takes the
+    materialising path (every config leaves it 0)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 use_pallas: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn_drop = attn_drop
+        # Name kept from the JAX module: it enables the kernels here.
+        self.use_pallas = use_pallas
+        self.q1 = nn.Linear(dim, dim, bias=qkv_bias)
+        self.kv1 = nn.Linear(dim, dim * 2, bias=qkv_bias)
+        self.q2 = nn.Linear(dim, dim, bias=qkv_bias)
+        self.kv2 = nn.Linear(dim, dim * 2, bias=qkv_bias)
+        self.proj1 = nn.Linear(dim, dim)
+        self.proj2 = nn.Linear(dim, dim)
+        self.attn_dropout = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
+
+    def _attend(self, q, k, v, scale):
+        if self.attn_drop == 0.0 or not self.training:
+            return multi_head_attention(q, k, v, scale,
+                                        use_kernels=self.use_pallas)
+        B, h, N, d = q.shape
+        with torch.autocast(q.device.type, enabled=False):
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+            probs = self.attn_dropout(torch.softmax(logits, dim=-1).to(v.dtype))
+            out = torch.matmul(probs.float(), v.float()).to(v.dtype)
+        return out.transpose(1, 2).reshape(B, N, h * d)
+
+    def forward(self, x1, x2):
+        B, N, C = x1.shape
+        h = self.num_heads
+        d = C // h
+        scale = d ** -0.5
+
+        def project(x, q_lin, kv_lin):
+            q = q_lin(x).reshape(B, N, h, d).transpose(1, 2)
+            # unbind: its backward is one stack of dk and dv, which the
+            # kernels' backward already writes side by side.
+            k, v = (t.transpose(1, 2)
+                    for t in kv_lin(x).reshape(B, N, 2, h, d).unbind(2))
+            return q, k, v
+
+        q1, k1, v1 = project(x1, self.q1, self.kv1)
+        q2, k2, v2 = project(x2, self.q2, self.kv2)
+        y1 = self.proj_drop(self.proj1(self._attend(q1, k2, v2, scale)))
+        y2 = self.proj_drop(self.proj2(self._attend(q2, k1, v1, scale)))
+        return y1, y2
+
+
 class CrossPath(nn.Module):
     """Per-branch expand + cross-attend + merge, residual + LayerNorm (torch
     default eps 1e-5)."""
@@ -131,21 +264,48 @@ class CrossPath(nn.Module):
                 self.norm2(x2 + self.end_proj2(y2)))
 
 
+class ImprovedCrossPath(nn.Module):
+    """CrossPath with erf-GELU expansions and ImprovedCrossAttention."""
+
+    def __init__(self, dim: int, reduction: int = 1, num_heads: int = 8,
+                 use_pallas: bool = False):
+        super().__init__()
+        inner = dim // reduction
+        self.channel_proj1 = nn.Linear(dim, inner * 2)
+        self.channel_proj2 = nn.Linear(dim, inner * 2)
+        self.cross_attn = ImprovedCrossAttention(inner, num_heads,
+                                                 use_pallas=use_pallas)
+        self.end_proj1 = nn.Linear(inner * 2, dim)
+        self.end_proj2 = nn.Linear(inner * 2, dim)
+        self.norm1 = nn.LayerNorm(dim)
+        self.norm2 = nn.LayerNorm(dim)
+
+    def forward(self, x1, x2):
+        y1, u1 = F.gelu(self.channel_proj1(x1)).chunk(2, dim=-1)
+        y2, u2 = F.gelu(self.channel_proj2(x2)).chunk(2, dim=-1)
+        v1, v2 = self.cross_attn(u1, u2)
+        y1 = torch.cat([y1, v1], dim=-1)
+        y2 = torch.cat([y2, v2], dim=-1)
+        return (self.norm1(x1 + self.end_proj1(y1)),
+                self.norm2(x2 + self.end_proj2(y2)))
+
+
 class ChannelEmbed(nn.Module):
-    """Token -> map projection: 1x1 residual + [1x1 -> 3x3 DW -> ReLU -> 1x1
-    -> BN] bottleneck, summed then BN. BatchNorm eps is the encoder's
-    (1e-5), not the config's."""
+    """Token -> map projection: 1x1 residual + [1x1 -> 3x3 DW -> ReLU (erf
+    GELU with act="gelu", the Improved variant) -> 1x1 -> BN] bottleneck,
+    summed then BN. BatchNorm eps is the encoder's (1e-5), not the
+    config's."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  reduction: int = 1, bn_momentum: float = 0.1,
-                 bn_eps: float = 1e-5):
+                 bn_eps: float = 1e-5, act: str = "relu"):
         super().__init__()
         mid = out_channels // reduction
         self.residual = nn.Conv2d(in_channels, out_channels, 1, bias=False)
         self.channel_embed = nn.Sequential(
             nn.Conv2d(in_channels, mid, 1),
             nn.Conv2d(mid, mid, 3, padding=1, groups=mid),
-            nn.ReLU(),
+            nn.ReLU() if act == "relu" else nn.GELU(),
             nn.Conv2d(mid, out_channels, 1),
             nn.BatchNorm2d(out_channels, eps=bn_eps, momentum=bn_momentum))
         self.norm = nn.BatchNorm2d(out_channels, eps=bn_eps,
@@ -173,19 +333,28 @@ class FeatureFusionModule(nn.Module):
         return self.channel_emb(torch.cat([t1, t2], dim=-1), H, W)
 
 
+class ImprovedFeatureFusionModule(nn.Module):
+    """IFFM: ImprovedCrossPath token exchange + GELU ChannelEmbed."""
+
+    def __init__(self, dim: int, reduction: int = 1, num_heads: int = 8,
+                 bn_momentum: float = 0.1, bn_eps: float = 1e-5,
+                 use_pallas: bool = False):
+        super().__init__()
+        self.cross = ImprovedCrossPath(dim, reduction, num_heads, use_pallas)
+        self.channel_emb = ChannelEmbed(dim * 2, dim, reduction, bn_momentum,
+                                        bn_eps, act="gelu")
+
+    def forward(self, x1, x2):
+        H, W = x1.shape[2:]
+        t1, t2 = self.cross(map_to_tokens(x1), map_to_tokens(x2))
+        return self.channel_emb(torch.cat([t1, t2], dim=-1), H, W)
+
+
 def get_frm(name: str):
-    if name == "FRM":
-        return FeatureRectifyModule
-    if name == "IFRM":
-        raise NotImplementedError(
-            "IFRM (mit_*pp) is not ported yet: ROADMAP M10 item 4")
-    raise KeyError(f"unknown feature rectify module {name!r}")
+    return {"FRM": FeatureRectifyModule,
+            "IFRM": ImprovedFeatureRectifyModule}[name]
 
 
 def get_ffm(name: str):
-    if name == "FFM":
-        return FeatureFusionModule
-    if name == "IFFM":
-        raise NotImplementedError(
-            "IFFM (mit_*pp) is not ported yet: ROADMAP M10 item 4 (needs K5)")
-    raise KeyError(f"unknown feature fusion module {name!r}")
+    return {"FFM": FeatureFusionModule,
+            "IFFM": ImprovedFeatureFusionModule}[name]

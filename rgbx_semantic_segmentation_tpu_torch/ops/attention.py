@@ -3,22 +3,26 @@ ops/attention.py).
 
 `multi_head_attention` dispatches as the JAX version does on its
 accelerator: with kernels enabled, short-kv shapes (sr_attention.supported)
-go to the hand-written kernel; long-kv shapes (flash_supported) have no port
-yet and raise; everything else runs the plain `_sdpa`, forward and backward.
-On a CPU tensor the kernel wrapper itself takes its plain versions.
+go to the SR kernels and, tried after them, long-kv shapes
+(flash_attention.supported) to the flash attention kernels; shapes that pass
+neither gate run the plain `_sdpa`, forward and backward. On a CPU tensor
+each kernel wrapper itself takes its plain versions. With kernels disabled
+the same shapes run `_sdpa`, except the long-kv ones, whose (N, M)
+probabilities `_sdpa` would keep for its backward (5.9 GB a call at the
+first mit_b2pp stage): they take the chunked plain versions of the flash
+attention, which keep none. That plain path differs from the JAX package's
+`_sdpa` in its rounding point: it rounds the unnormalised p to v's dtype
+and divides by the row sum after p @ v (the flash kernels' order), where
+`_sdpa` normalises first and rounds the probabilities. In fp32 the two agree
+to summation order (the CPU parity tests); in bf16 they differ by the
+rounding of p, about a bf16 ulp of the output.
 """
 from __future__ import annotations
 
 import torch
 
+from rgbx_semantic_segmentation_tpu_torch.ops import flash_attention as FA
 from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as SR
-
-
-def flash_supported(q_shape, k_shape) -> bool:
-    """Shapes the JAX package sends to the long-kv flash kernel (its
-    `flash_supported` without the TPU test)."""
-    N, d = q_shape[2], q_shape[3]
-    return N >= 1024 and d >= 32 and d % 8 == 0
 
 
 class _Sdpa(torch.autograd.Function):
@@ -69,13 +73,13 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          use_kernels: bool = False) -> torch.Tensor:
     """Softmax attention. q: (B, h, N, d); k, v: (B, h, M, d) -> (B, N, h*d)."""
     B, h, N, d = q.shape
-    if use_kernels and SR.supported(q.shape, k.shape):
+    if SR.supported(q.shape, k.shape):
         # The kernel takes the head-split views as they are, and its output
         # is laid out so that the merge below is a view.
-        out = SR.sr_attention(q, k, v, scale)
-    elif use_kernels and q.is_cuda and flash_supported(q.shape, k.shape):
-        raise NotImplementedError(
-            "long-kv attention (M > 1024) has no CUDA kernel yet: ROADMAP K5")
+        out = (SR.sr_attention if use_kernels else _sdpa)(q, k, v, scale)
+    elif FA.supported(q.shape, k.shape):
+        out = (FA.flash_attention if use_kernels
+               else FA.flash_attention_plain)(q, k, v, scale)
     else:
         out = _sdpa(q, k, v, scale)
     return out.transpose(1, 2).reshape(B, N, h * d)

@@ -11,8 +11,9 @@ nn.BatchNorm2d, whose eval mode normalises with the running statistics
 Initialization follows the JAX package (which follows the original repo's
 `_init_weights`): Linear and the Swin relative-position bias tables =
 truncated normal (std 0.02), Linear bias zero; Conv2d = normal(0, sqrt(2 / fan_out)), fan_out = kh * kw * out / groups,
-with zero bias; norms = ones / zeros. `init_weights` applies it to a whole
-model from an explicit torch.Generator.
+with zero bias; norms = ones / zeros; the IFRM lambdas = 0.5.
+`init_weights` applies it to a whole model from an explicit
+torch.Generator.
 
 Randomness in training is explicit too: DropPath and Dropout draw their
 masks from the torch.Generator in their `generator` attribute, which
@@ -53,13 +54,15 @@ def conv_kaiming_normal_(w: torch.Tensor, groups: int,
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Initialise every Linear, Conv2d, LayerNorm, BatchNorm2d and
-    `relative_position_bias_table` parameter of `model` in place (see module
-    docstring); BatchNorm running stats are reset."""
+    """Initialise every Linear, Conv2d, LayerNorm, BatchNorm2d,
+    `relative_position_bias_table` and IFRM lambda parameter of `model` in
+    place (see module docstring); BatchNorm running stats are reset."""
     for name, p in model.named_parameters():
-        # A bare nn.Parameter of the Swin WindowAttention, not a module.
+        # Bare nn.Parameters (Swin WindowAttention, IFRM), not modules.
         if name.endswith("relative_position_bias_table"):
             trunc_normal_(p, 0.02, generator)
+        elif name.endswith(("lambda_channel", "lambda_spatial")):
+            p.fill_(0.5)
     for m in model.modules():
         if isinstance(m, nn.Linear):
             trunc_normal_(m.weight, 0.02, generator)

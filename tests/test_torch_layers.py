@@ -56,7 +56,7 @@ def random_variables(init_fn, seed: int = 0):
                 val = 1.0 + 0.1 * rng.randn(*shape)
             else:
                 val = 0.05 * rng.randn(*shape)
-            out[name] = val.astype(np.float32)
+            out[name] = np.asarray(val, np.float32)  # 0-d leaves too
         return out
 
     return {coll: fill(tree, coll) for coll, tree in shapes.items()}

@@ -101,7 +101,8 @@ def test_flagship_parameter_count_matches_jax():
 
 
 def test_unported_names_raise():
-    for backbone in ("mit_b2pp", "mit_b2_w_aspp", "segnext_tiny", "resnet50"):
+    for backbone in ("mit_b2_w_aspp", "mit_b2_w_ef_aspp", "segnext_tiny",
+                     "resnet50"):
         cfg = mfnet_config().replace(model=ModelConfig(backbone=backbone))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, device="cpu", seed=None)

@@ -2,7 +2,9 @@
 (rgbx_semantic_segmentation_tpu, not even its jax-free modules): a fresh
 interpreter imports it, builds mit_tiny, runs one forward and one train
 step, imports the window-attention op and the Swin encoder and runs a small
-Swin tower forward and backward, with none of them in sys.modules, and a
+Swin tower forward and backward, builds mit_tinypp (IFRM/IFFM) and runs a
+train step through the flash-attention op, imports the bench tools, with
+none of them in sys.modules, and a
 static scan of the package sources (the CUDA sources too) and chip_smoke.py
 finds no such import."""
 import os
@@ -52,6 +54,25 @@ sum(o.sum() for o in outs).backward()
 grads = [p.grad for p in swin.parameters() if p.grad is not None]
 assert grads and all(torch.isfinite(g).all() for g in grads)
 assert window_attention.window_attention.launches == 0
+import dataclasses
+from rgbx_semantic_segmentation_tpu_torch.ops import flash_attention
+from rgbx_semantic_segmentation_tpu_torch.tools import (  # noqa: F401
+    bench_flash_attention, bench_sr_attention, bench_window_attention)
+cfg_pp = cfg.replace(
+    dataset=DatasetConfig(num_classes=9, image_height=160, image_width=128),
+    model=dataclasses.replace(cfg.model, backbone="mit_tinypp",
+                              use_pallas_kernels=True))
+trainer = Trainer(cfg_pp, device="cpu", seed=0)
+calls = []
+plain_forward = flash_attention._forward
+flash_attention._forward = lambda *a: calls.append(a[0].shape) or plain_forward(*a)
+batch = {"rgb": torch.zeros(2, 160, 128, 3, dtype=torch.uint8),
+         "modal_x": torch.zeros(2, 160, 128, 3, dtype=torch.uint8),
+         "label": torch.zeros(2, 160, 128, dtype=torch.uint8)}
+loss = float(trainer.step(batch)["loss"])
+assert loss == loss, loss
+assert calls == [(2, 1, 1280, 32)] * 2, calls
+assert flash_attention.flash_attention.launches == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "rgbx_semantic_segmentation_tpu"))
@@ -86,5 +107,8 @@ def test_no_jax_import_in_sources():
     names = {os.path.relpath(p, root) for p in sources}
     assert {"ops/window_attention.py", "models/encoders/dual_swin.py",
             "csrc/window_attention_fwd.cu", "csrc/window_attention_bwd.cu",
-            "csrc/attention_common.cuh"} <= names
+            "csrc/attention_common.cuh", "ops/flash_attention.py",
+            "tools/bench_flash_attention.py", "csrc/flash_attention_fwd.cu",
+            "csrc/flash_attention_bwd.cu",
+            "csrc/flash_attention_common.cuh"} <= names
     assert len(sources) >= 10
