@@ -58,6 +58,9 @@ CALLS_PER_FORWARD = [6, 8, 12, 6]
 # tests/test_sr_attention.py SHAPES: M = 1, ragged N and M.
 RAGGED = [(2, 1, 480, 300, 64), (2, 2, 300, 300, 64), (1, 5, 96, 24, 32),
           (2, 1, 8, 1, 64), (1, 8, 75, 19, 64)]
+# The first mit_b2 stage of a whole 720x1280 frame: M = 22 * 40 = 880, the
+# two-pass tensor-core forward. Checked, not timed.
+LARGE_FRAME = [(2, 1, 57600, 880, 64)]
 FP32_ATOL = 1e-5
 # Share of bf16 outputs that may differ from the plain version at all: the
 # tensor-core kernel's fp32 summation order flips ~0.1% of the roundings,
@@ -259,7 +262,7 @@ def kernel_phase(S):
                 kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2))
 
     flagship_err = 0.0
-    cases = [(s, torch.bfloat16) for s in FLAGSHIP + RAGGED] + \
+    cases = [(s, torch.bfloat16) for s in FLAGSHIP + RAGGED + LARGE_FRAME] + \
             [(s, torch.float32) for s in RAGGED]
     for (B, h, N, M, d), dtype in cases:
         q, k, v = inputs(B, h, N, M, d, dtype)
@@ -298,15 +301,22 @@ def kernel_phase(S):
             k2 = median_ms(S.sr_attention, q, k, v, sc, reps=10)
             p2 = median_ms(S.sr_attention_reference, q, k, v, sc, reps=10)
             lib = median_ms(lambda: sdpa(q, k, v, scale=sc), reps=10)
-        bound, by = bound_ms(4 * B * h * N * M * d,
-                             2 * (2 * B * h * N * d + 2 * B * h * M * d))
-        rows.append({"shape": [B, h, N, M, d], "ms": (k1 + k2) / 2,
-                     "plain_ms": (p1 + p2) / 2, "library_ms": lib,
-                     "bound_ms": bound, "bound_by": by})
+        ops = 4 * B * h * N * M * d
+        bound, by = bound_ms(ops, 2 * (2 * B * h * N * d + 2 * B * h * M * d))
+        rows.append(timing_row([B, h, N, M, d], (k1 + k2) / 2, (p1 + p2) / 2,
+                               lib, bound, by, ops))
         print(f"time bf16 fwd (B,h,N,M,d)={(B, h, N, M, d)}: kernel "
               f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA "
               f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
     return flagship_err, rows
+
+
+def timing_row(shape, ms, plain_ms, library_ms, bound, by, ops):
+    """One timed shape: times, bound, the kernel's share of its bound and
+    its achieved rate (the function's operations over its time)."""
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / ms, "tflops": ops / ms * 1e-9}
 
 
 def bound_ms(operations: float, nbytes: float):
@@ -341,13 +351,20 @@ def bwd_kernel_phase(S):
                 w.reshape(B, N, h, d).transpose(1, 2))
 
     flagship_err = 0.0
-    cases = [(s, torch.bfloat16) for s in FLAGSHIP + RAGGED] + \
+    cases = [(s, torch.bfloat16) for s in FLAGSHIP + RAGGED + LARGE_FRAME] + \
             [(s, torch.float32) for s in RAGGED]
     for (B, h, N, M, d), dtype in cases:
         q, k, v, w = inputs(B, h, N, M, d, dtype)
         ref = S.sr_attention_bwd_reference(q, k, v, w, d ** -0.5)
-        got = S.sr_attention_bwd(q, k, v, w, d ** -0.5)
+        # The residual as autograd keeps it: the forward kernel's lse2 (None
+        # on the scalar route, whose backward recomputes its statistics).
+        lse = S._forward(q, k, v, d ** -0.5, with_lse=True)[1]
+        got = S.sr_attention_bwd(q, k, v, w, d ** -0.5, lse=lse)
+        again = S.sr_attention_bwd(q, k, v, w, d ** -0.5, lse=lse)
         torch.cuda.synchronize()
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+              f"backward kernel differs between two runs at "
+              f"{(B, h, N, M, d)} {dtype}")
         line = []
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
             err = float((a.float() - b.float()).abs().max())
@@ -360,16 +377,21 @@ def bwd_kernel_phase(S):
             if (B, h, N, M, d) in FLAGSHIP:
                 flagship_err = max(flagship_err, err)
         print(f"bwd kernel {str(dtype)[6:]:8s} (B,h,N,M,d)={(B, h, N, M, d)}: "
-              "max_abs_err " + ", ".join(line))
+              "max_abs_err " + ", ".join(line) + "; two runs bit-equal")
 
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for (B, h, N, M, d) in FLAGSHIP:
         q, k, v, w = inputs(B, h, N, M, d, torch.bfloat16)
         sc = d ** -0.5
+        lse = S._forward(q, k, v, sc, with_lse=True)[1]
+
+        def kernel():
+            S.sr_attention_bwd(q, k, v, w, sc, lse=lse)
+
         p1 = median_ms(S.sr_attention_bwd_reference, q, k, v, w, sc, reps=5)
-        k1 = median_ms(S.sr_attention_bwd, q, k, v, w, sc, reps=5)
-        k2 = median_ms(S.sr_attention_bwd, q, k, v, w, sc, reps=5)
+        k1 = median_ms(kernel, reps=5)
+        k2 = median_ms(kernel, reps=5)
         p2 = median_ms(S.sr_attention_bwd_reference, q, k, v, w, sc, reps=5)
         # The library's backward: forward + backward through autograd, minus
         # the forward alone.
@@ -381,11 +403,10 @@ def bwd_kernel_phase(S):
         with torch.no_grad():
             lib_fwd = median_ms(lambda: sdpa(q, k, v, scale=sc), reps=5)
         lib = median_ms(fwd_bwd, reps=5) - lib_fwd
-        bound, by = bound_ms(10 * B * h * N * M * d,
-                             2 * (3 * B * h * N * d + 4 * B * h * M * d))
-        rows.append({"shape": [B, h, N, M, d], "ms": (k1 + k2) / 2,
-                     "plain_ms": (p1 + p2) / 2, "library_ms": lib,
-                     "bound_ms": bound, "bound_by": by})
+        ops = 10 * B * h * N * M * d
+        bound, by = bound_ms(ops, 2 * (3 * B * h * N * d + 4 * B * h * M * d))
+        rows.append(timing_row([B, h, N, M, d], (k1 + k2) / 2, (p1 + p2) / 2,
+                               lib, bound, by, ops))
         print(f"time bf16 bwd (B,h,N,M,d)={(B, h, N, M, d)}: kernel "
               f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA "
               f"backward {lib:.4f} ms, bound {bound:.4f} ms ({by})")
@@ -1159,6 +1180,14 @@ def profile_steps(trainer, data, steps=2, top=12):
     for e in sorted(ev, key=lambda e: -e.device_time_total)[:top]:
         print(f"  {e.device_time_total / (steps * 1e3):8.3f} ms "
               f"{e.count // steps:5d}x {e.key[:90]}")
+    # The port's own kernels, wherever they rank.
+    own = re.compile(r"\b((?:sr|window_attention|flash_attention)_\w+"
+                     r"(?:<[^>]*>)?)")
+    mine = [(own.search(e.key), e) for e in ev]
+    print("  the port's kernels: " + ", ".join(
+        f"{m.group(1)} {e.device_time_total / (steps * 1e3):.3f} ms "
+        f"({e.count // steps}x)" for m, e in sorted(
+            ((m, e) for m, e in mine if m), key=lambda x: x[0].group(1))))
     return count, total
 
 
@@ -1635,6 +1664,9 @@ def main() -> int:
               f"{per_step(rows, 'plain_ms'):.3f} ms, SDPA "
               f"{per_step(rows, 'library_ms'):.3f} ms, bound "
               f"{per_step(rows, 'bound_ms'):.3f} ms")
+        for r in rows:
+            print(f"  {r['shape']}: {r['ms']:.4f} ms, {r['tflops']:.1f} "
+                  f"TFLOP/s, {100 * r['share_of_bound']:.1f}% of the bound")
     wfwd_err, wfwd_rows = window_kernel_phase(W, T)
     wbwd_err, wbwd_rows = window_bwd_kernel_phase(W, T)
     for tag, rows in (("forward", wfwd_rows), ("backward", wbwd_rows)):
@@ -1690,19 +1722,31 @@ def main() -> int:
                 "library_ms": per_step(rows, "library_ms", calls),
                 "per_call": rows}
 
+    def with_rates(entry):
+        # The SR kernels' rows also carry their share of the bound and the
+        # achieved TFLOP/s (the function's operations of a step over its
+        # time), over the calls of a step.
+        rows = entry["per_call"]
+        entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+        entry["tflops"] = sum(c * r["tflops"] * r["ms"] for c, r in zip(
+            CALLS_PER_FORWARD, rows)) / entry["ms"]
+        return entry
+
     # K5 replaces the three upstream Pallas kernels that attention.py:50
     # (`_flash_attention`) reaches: jax/experimental/pallas/ops/tpu/
     # flash_attention.py :758 (forward), :1121 (dk/dv), :1456 (dq).
     flash_eval = pp_eval["flash_launches"]
     flash_train = pp_train["flash_launches"]
     print(json.dumps({"kernels": [
-        kernel_entry("sr_attention_fwd", "sr_attention.py:104",
-                     mit_eval["launches"] + train["fwd_launches"]
-                     + pp_eval["launches"] + pp_train["fwd_launches"],
-                     fwd_err, fwd_rows, CALLS_PER_FORWARD),
-        kernel_entry("sr_attention_bwd", "sr_attention.py:123",
-                     train["bwd_launches"] + pp_train["bwd_launches"],
-                     bwd_err, bwd_rows, CALLS_PER_FORWARD),
+        with_rates(kernel_entry(
+            "sr_attention_fwd", "sr_attention.py:104",
+            mit_eval["launches"] + train["fwd_launches"] + pp_eval["launches"]
+            + pp_train["fwd_launches"], fwd_err, fwd_rows,
+            CALLS_PER_FORWARD)),
+        with_rates(kernel_entry(
+            "sr_attention_bwd", "sr_attention.py:123",
+            train["bwd_launches"] + pp_train["bwd_launches"], bwd_err,
+            bwd_rows, CALLS_PER_FORWARD)),
         kernel_entry("window_attention_fwd", "window_attention.py:179",
                      swin_eval["launches"] + swin_train["fwd_launches"],
                      wfwd_err, wfwd_rows, SWIN_CALLS),

@@ -2,13 +2,13 @@
 //
 // Replaces the TPU kernel rgbx_semantic_segmentation_tpu/ops/sr_attention.py
 // `_bwd_kernel` (launched by `_bwd_call`). For every (batch*head) slice, from
-// the residual (q, k, v) and the cotangent g of the output:
+// the residual and the cotangent g of the output:
 //
 //     pf = softmax(q @ k^T * scale)          fp32, recomputed, never stored
 //     p  = pf rounded to the input dtype
 //     dv = p^T @ g
 //     dp = g @ v^T
-//     dl = ((dp - rowsum(dp * pf)) * pf * scale) rounded to the input dtype
+//     dl = ((dp - delta) * pf * scale) rounded to the input dtype
 //     dq = dl @ k
 //     dk = dl^T @ q
 //
@@ -23,14 +23,38 @@
 // that is ~30 us of tensor-core time against ~18 us of bytes: operations
 // bind at stage 1, bytes at the short stages.
 //
-// What the design does about it. The TPU kernel walks the N tiles of a slice
-// in order and carries fp32 dk/dv accumulators from tile to tile; CUDA blocks
-// run in no order, so the work is cut twice, each cut owning its outputs:
-//   1. `row` kernels: a block owns a run of q rows. It computes the softmax
+// Two routes; the wrapper picks one.
+//
+// Tensor cores (bf16, d % 8 == 0, 16-byte-aligned rows: every layout of the
+// model). The residual is the forward's (q, k, v, lse2): lse2, each q row's
+// fp32 logsumexp in base 2 of the scaled logits, gives
+// pf = 2^(s * scale * log2 e - lse2) without recomputing the row's max and
+// sum (with M = 1 it is exactly 1, as the plain version's). Two launches,
+// no workspace beyond delta (4 bytes a q row):
+//   1. `sr_bwd_dq`: a warpgroup owns 64 q rows; k and v stream past in
+//      64-row tiles, twice: pass 1 sums delta = rowsum(dp * pf), pass 2
+//      forms dl in registers as the A operand of dl k. It writes delta for
+//      the second launch. 5 products (q k^T and g v^T twice, dl k).
+//   2. `sr_bwd_dkv`: a warpgroup owns 64 kv rows and a share of the q tiles;
+//      per q tile k q^T and v g^T, then p^T and dl^T in registers as the A
+//      operands of p^T g and dl^T q. 4 products. The shares of one kv tile
+//      form a thread-block cluster and sum their fp32 dk, dv partials
+//      through distributed shared memory in a fixed order, so the result is
+//      the same from run to run without atomics or a partial workspace.
+// 9 products in all (the mma.sync design before it took 10 and 3
+// launches). Every operand is staged with 16-byte cp.async into the
+// 128-byte-swizzled layout wgmma reads (wgmma_common.cuh), double-buffered
+// under the products; one staged tile is both the K-major operand of one
+// product and the MN-major B of another.
+//
+// Scalar (fp32, and bf16 views the tensor-core route does not take): the
+// residual is (q, k, v) and the work is cut twice, each cut owning its
+// outputs:
+//   1. `row` kernel: a block owns a run of q rows. It computes the softmax
 //      statistics of each row (max, sum of exp, delta = rowsum(dp * pf)),
 //      writes them to a small fp32 workspace (4 floats a row), and computes
 //      dq, which needs nothing from other rows.
-//   2. `kv` kernels: a block owns a run of kv rows of a slice and a share of
+//   2. `kv` kernel: a block owns a run of kv rows of a slice and a share of
 //      its q rows (a "split"). From q, g and the row statistics it
 //      recomputes p^T and dl^T for its kv rows and accumulates dv and dk in
 //      fp32 registers over its q rows, then writes one fp32 partial per
@@ -38,21 +62,14 @@
 //   3. `reduce` kernel: sums the partials of the splits in a fixed order and
 //      writes dk and dv in the input dtype. No atomics: the result is the
 //      same from run to run.
-// The (N, M) tensors pf, dp and dl never reach device memory; they are
-// recomputed on chip (q @ k^T three times and g @ v^T twice in the row
-// kernel, each once more in the kv kernel), which is cheap on tensor cores
-// beside what storing them would move. delta is computed as
-// rowsum(dp * e) / rowsum(e) with e = exp(logit - max), which is
-// rowsum(dp * pf) up to fp32 rounding.
-//
-// bf16 where k, v and k^T of a slice fit in shared memory (all flagship
-// shapes): tensor cores (mma.sync m16n8k16, fp32 accumulation), logits and dp
-// in registers. fp32, and bf16 with a large M*d: scalar fp32 FMAs, one warp a
-// q row (row kernel) or a kv row (kv kernel), k and v read through L1/L2.
+// Scalar fp32 FMAs, one warp a q row (row kernel) or a kv row (kv kernel),
+// k and v read through L1/L2. delta is computed as rowsum(dp * e) /
+// rowsum(e) with e = exp(logit - max), which is rowsum(dp * pf) up to fp32
+// rounding.
 //
 // Ragged edges: kv columns >= M carry probability exactly 0 and kv is read
-// unpadded; q rows past the end of a run are staged as zeros (q = g = 0), so
-// they add exactly 0 to dk and dv.
+// unpadded; q rows past the end of a tile or run are staged as zeros
+// (q = g = 0), so they add exactly 0 to dk and dv.
 //
 // Layouts: q, k, v, g are read and dq, dk, dv written through (batch, head,
 // row) element strides, head dim unit-stride, so the model's head-split
@@ -60,11 +77,11 @@
 // projections without a copy.
 //
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
-// stream; the entry returns cudaGetLastError() after the launches. The
-// caller allocates the workspaces (`sr_attention_bwd_splits` says how many
-// splits the kv kernel will use for a shape; `max_splits` > 0 caps them).
+// stream; the entries return cudaGetLastError() after the launches. The
+// caller allocates the workspaces.
 
 #include "attention_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -99,7 +116,7 @@ __device__ __forceinline__ float* partial_ptr(const Problem& p, int which,
 }
 
 // ---------------------------------------------------------------------------
-// Scalar path (fp32, and bf16 that does not fit the tensor-core kernels).
+// Scalar route (fp32, and bf16 views the tensor-core route does not take).
 // ---------------------------------------------------------------------------
 
 constexpr int kRowWarps = 4;   // row kernel: one q row per warp at a time
@@ -277,405 +294,372 @@ __global__ void sr_attention_bwd_reduce_kernel(const Problem p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16, bf16 inputs, fp32 accumulation.
+// bf16 on the tensor cores: wgmma m64n64k16, fp32 accumulation. Two kernels,
+// one warpgroup a block, from the forward's residual (q, k, v, lse2).
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 8;
-constexpr int kMmaRows = kMmaWarps * 16;  // q rows of one pass of the warps
-constexpr int kKvMmaWarps = 4;
-constexpr int kKvChunk = kKvMmaWarps * 16;  // kv rows owned by a block
-constexpr int kQTile = 64;                  // q rows staged at a time
+using bf16 = __nv_bfloat16;
 
-struct MmaGeometry {
-  int mp;    // M rounded up to 16 (zero rows in k, v and k^T)
-  int ldk;   // k and v row stride: padded head dim + 8 (conflict-free)
-  int ldkt;  // k^T row stride: mp + 8
+constexpr int kTileBytes = 64 * kPanelRowBytes;  // one 64-row panel
+constexpr int kMaxShares = 8;                    // portable cluster size
+
+struct TcProblem {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* g;
+  const float* lse;  // (G, N): log2 of sum_j 2^(s_j * scale * log2 e)
+  float* delta;      // (G, N): rowsum(dp * pf), written by the dq kernel
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  Layout lq, lk, lv, lg, ldq, ldk, ldv;
+  int H, N, M, d;
+  int qtiles, ktiles;  // 64-row tiles of q and of kv
+  int shares;          // dkv kernel: blocks (one cluster) per kv tile
+  float scale;
 };
 
-// A 16 x 16 tile of x @ y^T as two 16x8 accumulators: `xa` are the A
-// fragments of the warp's 16 rows of x, `Y_s` holds y row-major (row stride
-// ld), the tile covers rows [16j, 16j + 16) of y. Thread (gq, tq) holds rows
-// gq and gq + 8 of x, columns 2tq and 2tq + 1 of each half.
-template <int KS>
-__device__ __forceinline__ void xyT_tile(const uint32_t (&xa)[KS][4],
-                                         const __nv_bfloat16* Y_s, int ld,
-                                         int j, int gq, int tq,
-                                         float (&s)[2][4]) {
+// dq kernel: a block walks q tiles of slice blockIdx.y (persistent); per q
+// tile, k and v stream twice through a two-stage ring of 64-row tiles.
+// Both passes form S = q k^T and dp = g v^T per kv tile (wgmma, both
+// operands from shared memory) and pf = 2^(S * scale * log2 e - lse2).
+// Pass 1 sums delta = rowsum(dp * pf), the TPU kernel's definition, and
+// writes it for the dkv kernel; pass 2 rounds dl = (dp - delta) * pf * scale
+// to bf16 in registers and accumulates dq += dl k (dl the register A
+// operand, k MN-major). 5 products. x = S * scale * log2 e is rounded as
+// the forward rounds it (no FMA), so pf is exactly 1 where the forward's p
+// was (M = 1).
+template <int PN>
+__global__ void __launch_bounds__(kWgThreads) sr_bwd_dq(const TcProblem p) {
+  constexpr int TB = PN * kTileBytes;  // bytes of one staged 64-row tile
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t Qs = base, Gs = Qs + 2 * TB, Ks = Gs + 2 * TB;
+  const uint32_t Vs = Ks + 2 * TB;
+  const int tid = threadIdx.x;
+  const int tq = tid % 4;
+  const int rl = 16 * (tid / 32) + (tid % 32) / 4;  // first of the two rows
+  const int g = blockIdx.y;
+  const bf16* qg = slice(p.q, p.lq, g, p.H);
+  const bf16* gg = slice(p.g, p.lg, g, p.H);
+  const bf16* kg = slice(p.k, p.lk, g, p.H);
+  const bf16* vg = slice(p.v, p.lv, g, p.H);
+  const int T = p.ktiles;
+  const float c = p.scale * kLog2e;
+
+  // Step u of q tile t: pass 1 on kv tile u (u < T), pass 2 on u - T.
+  auto issue = [&](int t, int u, int stage, int qbuf) {
+    const int j = u < T ? u : u - T;
+    stage_rows_async(Ks + stage * TB, kg, p.lk.row, j * 64, p.M, p.d, 64, PN,
+                     tid, kWgThreads);
+    stage_rows_async(Vs + stage * TB, vg, p.lv.row, j * 64, p.M, p.d, 64, PN,
+                     tid, kWgThreads);
+    if (u == 0) {
+      stage_rows_async(Qs + qbuf * TB, qg, p.lq.row, t * 64, p.N, p.d, 64, PN,
+                       tid, kWgThreads);
+      stage_rows_async(Gs + qbuf * TB, gg, p.lg.row, t * 64, p.N, p.d, 64, PN,
+                       tid, kWgThreads);
+    }
+  };
+
+  int t = blockIdx.x;
+  if (t < p.qtiles) issue(t, 0, 0, 0);
+  cp_async_commit();
+  int stage = 0;
+  for (int qbuf = 0; t < p.qtiles; t += gridDim.x, qbuf ^= 1) {
+    const uint32_t qt = Qs + qbuf * TB, gt = Gs + qbuf * TB;
+    float acc[PN][32];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    s[h][0] = s[h][1] = s[h][2] = s[h][3] = 0.f;
-    const __nv_bfloat16* yr = Y_s + (j * 16 + h * 8 + gq) * ld + 2 * tq;
+    for (int pn = 0; pn < PN; ++pn)
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(yr + kk * 16);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(yr + kk * 16 + 8);
-      mma16816(s[h], xa[kk], b0, b1);
+      for (int i = 0; i < 32; ++i) acc[pn][i] = 0.f;
+    float l2[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = t * 64 + rl + 8 * h;
+      l2[h] = row < p.N ? p.lse[(long long)g * p.N + row] : 0.f;
+    }
+
+    for (int u = 0; u < 2 * T; ++u, stage ^= 1) {
+      if (u + 1 < 2 * T)
+        issue(t, u + 1, stage ^ 1, qbuf);
+      else if (t + gridDim.x < p.qtiles)
+        issue(t + gridDim.x, 0, stage ^ 1, qbuf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      fence_async_smem();
+      __syncthreads();
+
+      const int j = u < T ? u : u - T;
+      const uint32_t kt = Ks + stage * TB, vt = Vs + stage * TB;
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4 * PN; ++ks) {
+        wgmma_ss(s, kmajor_desc(qt, 64, ks), kmajor_desc(kt, 64, ks));
+        wgmma_ss(dp, kmajor_desc(gt, 64, ks), kmajor_desc(vt, 64, ks));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 64 * j + 8 * (i / 4) + 2 * tq + (i & 1);
+        s[i] = col < p.M ? ex2(__fmul_rn(s[i], c) - l2[(i >> 1) & 1]) : 0.f;
+      }
+      if (u < T) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          delta[(i >> 1) & 1] = fmaf(dp[i], s[i], delta[(i >> 1) & 1]);
+        if (u == T - 1) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            delta[h] = quad_sum(delta[h]);
+            const int row = t * 64 + rl + 8 * h;
+            if (tq == 0 && row < p.N)
+              p.delta[(long long)g * p.N + row] = delta[h];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = (dp[i] - delta[(i >> 1) & 1]) * s[i] * p.scale;
+        uint32_t la[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) pack_a(s, kk, la[kk]);
+#pragma unroll
+        for (int pn = 0; pn < PN; ++pn) fence_regs(acc[pn]);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) fence_regs(la[ks]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int pn = 0; pn < PN; ++pn)
+            wgmma_rs(acc[pn], la[ks], mnmajor_desc(kt, 64, pn, ks));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int pn = 0; pn < PN; ++pn) fence_regs(acc[pn]);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) fence_regs(la[ks]);
+      }
+      __syncthreads();  // this stage is read: the next step may refill it
+    }
+
+    bf16* dqg = slice(p.dq, p.ldq, g, p.H);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = t * 64 + rl + 8 * h;
+      if (row >= p.N) continue;
+      bf16* dst = dqg + (long long)row * p.ldq.row;
+#pragma unroll
+      for (int pn = 0; pn < PN; ++pn)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = pn * kPanel + 8 * jj + 2 * tq;
+          if (col < p.d)
+            *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(
+                acc[pn][4 * jj + 2 * h], acc[pn][4 * jj + 2 * h + 1]);
+        }
     }
   }
+  cp_async_wait<0>();
 }
 
-// Logits * scale of a tile; kv columns >= M are -inf (probability 0).
-template <int KS>
-__device__ __forceinline__ void logits_tile(const uint32_t (&qa)[KS][4],
-                                            const __nv_bfloat16* K_s, int ld,
-                                            int M, float scale, int j, int gq,
-                                            int tq, float (&s)[2][4]) {
-  xyT_tile<KS>(qa, K_s, ld, j, gq, tq, s);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = j * 16 + h * 8 + 2 * tq;
-    s[h][0] = c < M ? s[h][0] * scale : -INFINITY;
-    s[h][1] = c + 1 < M ? s[h][1] * scale : -INFINITY;
-    s[h][2] = c < M ? s[h][2] * scale : -INFINITY;
-    s[h][3] = c + 1 < M ? s[h][3] * scale : -INFINITY;
-  }
-}
-
-// A fragments of rows [r0, r0 + 16) of a (n_rows, d) bf16 matrix in device
-// memory (row stride ld); zero outside.
-template <int KS>
-__device__ __forceinline__ void load_a_fragments(uint32_t (&a)[KS][4],
-                                                 const __nv_bfloat16* base,
-                                                 long long ld, int r0,
-                                                 int n_rows, int d, int gq,
-                                                 int tq) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * tq;
-    a[kk][0] = load_pair(base, ld, r0 + gq, c, n_rows, d);
-    a[kk][1] = load_pair(base, ld, r0 + gq + 8, c, n_rows, d);
-    a[kk][2] = load_pair(base, ld, r0 + gq, c + 8, n_rows, d);
-    a[kk][3] = load_pair(base, ld, r0 + gq + 8, c + 8, n_rows, d);
-  }
-}
-
-// Row kernel: statistics and dq. k, v row-major and k^T in shared memory;
-// each warp owns 16 q rows at a time with its q and g fragments in
-// registers. Pass 1: row max. Pass 2: sum of e and sum of dp * e. Pass 3:
-// dl in bf16, laid out as the A fragment of dl @ k.
-template <int KS>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-    sr_attention_bwd_row_mma_kernel(const Problem p, const MmaGeometry geo,
-                                    int rows_per_cta) {
-  constexpr int DP = KS * 16;
-  constexpr int DT = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* K_s = reinterpret_cast<__nv_bfloat16*>(smem);  // (mp, ldk)
-  __nv_bfloat16* V_s = K_s + geo.mp * geo.ldk;                  // (mp, ldk)
-  __nv_bfloat16* Kt_s = V_s + geo.mp * geo.ldk;                 // (DP, ldkt)
-
-  using bf16 = __nv_bfloat16;
+// dkv kernel: block (share s, kv tile c) of slice blockIdx.y keeps k and v
+// of kv rows [64c, 64c + 64) staged and walks q tiles s, s + shares, ...
+// with q, g (and the rows' lse and delta) double-buffered. Per q tile:
+// S^T = k q^T and dp^T = v g^T (wgmma), p^T = 2^(S^T * scale * log2 e - lse2),
+// dl^T = (dp^T - delta) p^T * scale, both rounded to bf16 in registers, then
+// dv += p^T g and dk += dl^T q (registers as A, g and q MN-major). The
+// `shares` blocks of a kv tile form one thread-block cluster: at the end
+// each writes its fp32 dk, dv partial to its own shared memory, and block s
+// sums rows [s * 64 / shares, ...) of all partials over distributed shared
+// memory, in share order (no atomics: the same bits every run).
+template <int PN>
+__global__ void __launch_bounds__(kWgThreads) sr_bwd_dkv(const TcProblem p) {
+  constexpr int TB = PN * kTileBytes;
+  constexpr int DP = PN * kPanel;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  unsigned char* gbase = smem + (base - smem_u32(smem));
+  const uint32_t Ks = base, Vs = Ks + TB, Qs = Vs + TB, Gs = Qs + 2 * TB;
+  const uint32_t Ss = Gs + 2 * TB;  // [2][lse 64, delta 64] fp32
+  const float* stats = reinterpret_cast<const float*>(gbase + (Ss - base));
+  const int tid = threadIdx.x;
+  const int tq = tid % 4;
+  const int share = blockIdx.x % p.shares;
+  const int m0 = (blockIdx.x / p.shares) * 64;
   const int g = blockIdx.y;
-  const bf16* qg = slice(static_cast<const bf16*>(p.q), p.l.q, g, p.H);
-  const bf16* kg = slice(static_cast<const bf16*>(p.k), p.l.k, g, p.H);
-  const bf16* vg = slice(static_cast<const bf16*>(p.v), p.l.v, g, p.H);
-  const bf16* gg = slice(static_cast<const bf16*>(p.g), p.l.g, g, p.H);
-  bf16* dqg = slice(static_cast<bf16*>(p.dq), p.l.dq, g, p.H);
+  const bf16* qg = slice(p.q, p.lq, g, p.H);
+  const bf16* gg = slice(p.g, p.lg, g, p.H);
+  const float* lse = p.lse + (long long)g * p.N;
+  const float* delta = p.delta + (long long)g * p.N;
+  const float c = p.scale * kLog2e;
 
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < geo.mp * DP; i += blockDim.x) {
-    const int m = i / DP;
-    const int e = i - m * DP;
-    const bool in = m < p.M && e < p.d;
-    const bf16 kx = in ? kg[m * p.l.k.row + e] : zero;
-    K_s[m * geo.ldk + e] = kx;
-    Kt_s[e * geo.ldkt + m] = kx;
-    V_s[m * geo.ldk + e] = in ? vg[m * p.l.v.row + e] : zero;
+  auto issue = [&](int t, int buf) {
+    stage_rows_async(Qs + buf * TB, qg, p.lq.row, t * 64, p.N, p.d, 64, PN,
+                     tid, kWgThreads);
+    stage_rows_async(Gs + buf * TB, gg, p.lg.row, t * 64, p.N, p.d, 64, PN,
+                     tid, kWgThreads);
+    const int row = t * 64 + (tid % 64);
+    const bool in = row < p.N;
+    const float* src = tid < 64 ? lse : delta;
+    cp_async4(Ss + (buf * 128 + tid) * 4, in ? src + row : src, in ? 4 : 0);
+  };
+
+  stage_rows_async(Ks, slice(p.k, p.lk, g, p.H), p.lk.row, m0, p.M, p.d, 64,
+                   PN, tid, kWgThreads);
+  stage_rows_async(Vs, slice(p.v, p.lv, g, p.H), p.lv.row, m0, p.M, p.d, 64,
+                   PN, tid, kWgThreads);
+  int t = share;
+  if (t < p.qtiles) issue(t, 0);
+  cp_async_commit();
+
+  float dk[PN][32], dv[PN][32];
+#pragma unroll
+  for (int pn = 0; pn < PN; ++pn)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[pn][i] = dv[pn][i] = 0.f;
+
+  for (int buf = 0; t < p.qtiles; t += p.shares, buf ^= 1) {
+    if (t + p.shares < p.qtiles) issue(t + p.shares, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+
+    const uint32_t qt = Qs + buf * TB, gt = Gs + buf * TB;
+    const float* lse_s = stats + buf * 128;
+    const float* delta_s = lse_s + 64;
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4 * PN; ++ks) {
+      wgmma_ss(s, kmajor_desc(Ks, 64, ks), kmajor_desc(qt, 64, ks));
+      wgmma_ss(dp, kmajor_desc(Vs, 64, ks), kmajor_desc(gt, 64, ks));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    // Rows: this block's kv rows; columns: the tile's q rows.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + 2 * tq + (i & 1);
+      const float pf = ex2(__fmul_rn(s[i], c) - lse_s[col]);
+      s[i] = pf;
+      dp[i] = (dp[i] - delta_s[col]) * pf * p.scale;
+    }
+    uint32_t pa[4][4], la[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pack_a(s, kk, pa[kk]);
+      pack_a(dp, kk, la[kk]);
+    }
+#pragma unroll
+    for (int pn = 0; pn < PN; ++pn) {
+      fence_regs(dv[pn]);
+      fence_regs(dk[pn]);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      fence_regs(pa[ks]);
+      fence_regs(la[ks]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int pn = 0; pn < PN; ++pn) {
+        wgmma_rs(dv[pn], pa[ks], mnmajor_desc(gt, 64, pn, ks));
+        wgmma_rs(dk[pn], la[ks], mnmajor_desc(qt, 64, pn, ks));
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < PN; ++pn) {
+      fence_regs(dv[pn]);
+      fence_regs(dk[pn]);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      fence_regs(pa[ks]);
+      fence_regs(la[ks]);
+    }
+    __syncthreads();  // this buffer is read: the next tile may refill it
   }
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  const int ktiles = geo.mp / 16;
-  const int row_begin = blockIdx.x * rows_per_cta;
-  const int row_end = min(row_begin + rows_per_cta, p.N);
-
-  for (int r0 = row_begin + warp * 16; r0 < row_end; r0 += kMmaRows) {
-    uint32_t qa[KS][4], ga[KS][4];
-    load_a_fragments<KS>(qa, qg, p.l.q.row, r0, row_end, p.d, gq, tq);
-    load_a_fragments<KS>(ga, gg, p.l.g.row, r0, row_end, p.d, gq, tq);
-
-    float mx[2] = {-INFINITY, -INFINITY};
-    for (int j = 0; j < ktiles; ++j) {
-      float s[2][4];
-      logits_tile<KS>(qa, K_s, geo.ldk, p.M, p.scale, j, gq, tq, s);
+  // The partials, fp32, [dk | dv][64 rows][DP], over the q and g buffers.
+  float* red = reinterpret_cast<float*>(gbase + (Qs - base));
+  const int rl = 16 * (tid / 32) + (tid % 32) / 4;
+#pragma unroll
+  for (int pn = 0; pn < PN; ++pn)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[h][0], s[h][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[h][2], s[h][3]));
+        const int at = (rl + 8 * h) * DP + pn * kPanel + 8 * jj + 2 * tq;
+        *reinterpret_cast<float2*>(red + at) =
+            make_float2(dk[pn][4 * jj + 2 * h], dk[pn][4 * jj + 2 * h + 1]);
+        *reinterpret_cast<float2*>(red + 64 * DP + at) =
+            make_float2(dv[pn][4 * jj + 2 * h], dv[pn][4 * jj + 2 * h + 1]);
       }
-    }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
-
-    float sum[2] = {0.f, 0.f};
-    float dsum[2] = {0.f, 0.f};  // rowsum(dp * e)
-    for (int j = 0; j < ktiles; ++j) {
-      float s[2][4], dp[2][4];
-      logits_tile<KS>(qa, K_s, geo.ldk, p.M, p.scale, j, gq, tq, s);
-      xyT_tile<KS>(ga, V_s, geo.ldk, j, gq, tq, dp);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float e0 = expf(s[h][0] - mx[0]), e1 = expf(s[h][1] - mx[0]);
-        const float e2 = expf(s[h][2] - mx[1]), e3 = expf(s[h][3] - mx[1]);
-        sum[0] += e0 + e1;
-        sum[1] += e2 + e3;
-        dsum[0] = fmaf(dp[h][0], e0, fmaf(dp[h][1], e1, dsum[0]));
-        dsum[1] = fmaf(dp[h][2], e2, fmaf(dp[h][3], e3, dsum[1]));
-      }
-    }
-    float delta[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] = quad_sum(sum[i]);
-      delta[i] = quad_sum(dsum[i]) / sum[i];
-    }
-
-    float o[DT][4];
-#pragma unroll
-    for (int t = 0; t < DT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-    for (int j = 0; j < ktiles; ++j) {
-      float s[2][4], dp[2][4];
-      logits_tile<KS>(qa, K_s, geo.ldk, p.M, p.scale, j, gq, tq, s);
-      xyT_tile<KS>(ga, V_s, geo.ldk, j, gq, tq, dp);
-      uint32_t la[4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float l0 = (dp[h][0] - delta[0]) *
-                         (expf(s[h][0] - mx[0]) / sum[0]) * p.scale;
-        const float l1 = (dp[h][1] - delta[0]) *
-                         (expf(s[h][1] - mx[0]) / sum[0]) * p.scale;
-        const float l2 = (dp[h][2] - delta[1]) *
-                         (expf(s[h][2] - mx[1]) / sum[1]) * p.scale;
-        const float l3 = (dp[h][3] - delta[1]) *
-                         (expf(s[h][3] - mx[1]) / sum[1]) * p.scale;
-        la[2 * h] = pack_bf16(l0, l1);
-        la[2 * h + 1] = pack_bf16(l2, l3);
-      }
-      const bf16* kr = Kt_s + gq * geo.ldkt + j * 16 + 2 * tq;
-#pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        const bf16* kt = kr + t * 8 * geo.ldkt;
-        mma16816(o[t], la, *reinterpret_cast<const uint32_t*>(kt),
-                 *reinterpret_cast<const uint32_t*>(kt + 8));
-      }
-    }
-
-    const int ra = r0 + gq;
-    const int rb = ra + 8;
-#pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      const int c = t * 8 + 2 * tq;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = half ? rb : ra;
-        if (row < row_end) {
-          bf16* dst = dqg + row * p.l.dq.row;
-          if (c < p.d) dst[c] = __float2bfloat16_rn(o[t][2 * half]);
-          if (c + 1 < p.d) dst[c + 1] = __float2bfloat16_rn(o[t][2 * half + 1]);
-        }
-      }
-    }
-    if (tq == 0) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = half ? rb : ra;
-        if (row < row_end) {
-          float* st = p.stats + ((size_t)g * p.N + row) * kStatsPerRow;
-          st[0] = mx[half];
-          st[1] = sum[half];
-          st[2] = delta[half];
-        }
-      }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rows = (64 + p.shares - 1) / p.shares;
+  const int r0 = share * rows;
+  const int r1 = min(64, r0 + rows);
+  const int n = r1 > r0 ? (r1 - r0) * DP : 0;
+  bf16* dkg = slice(p.dk, p.ldk, g, p.H);
+  bf16* dvg = slice(p.dv, p.ldv, g, p.H);
+  for (int i = tid; i < 2 * n; i += kWgThreads) {
+    const int which = i >= n;
+    const int rem = i - which * n;
+    const int row = r0 + rem / DP;
+    const int col = rem % DP;
+    const int at = (which * 64 + row) * DP + col;
+    float sum = 0.f;
+    for (int r = 0; r < p.shares; ++r) sum += cluster.map_shared_rank(red, r)[at];
+    const int m = m0 + row;
+    if (m < p.M && col < p.d) {
+      if (which)
+        dvg[(long long)m * p.ldv.row + col] = __float2bfloat16_rn(sum);
+      else
+        dkg[(long long)m * p.ldk.row + col] = __float2bfloat16_rn(sum);
     }
   }
-}
-
-// kv kernel: grid = (ceil(M / kKvChunk), splits, G). Each warp owns 16 kv
-// rows with their k and v fragments in registers and walks the split's q
-// rows in tiles of kQTile staged in shared memory (q and g row-major for
-// the transposed logits and dp, q^T and g^T for the dk and dv products).
-template <int KS>
-__global__ void __launch_bounds__(kKvMmaWarps * 32)
-    sr_attention_bwd_kv_mma_kernel(const Problem p) {
-  constexpr int DP = KS * 16;
-  constexpr int DT = DP / 8;
-  constexpr int LD = DP + 8;       // row stride of Q_s, G_s
-  constexpr int LDT = kQTile + 8;  // row stride of Qt_s, Gt_s
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem[];  // kv_mma_smem(KS)
-  float* st_s = reinterpret_cast<float*>(smem);  // (kQTile, kStatsPerRow)
-  bf16* Q_s = reinterpret_cast<bf16*>(st_s + kQTile * kStatsPerRow);
-  bf16* G_s = Q_s + kQTile * LD;
-  bf16* Qt_s = G_s + kQTile * LD;
-  bf16* Gt_s = Qt_s + DP * LDT;
-
-  const int split = blockIdx.y;
-  const int g = blockIdx.z;
-  const bf16* qg = slice(static_cast<const bf16*>(p.q), p.l.q, g, p.H);
-  const bf16* kg = slice(static_cast<const bf16*>(p.k), p.l.k, g, p.H);
-  const bf16* vg = slice(static_cast<const bf16*>(p.v), p.l.v, g, p.H);
-  const bf16* gg = slice(static_cast<const bf16*>(p.g), p.l.g, g, p.H);
-  const float* stats = p.stats + (size_t)g * p.N * kStatsPerRow;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  const int m0 = blockIdx.x * kKvChunk + warp * 16;  // this warp's kv rows
-
-  uint32_t ka[KS][4], va[KS][4];
-  load_a_fragments<KS>(ka, kg, p.l.k.row, m0, p.M, p.d, gq, tq);
-  load_a_fragments<KS>(va, vg, p.l.v.row, m0, p.M, p.d, gq, tq);
-
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[t][i] = dv[t][i] = 0.f;
-
-  const bf16 zero = __float2bfloat16(0.f);
-  const int n_begin = split * p.rows_per_split;
-  const int n_end = min(n_begin + p.rows_per_split, p.N);
-  for (int n0 = n_begin; n0 < n_end; n0 += kQTile) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kQTile * DP; i += blockDim.x) {
-      const int r = i / DP;
-      const int e = i - r * DP;
-      const bool in = n0 + r < n_end && e < p.d;
-      const bf16 qx = in ? qg[(n0 + r) * p.l.q.row + e] : zero;
-      const bf16 gx = in ? gg[(n0 + r) * p.l.g.row + e] : zero;
-      Q_s[r * LD + e] = qx;
-      G_s[r * LD + e] = gx;
-      Qt_s[e * LDT + r] = qx;
-      Gt_s[e * LDT + r] = gx;
-    }
-    for (int i = threadIdx.x; i < kQTile; i += blockDim.x) {
-      // Rows past the end: q = g = 0, and statistics that keep p finite.
-      const bool in = n0 + i < n_end;
-      const float* st = stats + (size_t)(n0 + i) * kStatsPerRow;
-      st_s[i * kStatsPerRow + 0] = in ? st[0] : 0.f;
-      st_s[i * kStatsPerRow + 1] = in ? st[1] : 1.f;
-      st_s[i * kStatsPerRow + 2] = in ? st[2] : 0.f;
-    }
-    __syncthreads();
-    if (m0 >= p.M) continue;  // a warp past the kv edge only helps staging
-
-#pragma unroll 1
-    for (int j = 0; j < kQTile / 16; ++j) {
-      // Transposed tiles: rows = this warp's kv rows, columns = q rows
-      // [16j, 16j + 16) of the staged tile.
-      float s[2][4], dp[2][4];
-      xyT_tile<KS>(ka, Q_s, LD, j, gq, tq, s);
-      xyT_tile<KS>(va, G_s, LD, j, gq, tq, dp);
-      uint32_t pa[4], la[4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float* s0 = st_s + (j * 16 + h * 8 + 2 * tq) * kStatsPerRow;
-        const float* s1 = s0 + kStatsPerRow;
-        const float p0 = expf(s[h][0] * p.scale - s0[0]) / s0[1];
-        const float p1 = expf(s[h][1] * p.scale - s1[0]) / s1[1];
-        const float p2 = expf(s[h][2] * p.scale - s0[0]) / s0[1];
-        const float p3 = expf(s[h][3] * p.scale - s1[0]) / s1[1];
-        pa[2 * h] = pack_bf16(p0, p1);
-        pa[2 * h + 1] = pack_bf16(p2, p3);
-        la[2 * h] = pack_bf16((dp[h][0] - s0[2]) * p0 * p.scale,
-                              (dp[h][1] - s1[2]) * p1 * p.scale);
-        la[2 * h + 1] = pack_bf16((dp[h][2] - s0[2]) * p2 * p.scale,
-                                  (dp[h][3] - s1[2]) * p3 * p.scale);
-      }
-      const bf16* gr = Gt_s + gq * LDT + j * 16 + 2 * tq;
-      const bf16* qr = Qt_s + gq * LDT + j * 16 + 2 * tq;
-#pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        const bf16* gt = gr + t * 8 * LDT;
-        const bf16* qt = qr + t * 8 * LDT;
-        mma16816(dv[t], pa, *reinterpret_cast<const uint32_t*>(gt),
-                 *reinterpret_cast<const uint32_t*>(gt + 8));
-        mma16816(dk[t], la, *reinterpret_cast<const uint32_t*>(qt),
-                 *reinterpret_cast<const uint32_t*>(qt + 8));
-      }
-    }
-  }
-
-  float* dk_out = partial_ptr(p, 0, g, split);
-  float* dv_out = partial_ptr(p, 1, g, split);
-#pragma unroll
-  for (int t = 0; t < DT; ++t) {
-    const int c = t * 8 + 2 * tq;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + gq + 8 * half;
-      if (m < p.M) {
-        const size_t at = (size_t)m * p.d + c;
-        if (c < p.d) {
-          dk_out[at] = dk[t][2 * half];
-          dv_out[at] = dv[t][2 * half];
-        }
-        if (c + 1 < p.d) {
-          dk_out[at + 1] = dk[t][2 * half + 1];
-          dv_out[at + 1] = dv[t][2 * half + 1];
-        }
-      }
-    }
-  }
+  cluster.sync();  // no block leaves while another reads its partial
 }
 
 // ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
 
-enum KernelId {
-  kRowMma2, kRowMma4, kRowMma8, kKvMma2, kKvMma4, kKvMma8, kNumKernels
-};
-std::atomic<bool> g_opted_in[kMaxDevices][kNumKernels];
-
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-MmaGeometry mma_geometry(int M, int ks) {
-  MmaGeometry geo;
-  geo.mp = (M + 15) & ~15;
-  geo.ldk = ks * 16 + 8;
-  geo.ldkt = geo.mp + 8;
-  return geo;
-}
-
-int mma_ks(int d) { return d <= 32 ? 2 : (d <= 64 ? 4 : 8); }
-
-size_t row_mma_smem(int M, int d) {
-  const int ks = mma_ks(d);
-  const MmaGeometry geo = mma_geometry(M, ks);
-  return ((size_t)2 * geo.mp * geo.ldk + (size_t)ks * 16 * geo.ldkt) *
-         sizeof(__nv_bfloat16);
-}
-
-// Shared memory of the kv tensor-core kernel: the statistics of a q tile,
-// then q, g row-major and q^T, g^T.
-size_t kv_mma_smem(int ks) {
-  const int dp = ks * 16;
-  return (size_t)kQTile * kStatsPerRow * sizeof(float) +
-         ((size_t)2 * kQTile * (dp + 8) + (size_t)2 * dp * (kQTile + 8)) *
-             sizeof(__nv_bfloat16);
-}
-
-// bf16 runs on the tensor cores when k, v and k^T of a slice fit in shared
-// memory.
-bool use_mma(const DeviceState* st, int M, int d, int dtype) {
-  return dtype == 1 && row_mma_smem(M, d) <= (size_t)st->smem_optin;
-}
-
-// The kv kernel's split plan: enough blocks for ~4 (tensor cores) or ~8
-// (scalar) per SM, each split at least one tile of q rows, at most
-// `max_splits` of them when that is positive (1: a block owns its kv rows
-// over the whole of N).
-void plan_splits(const DeviceState* st, int G, int N, int M, int d, int dtype,
-                 int max_splits, int* splits, int* rows_per_split) {
-  const bool mma = use_mma(st, M, d, dtype);
-  const int chunks = ceil_div(M, mma ? kKvChunk : kKvWarps);
-  const int tile = mma ? kQTile : 32;
-  const long long want = (long long)(mma ? 4 : 8) * st->sms;
+// The scalar kv kernel's split plan: enough blocks for ~8 per SM, each
+// split at least 32 q rows, at most `max_splits` of them when that is
+// positive (1: a block owns its kv rows over the whole of N).
+void plan_splits(const DeviceState* st, int G, int N, int M, int max_splits,
+                 int* splits, int* rows_per_split) {
+  const int chunks = ceil_div(M, kKvWarps);
+  const int tile = 32;
+  const long long want = 8LL * st->sms;
   long long s = (want + (long long)G * chunks - 1) / ((long long)G * chunks);
   int max_s = ceil_div(N, tile);
   if (max_splits > 0 && max_splits < max_s) max_s = max_splits;
@@ -685,7 +669,7 @@ void plan_splits(const DeviceState* st, int G, int N, int M, int d, int dtype,
   *splits = ceil_div(N, *rows_per_split);
 }
 
-// Blocks of the row kernels: ~4 per SM across the G slices, at most 8
+// Blocks of the scalar row kernel: ~4 per SM across the G slices, at most 8
 // passes of the warps each.
 int rows_per_cta(const DeviceState* st, int G, int N, int rows_per_pass) {
   const int groups = ceil_div(N, rows_per_pass);
@@ -693,31 +677,6 @@ int rows_per_cta(const DeviceState* st, int G, int N, int rows_per_pass) {
   int gpc = ceil_div(groups, per_slice);
   gpc = gpc < 1 ? 1 : (gpc > 8 ? 8 : gpc);
   return gpc * rows_per_pass;
-}
-
-template <int KS>
-int launch_mma_ks(const Problem& pr, const DeviceState* st,
-                  cudaStream_t stream) {
-  constexpr KernelId row_id =
-      KS == 2 ? kRowMma2 : (KS == 4 ? kRowMma4 : kRowMma8);
-  constexpr KernelId kv_id = KS == 2 ? kKvMma2 : (KS == 4 ? kKvMma4 : kKvMma8);
-  std::atomic<bool>* opted = g_opted_in[device_index(st)];
-  int rc = opt_in_smem(st, &opted[row_id], sr_attention_bwd_row_mma_kernel<KS>);
-  if (rc == 0)
-    rc = opt_in_smem(st, &opted[kv_id], sr_attention_bwd_kv_mma_kernel<KS>);
-  if (rc != 0) return rc;
-  const MmaGeometry geo = mma_geometry(pr.M, KS);
-  const int rpc = rows_per_cta(st, pr.G, pr.N, kMmaRows);
-  const dim3 row_grid(ceil_div(pr.N, rpc), pr.G);
-  sr_attention_bwd_row_mma_kernel<KS>
-      <<<row_grid, kMmaWarps * 32, row_mma_smem(pr.M, pr.d), stream>>>(
-          pr, geo, rpc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 kv_grid(ceil_div(pr.M, kKvChunk), pr.splits, pr.G);
-  sr_attention_bwd_kv_mma_kernel<KS>
-      <<<kv_grid, kKvMmaWarps * 32, kv_mma_smem(KS), stream>>>(pr);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -746,32 +705,106 @@ int launch_reduce(const Problem& pr, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-bool valid_sizes(int B, int H, int N, int M, int d, int dtype) {
+bool valid_sizes(int B, int H, int N, int M, int d) {
   return B > 0 && H > 0 && (long long)B * H <= 65535 && N > 0 && M > 0 &&
-         M <= kMaxM && d > 0 && d <= kMaxD && (dtype == 0 || dtype == 1);
+         M <= kMaxM && d > 0 && d <= kMaxD;
+}
+
+// Tensor-core kernels: shared-memory opt-in flags, dq PN 1, 2, dkv PN 1, 2.
+std::atomic<bool> g_opted_in[kMaxDevices][4];
+
+size_t dq_smem(int pn) { return 1024 + (size_t)8 * pn * kTileBytes; }
+size_t dkv_smem(int pn) { return 1024 + (size_t)6 * pn * kTileBytes + 1024; }
+
+// Blocks of a kernel an SM holds, read once per (device, kernel), after the
+// kernel's shared-memory opt-in. Kernel ids: dq PN 1, 2, dkv PN 1, 2.
+std::atomic<int> g_per_sm[kMaxDevices][4];
+
+template <typename Kernel>
+int blocks_per_sm(const DeviceState* st, int id, Kernel kernel, size_t smem,
+                  int* out) {
+  int rc = opt_in_smem(st, &g_opted_in[device_index(st)][id], kernel);
+  if (rc != 0) return rc;
+  std::atomic<int>& cached = g_per_sm[device_index(st)][id];
+  *out = cached.load(std::memory_order_relaxed);
+  if (*out > 0) return 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                          kWgThreads, smem);
+  if (rc == 0 && *out < 1) return (int)cudaErrorInvalidConfiguration;
+  if (rc == 0) cached.store(*out, std::memory_order_relaxed);
+  return rc;
+}
+
+// Blocks (one cluster) per kv tile of the dkv kernel: about as many blocks
+// in all as fit on the card at once, at most kMaxShares and one q tile
+// each; `max_shares` > 0 caps them.
+int plan_shares(const DeviceState* st, int per_sm, int G, int qtiles,
+                int ktiles, int max_shares) {
+  int s = per_sm * st->sms / (G * ktiles);
+  if (s > kMaxShares) s = kMaxShares;
+  if (s > qtiles) s = qtiles;
+  if (max_shares > 0 && s > max_shares) s = max_shares;
+  return s < 1 ? 1 : s;
+}
+
+template <int PN>
+int launch_tc(TcProblem p, int G, int max_shares, DeviceState* st,
+              cudaStream_t stream) {
+  int dq_per_sm = 0, dkv_per_sm = 0;
+  int rc = blocks_per_sm(st, PN - 1, sr_bwd_dq<PN>, dq_smem(PN), &dq_per_sm);
+  if (rc == 0)
+    rc = blocks_per_sm(st, 1 + PN, sr_bwd_dkv<PN>, dkv_smem(PN), &dkv_per_sm);
+  if (rc != 0) return rc;
+
+  // dq (and delta): blocks persistent over a slice's q tiles, about one
+  // wave of them, at least two q tiles each.
+  int per_slice = dq_per_sm * st->sms / G;
+  if (per_slice > ceil_div(p.qtiles, 2)) per_slice = ceil_div(p.qtiles, 2);
+  if (per_slice < 1) per_slice = 1;
+  sr_bwd_dq<PN><<<dim3(per_slice, G), kWgThreads, dq_smem(PN), stream>>>(p);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+
+  p.shares = plan_shares(st, dkv_per_sm, G, p.qtiles, p.ktiles, max_shares);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.ktiles * p.shares, G);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = dkv_smem(PN);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.shares;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = (int)cudaLaunchKernelEx(&cfg, sr_bwd_dkv<PN>, p);
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Number of splits of a slice's q rows that `sr_attention_bwd` uses on the
-// current device for these sizes and this cap (0: none); the `partials`
-// workspace holds 2 * B * H * splits * M * d floats. Negative:
-// -(cudaError_t code).
+// The scalar route: number of splits of a slice's q rows that
+// `sr_attention_bwd` uses on the current device for these sizes and this
+// cap (0: none); the `partials` workspace holds 2 * B * H * splits * M * d
+// floats. Negative: -(cudaError_t code).
 extern "C" int sr_attention_bwd_splits(int B, int H, int N, int M, int d,
                                        int dtype, int max_splits) {
-  if (!valid_sizes(B, H, N, M, d, dtype)) return -(int)cudaErrorInvalidValue;
+  if (!valid_sizes(B, H, N, M, d) || (dtype != 0 && dtype != 1))
+    return -(int)cudaErrorInvalidValue;
   DeviceState* st = nullptr;
   const int rc = current_device(&st);
   if (rc != 0) return -rc;
   int splits = 0, rows = 0;
-  plan_splits(st, B * H, N, M, d, dtype, max_splits, &splits, &rows);
+  plan_splits(st, B * H, N, M, max_splits, &splits, &rows);
   return splits;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. q/g/dq: (B, H, N, d); k/v/dk/dv:
-// (B, H, M, d), on the current device, each with unit stride along d.
-// `strides` holds 21 element strides: (batch, head, row) of q, k, v, g, dq,
-// dk, dv, in that order. `stats`: B*H*N*4 floats; `partials`: see
+// The scalar route. dtype: 0 = float32, 1 = bfloat16. q/g/dq: (B, H, N, d);
+// k/v/dk/dv: (B, H, M, d), on the current device, each with unit stride
+// along d. `strides` holds 21 element strides: (batch, head, row) of q, k,
+// v, g, dq, dk, dv, in that order. `stats`: B*H*N*4 floats; `partials`: see
 // sr_attention_bwd_splits, called with the same `max_splits`. Returns a
 // cudaError_t code (0 = launched).
 extern "C" int sr_attention_bwd(const void* q, const void* k, const void* v,
@@ -780,7 +813,8 @@ extern "C" int sr_attention_bwd(const void* q, const void* k, const void* v,
                                 int N, int M, int d, const long long* strides,
                                 float scale, int dtype, int max_splits,
                                 void* stream) {
-  if (!valid_sizes(B, H, N, M, d, dtype)) return (int)cudaErrorInvalidValue;
+  if (!valid_sizes(B, H, N, M, d) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // clear an earlier non-sticky error: report our own
   DeviceState* st = nullptr;
   int rc = current_device(&st);
@@ -805,22 +839,79 @@ extern "C" int sr_attention_bwd(const void* q, const void* k, const void* v,
   pr.M = M;
   pr.d = d;
   pr.scale = scale;
-  plan_splits(st, pr.G, N, M, d, dtype, max_splits, &pr.splits,
-              &pr.rows_per_split);
+  plan_splits(st, pr.G, N, M, max_splits, &pr.splits, &pr.rows_per_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_mma(st, M, d, dtype)) {
-    const int ks = mma_ks(d);
-    rc = ks == 2 ? launch_mma_ks<2>(pr, st, s)
-                 : (ks == 4 ? launch_mma_ks<4>(pr, st, s)
-                            : launch_mma_ks<8>(pr, st, s));
-    if (rc != 0) return rc;
-    return launch_reduce<__nv_bfloat16>(pr, s);
-  }
   rc = dtype == 0 ? launch_scalar<float>(pr, st, s)
                   : launch_scalar<__nv_bfloat16>(pr, st, s);
   if (rc != 0) return rc;
   return dtype == 0 ? launch_reduce<float>(pr, s)
                     : launch_reduce<__nv_bfloat16>(pr, s);
+}
+
+// The tensor-core route: shares (blocks of one cluster) per kv tile that
+// `sr_attention_bwd_tc` plans on the current device; negative: -(error).
+extern "C" int sr_attention_bwd_tc_shares(int B, int H, int N, int M, int d,
+                                          int max_shares) {
+  if (!valid_sizes(B, H, N, M, d)) return -(int)cudaErrorInvalidValue;
+  DeviceState* st = nullptr;
+  int rc = current_device(&st);
+  if (rc != 0) return -rc;
+  int per_sm = 0;
+  rc = d <= 64 ? blocks_per_sm(st, 2, sr_bwd_dkv<1>, dkv_smem(1), &per_sm)
+               : blocks_per_sm(st, 3, sr_bwd_dkv<2>, dkv_smem(2), &per_sm);
+  if (rc != 0) return -rc;
+  return plan_shares(st, per_sm, B * H, ceil_div(N, 64), ceil_div(M, 64),
+                     max_shares);
+}
+
+// The tensor-core route: bf16, d % 8 == 0, every row of q, k, v, g 16-byte
+// aligned (base and strides). q/g/dq: (B, H, N, d); k/v/dk/dv: (B, H, M, d);
+// `strides` holds 21 element strides: (batch, head, row) of q, k, v, g, dq,
+// dk, dv. `lse`: the forward's (B * H, N) fp32 row logsumexp in base 2;
+// `delta`: (B * H, N) fp32 scratch. Two launches: the dq kernel (which also
+// writes delta), then the dkv kernel in clusters of `shares` blocks
+// (planned; `max_shares` > 0 caps them). Returns a cudaError_t code.
+extern "C" int sr_attention_bwd_tc(const void* q, const void* k, const void* v,
+                                   const void* g, const void* lse, void* delta,
+                                   void* dq, void* dk, void* dv, int B, int H,
+                                   int N, int M, int d,
+                                   const long long* strides, float scale,
+                                   int max_shares, void* stream) {
+  if (!valid_sizes(B, H, N, M, d) || d % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const void* loaded[4] = {q, k, v, g};
+  for (int i = 0; i < 4; ++i)
+    if (!rows_aligned16(loaded[i], strides[3 * i], strides[3 * i + 1],
+                        strides[3 * i + 2]))
+      return (int)cudaErrorMisalignedAddress;
+  cudaGetLastError();
+  DeviceState* st = nullptr;
+  const int rc = current_device(&st);
+  if (rc != 0) return rc;
+  TcProblem p;
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.g = static_cast<const bf16*>(g);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.dq = static_cast<bf16*>(dq);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  Layout* layouts[7] = {&p.lq, &p.lk, &p.lv, &p.lg, &p.ldq, &p.ldk, &p.ldv};
+  for (int i = 0; i < 7; ++i)
+    *layouts[i] = Layout{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  p.H = H;
+  p.N = N;
+  p.M = M;
+  p.d = d;
+  p.qtiles = ceil_div(N, 64);
+  p.ktiles = ceil_div(M, 64);
+  p.shares = 1;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return d <= 64 ? launch_tc<1>(p, B * H, max_shares, st, s)
+                 : launch_tc<2>(p, B * H, max_shares, st, s);
 }
 
 extern "C" const char* sr_attention_bwd_error_string(int code) {

@@ -8,23 +8,41 @@
 // with the TPU kernel's rounding points (mirrored by ops/attention._sdpa_fwd):
 // logits accumulated in fp32 and multiplied by `scale`; row max, exp and sum
 // in fp32; p normalised in fp32, THEN rounded to the input dtype; p @ v
-// accumulated in fp32; the output rounded to the input dtype.
+// accumulated in fp32; the output rounded to the input dtype. The
+// tensor-core kernels can also write each row's fp32 logsumexp in base 2 of
+// the scaled logits, log2(sum_j 2^(s_j * scale * log2 e)): the residual of
+// the backward kernels, which then need neither the row max nor the sum.
 //
 // What bounds it on the H100: the (N, M) probs never reach device memory,
-// so the only device-memory traffic is q and out (G*N*d each) plus k and v
-// (G*M*d each, re-read from L2 by every block of a slice). At the flagship
-// shapes (M = 300, d = 64) that is ~2 bytes read and written per 300
-// multiply-adds of each q row: memory-bound on q/out/kv in principle, and in
-// practice bounded by the on-chip work: the products (on tensor cores in
-// bf16) and the exps of the softmax.
+// so device-memory traffic is q and out (G*N*d each) plus k and v (G*M*d
+// each). At the flagship shapes (M = 300, d = 64, bf16) that is ~2 bytes
+// read and written per 300 multiply-adds of each q row: memory-bound in
+// principle; on the chip the softmax's one exp a logit (the MUFU unit, 16 a
+// clock an SM) and the products bind first.
 //
-// What the design does about it (two kernels; the C entry picks one):
-//   * bf16 where k and v^T of a slice fit in shared memory (all flagship
-//     shapes): `sr_attention_fwd_mma_kernel`, tensor cores (mma.sync
-//     m16n8k16, fp32 accumulation) with the logits kept in registers and
-//     recomputed per softmax pass; see its own note below.
-//   * fp32, and bf16 with a large M*d: `sr_attention_fwd_kernel`, scalar
-//     fp32 FMAs from shared memory, described by the rest of this list.
+// Three kernels; the wrapper picks the route, the C entries the kernel:
+//   * `sr_fwd_onepass` (bf16, M <= 320; every MiT shape at 480x640 has
+//     M = 300): k and v of a slice are staged once per block with 16-byte
+//     cp.async into the 128-byte-swizzled layout wgmma reads, and serve all
+//     the q tiles the block's two warpgroups walk (blocks are persistent
+//     over a slice's q tiles; about one block an SM across the slices). A
+//     warpgroup owns 64 q rows at a time: S = q k^T is one batch of
+//     m64n64k16 wgmmas whose fp32 accumulators hold the whole logits row
+//     (ceil(M / 64) * 32 registers a thread); max, sum and p come from that
+//     one product with one exp a logit and one reciprocal a row; p, rounded
+//     to bf16 in registers, is the register A operand of the p @ v wgmmas,
+//     whose B is v straight from its row-major staging (MN-major). The next
+//     q tile's cp.async runs under the current tile's products. The logits
+//     row holds a thread at ~255 registers, so an SM runs one block (two
+//     warpgroups).
+//   * `sr_fwd_twopass` (bf16, 320 < M <= 1024): one warpgroup a block, k
+//     and v stream through a two-stage cp.async ring in 64-row tiles. Pass
+//     1: S tile by tile, online row max and sum; pass 2: S again, p and
+//     p @ v. Three products instead of two; the same rounding points.
+//   * `sr_attention_fwd_kernel` (fp32, and bf16 views the tensor-core route
+//     does not take: a head dim that is not a multiple of 8, rows that are
+//     not 16-byte aligned): scalar fp32 FMAs from shared memory, described
+//     by the rest of this list.
 //   * One block per (tile of q rows, slice g): blockIdx.y = g, blockIdx.x =
 //     a run of q rows; offsets come from blockIdx and the operands' strides.
 //     q, k, v and out are read and written where they lie: (batch, head,
@@ -54,6 +72,7 @@
 // device, not per launch.
 
 #include "attention_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -291,175 +310,336 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16, bf16 inputs, fp32
-// accumulation. Used when k and v^T of a slice fit in shared memory (the
-// flagship shapes); the kernel above takes the rest.
-//
-// Each warp owns 16 q rows at a time, with its q fragments in registers.
-// The logits of a 16-column tile are an mma accumulator; they never leave
-// registers. Three passes over the kv columns recompute them (the products
-// are cheap on tensor cores; shared memory for a (rows, M) fp32 buffer is
-// not): pass 1 the row max, pass 2 the row sum of exp, pass 3 p = exp / sum
-// rounded to bf16, which is already laid out as the A fragment of the
-// p @ v mma. Warps never synchronise after k and v^T are staged.
+// bf16 on the tensor cores: wgmma m64n64k16, fp32 accumulation.
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 8;
-constexpr int kMmaRows = kMmaWarps * 16;  // q rows of one pass of the warps
-constexpr int kNoFit = -1;                // launch_mma: use the other kernel
+using bf16 = __nv_bfloat16;
 
-struct MmaParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* out;
+constexpr int kOnePassWgs = 2;     // warpgroups of a one-pass block
+constexpr int kMaxOnePassTiles = 5;  // 64-column kv tiles held as logits
+constexpr int kTileBytes = 64 * kPanelRowBytes;  // one 64-row panel
+
+struct TcParams {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  float* lse;  // (G, N) or null: log2 of sum_j 2^(s_j * scale * log2 e)
   Layout lq, lk, lv, lo;
   int H, N, M, d;
-  int mp;            // M rounded up to 16 (zero rows in k and v^T)
-  int ldk;           // k row stride: padded head dim + 8 (conflict-free)
-  int ldvt;          // v^T row stride: mp + 8 (conflict-free)
-  int rows_per_cta;
+  int tiles;   // 64-row q tiles of a slice
   float scale;
 };
 
-// Logits * scale of the warp's 16 rows x kv columns [16j, 16j + 16) as two
-// 16x8 accumulators; columns >= M are -inf (probability exactly 0).
-// Thread (gq, tq) holds rows gq and gq + 8, columns 2tq and 2tq + 1 of each.
-template <int KS>
-__device__ __forceinline__ void logits_tile(const uint32_t (&qa)[KS][4],
-                                            const __nv_bfloat16* K_s,
-                                            const MmaParams& p, int j, int gq,
-                                            int tq, float (&s)[2][4]) {
+// Row statistics of the two rows a thread holds, combined over its quad.
+__device__ __forceinline__ void quad_combine(float (&mx)[2], float (&sum)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    s[h][0] = s[h][1] = s[h][2] = s[h][3] = 0.f;
-    const __nv_bfloat16* kr = K_s + (j * 16 + h * 8 + gq) * p.ldk + 2 * tq;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kk * 16);
-      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8);
-      mma16816(s[h], qa[kk], b0, b1);
-    }
-    const int c = j * 16 + h * 8 + 2 * tq;
-    s[h][0] = c < p.M ? s[h][0] * p.scale : -INFINITY;
-    s[h][1] = c + 1 < p.M ? s[h][1] * p.scale : -INFINITY;
-    s[h][2] = c < p.M ? s[h][2] * p.scale : -INFINITY;
-    s[h][3] = c + 1 < p.M ? s[h][3] * p.scale : -INFINITY;
+    const float m = quad_max(mx[h]);
+    sum[h] = quad_sum(sum[h] * ex2(mx[h] - m));
+    mx[h] = m;
   }
 }
 
-template <int KS>  // KS = padded head dim / 16
-__global__ void __launch_bounds__(kMmaWarps * 32)
-    sr_attention_fwd_mma_kernel(const MmaParams p) {
-  constexpr int DP = KS * 16;
-  constexpr int DT = DP / 8;  // 8-wide output tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* K_s = reinterpret_cast<__nv_bfloat16*>(smem);  // (mp, ldk)
-  __nv_bfloat16* Vt_s = K_s + p.mp * p.ldk;                      // (DP, ldvt)
+// The output tile (rows r0 + 16 * warp + gq (+ 8)) and its logsumexp.
+template <int PN>
+__device__ __forceinline__ void store_out(const TcParams& p, int g, int r0,
+                                          const float (&o)[PN][32],
+                                          const float (&mx)[2],
+                                          const float (&sum)[2]) {
+  const int t = threadIdx.x % kWgThreads;
+  const int row0 = r0 + 16 * (t / 32) + (t % 32) / 4;
+  const int tq = t % 4;
+  bf16* og = slice(p.out, p.lo, g, p.H);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= p.N) continue;
+    bf16* dst = og + (long long)row * p.lo.row;
+#pragma unroll
+    for (int pn = 0; pn < PN; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = pn * kPanel + 8 * j + 2 * tq;
+        if (c < p.d)
+          *reinterpret_cast<uint32_t*>(dst + c) =
+              pack_bf16(o[pn][4 * j + 2 * h], o[pn][4 * j + 2 * h + 1]);
+      }
+    if (p.lse != nullptr && tq == 0)
+      p.lse[(long long)g * p.N + row] = mx[h] + log2f(sum[h]);
+  }
+}
+
+// One pass: k and v of slice blockIdx.y resident (NT 64-row tiles, PN
+// panels of the head dim); each warpgroup walks its own q tiles.
+template <int NT, int PN>
+__global__ void __launch_bounds__(kOnePassWgs * kWgThreads, 1)
+    sr_fwd_onepass(const TcParams p) {
+  constexpr int KV = NT * 64;  // kv rows staged (zero past M)
+  constexpr int TB = PN * kTileBytes;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t Ks = base;
+  const uint32_t Vs = Ks + PN * KV * kPanelRowBytes;
+  const int wg = threadIdx.x / kWgThreads;
+  const int tid = threadIdx.x % kWgThreads;
+  const uint32_t Qs = Vs + PN * KV * kPanelRowBytes + wg * 2 * TB;
 
   const int g = blockIdx.y;
-  const __nv_bfloat16* qg = slice(p.q, p.lq, g, p.H);
-  const __nv_bfloat16* kg = slice(p.k, p.lk, g, p.H);
-  const __nv_bfloat16* vg = slice(p.v, p.lv, g, p.H);
-  __nv_bfloat16* og = slice(p.out, p.lo, g, p.H);
-
-  // Stage k row-major and v transposed, zero-padded to (mp, DP).
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < p.mp * DP; i += blockDim.x) {
-    const int m = i / DP;
-    const int e = i - m * DP;
-    const bool in = m < p.M && e < p.d;
-    K_s[m * p.ldk + e] = in ? kg[m * p.lk.row + e] : zero;
-    Vt_s[e * p.ldvt + m] = in ? vg[m * p.lv.row + e] : zero;
-  }
+  const bf16* qg = slice(p.q, p.lq, g, p.H);
+  stage_rows_async(Ks, slice(p.k, p.lk, g, p.H), p.lk.row, 0, p.M, p.d, KV,
+                   PN, threadIdx.x, blockDim.x);
+  stage_rows_async(Vs, slice(p.v, p.lv, g, p.H), p.lv.row, 0, p.M, p.d, KV,
+                   PN, threadIdx.x, blockDim.x);
+  const int stride = gridDim.x * kOnePassWgs;
+  int t = blockIdx.x * kOnePassWgs + wg;
+  if (t < p.tiles)
+    stage_rows_async(Qs, qg, p.lq.row, t * 64, p.N, p.d, 64, PN, tid,
+                     kWgThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_smem();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;  // mma group: rows gq and gq + 8
-  const int tq = lane & 3;   // thread in group: columns 2tq, 2tq + 1
-  const int ktiles = p.mp / 16;
-  const int row_begin = blockIdx.x * p.rows_per_cta;
-  const int row_end = min(row_begin + p.rows_per_cta, p.N);
+  const int tq = tid % 4;
+  const float c = p.scale * kLog2e;
+  for (int buf = 0; t < p.tiles; t += stride, buf ^= 1) {
+    if (t + stride < p.tiles)
+      stage_rows_async(Qs + (buf ^ 1) * TB, qg, p.lq.row, (t + stride) * 64,
+                       p.N, p.d, 64, PN, tid, kWgThreads);
+    cp_async_commit();
+    const uint32_t qt = Qs + buf * TB;
 
-  for (int r0 = row_begin + warp * 16; r0 < row_end; r0 += kMmaRows) {
-    const int ra = r0 + gq;
-    const int rb = ra + 8;
-    uint32_t qa[KS][4];
+    // S = q k^T, the whole row in registers.
+    float s[NT][32];
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int c = kk * 16 + 2 * tq;
-      qa[kk][0] = load_pair(qg, p.lq.row, ra, c, p.N, p.d);
-      qa[kk][1] = load_pair(qg, p.lq.row, rb, c, p.N, p.d);
-      qa[kk][2] = load_pair(qg, p.lq.row, ra, c + 8, p.N, p.d);
-      qa[kk][3] = load_pair(qg, p.lq.row, rb, c + 8, p.N, p.d);
-    }
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fence_regs(s[j]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4 * PN; ++ks)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)  // interleaved: no chain on one tile
+        wgmma_ss(s[j], kmajor_desc(qt, 64, ks),
+                 kmajor_desc(Ks + j * kTileBytes, KV, ks));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) fence_regs(s[j]);
 
-    float mx[2] = {-INFINITY, -INFINITY};
-    for (int j = 0; j < ktiles; ++j) {
-      float s[2][4];
-      logits_tile<KS>(qa, K_s, p, j, gq, tq, s);
+    // Softmax in base 2: x = s * scale * log2(e), rounded before any use
+    // (never contracted into an FMA: the backward recomputes the same x and
+    // subtracts lse2 from it); columns >= M (last tile only) are -inf. Max
+    // and sum run as one chain a tile, combined afterwards: short
+    // dependency chains with two warps an SM sub-partition.
+    float tmx[NT][2], tsum[NT][2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[h][0], s[h][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[h][2], s[h][3]));
+    for (int j = 0; j < NT; ++j) {
+      tmx[j][0] = tmx[j][1] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 64 * j + 8 * (i / 4) + 2 * tq + (i & 1);
+        float x = __fmul_rn(s[j][i], c);
+        if (j == NT - 1 && col >= p.M) x = -INFINITY;
+        s[j][i] = x;
+        tmx[j][(i >> 1) & 1] = fmaxf(tmx[j][(i >> 1) & 1], x);
       }
     }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
-
-    float sum[2] = {0.f, 0.f};
-    for (int j = 0; j < ktiles; ++j) {
-      float s[2][4];
-      logits_tile<KS>(qa, K_s, p, j, gq, tq, s);
+    float mx[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[0] += expf(s[h][0] - mx[0]) + expf(s[h][1] - mx[0]);
-        sum[1] += expf(s[h][2] - mx[1]) + expf(s[h][3] - mx[1]);
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = tmx[0][h];
+#pragma unroll
+      for (int j = 1; j < NT; ++j) mx[h] = fmaxf(mx[h], tmx[j][h]);
+      mx[h] = quad_max(mx[h]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      tsum[j][0] = tsum[j][1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float e = ex2(s[j][i] - mx[(i >> 1) & 1]);
+        s[j][i] = e;
+        tsum[j][(i >> 1) & 1] += e;
       }
     }
-    sum[0] = quad_sum(sum[0]);
-    sum[1] = quad_sum(sum[1]);
-
-    float o[DT][4];
 #pragma unroll
-    for (int t = 0; t < DT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-    for (int j = 0; j < ktiles; ++j) {
-      float s[2][4];
-      logits_tile<KS>(qa, K_s, p, j, gq, tq, s);
-      // p = exp / sum in fp32, then rounded to bf16: the A fragment of p @ v.
-      uint32_t pa[4];
+    for (int j = 0; j < NT; ++j) {
+      sum[0] += tsum[j][0];
+      sum[1] += tsum[j][1];
+    }
+    float inv[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        pa[2 * h] = pack_bf16(expf(s[h][0] - mx[0]) / sum[0],
-                              expf(s[h][1] - mx[0]) / sum[0]);
-        pa[2 * h + 1] = pack_bf16(expf(s[h][2] - mx[1]) / sum[1],
-                                  expf(s[h][3] - mx[1]) / sum[1]);
-      }
-      const __nv_bfloat16* vr = Vt_s + gq * p.ldvt + j * 16 + 2 * tq;
+    for (int h = 0; h < 2; ++h) {
+      sum[h] = quad_sum(sum[h]);
+      inv[h] = 1.f / sum[h];
+    }
+    // p = e / sum in fp32, rounded to bf16: the A operand of p @ v.
+    uint32_t pa[4 * NT][4];
 #pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        const __nv_bfloat16* vt = vr + t * 8 * p.ldvt;
-        mma16816(o[t], pa, *reinterpret_cast<const uint32_t*>(vt),
-                 *reinterpret_cast<const uint32_t*>(vt + 8));
-      }
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[j][i] *= inv[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(s[j], kk, pa[4 * j + kk]);
     }
 
+    float o[PN][32];
 #pragma unroll
-    for (int t = 0; t < DT; ++t) {
-      const int c = t * 8 + 2 * tq;
+    for (int pn = 0; pn < PN; ++pn)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = half ? rb : ra;
-        if (row < row_end) {
-          __nv_bfloat16* dst = og + row * p.lo.row;
-          if (c < p.d) dst[c] = __float2bfloat16_rn(o[t][2 * half]);
-          if (c + 1 < p.d) dst[c + 1] = __float2bfloat16_rn(o[t][2 * half + 1]);
-        }
-      }
-    }
+      for (int i = 0; i < 32; ++i) o[pn][i] = 0.f;
+#pragma unroll
+    for (int pn = 0; pn < PN; ++pn) fence_regs(o[pn]);
+#pragma unroll
+    for (int ks = 0; ks < 4 * NT; ++ks) fence_regs(pa[ks]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4 * NT; ++ks)
+#pragma unroll
+      for (int pn = 0; pn < PN; ++pn)
+        wgmma_rs(o[pn], pa[ks], mnmajor_desc(Vs, KV, pn, ks));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < PN; ++pn) fence_regs(o[pn]);
+#pragma unroll
+    for (int ks = 0; ks < 4 * NT; ++ks) fence_regs(pa[ks]);
+
+    store_out<PN>(p, g, t * 64, o, mx, sum);
+    cp_async_wait<0>();
+    fence_async_smem();
+    wg_barrier(1 + wg);
   }
+}
+
+// Two passes: one warpgroup a block, k (pass 1) and k, v (pass 2) stream
+// through a two-stage ring of 64-row tiles; q tiles are double-buffered.
+template <int PN>
+__global__ void __launch_bounds__(kWgThreads)
+    sr_fwd_twopass(const TcParams p) {
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t Qs = base;                          // 2 q tiles
+  const uint32_t Ks = Qs + 2 * PN * kTileBytes;      // 2 k tiles
+  const uint32_t Vs = Ks + 2 * PN * kTileBytes;      // 2 v tiles
+  const int tid = threadIdx.x;
+  const int tq = tid % 4;
+  const int g = blockIdx.y;
+  const bf16* qg = slice(p.q, p.lq, g, p.H);
+  const bf16* kg = slice(p.k, p.lk, g, p.H);
+  const bf16* vg = slice(p.v, p.lv, g, p.H);
+  const int T = (p.M + 63) / 64;
+  const float c = p.scale * kLog2e;
+
+  // Step u of q tile t: pass 1 on kv tile u (u < T), pass 2 on u - T.
+  auto issue = [&](int t, int u, int stage, int qbuf) {
+    const int j = u < T ? u : u - T;
+    stage_rows_async(Ks + stage * PN * kTileBytes, kg, p.lk.row, j * 64, p.M,
+                     p.d, 64, PN, tid, kWgThreads);
+    if (u >= T)
+      stage_rows_async(Vs + stage * PN * kTileBytes, vg, p.lv.row, j * 64,
+                       p.M, p.d, 64, PN, tid, kWgThreads);
+    if (u == 0)
+      stage_rows_async(Qs + qbuf * PN * kTileBytes, qg, p.lq.row, t * 64,
+                       p.N, p.d, 64, PN, tid, kWgThreads);
+  };
+
+  int t = blockIdx.x;
+  if (t < p.tiles) issue(t, 0, 0, 0);
+  cp_async_commit();
+  int stage = 0;
+  for (int qbuf = 0; t < p.tiles; t += gridDim.x, qbuf ^= 1) {
+    const uint32_t qt = Qs + qbuf * PN * kTileBytes;
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, inv[2];
+    float o[PN][32];
+#pragma unroll
+    for (int pn = 0; pn < PN; ++pn)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[pn][i] = 0.f;
+
+    for (int u = 0; u < 2 * T; ++u, stage ^= 1) {
+      if (u + 1 < 2 * T)
+        issue(t, u + 1, stage ^ 1, qbuf);
+      else if (t + gridDim.x < p.tiles)
+        issue(t + gridDim.x, 0, stage ^ 1, qbuf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      fence_async_smem();
+      __syncthreads();
+
+      const int j = u < T ? u : u - T;
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4 * PN; ++ks)
+        wgmma_ss(s, kmajor_desc(qt, 64, ks),
+                 kmajor_desc(Ks + stage * PN * kTileBytes, 64, ks));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 64 * j + 8 * (i / 4) + 2 * tq + (i & 1);
+        s[i] = col < p.M ? __fmul_rn(s[i], c) : -INFINITY;
+      }
+      if (u < T) {  // online max and sum of this thread's columns
+        float tmax[2] = {mx[0], mx[1]};
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], s[i]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // Both -inf: no column of this thread so far, the sum stays 0.
+          sum[h] *= mx[h] == tmax[h] ? 1.f : ex2(mx[h] - tmax[h]);
+          mx[h] = tmax[h];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (s[i] != -INFINITY) sum[(i >> 1) & 1] += ex2(s[i] - mx[(i >> 1) & 1]);
+        if (u == T - 1) {
+          quad_combine(mx, sum);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) inv[h] = 1.f / sum[h];
+        }
+      } else {
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = ex2(s[i] - mx[(i >> 1) & 1]) * inv[(i >> 1) & 1];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) pack_a(s, kk, pa[kk]);
+#pragma unroll
+        for (int pn = 0; pn < PN; ++pn) fence_regs(o[pn]);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) fence_regs(pa[ks]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int pn = 0; pn < PN; ++pn)
+            wgmma_rs(o[pn], pa[ks],
+                     mnmajor_desc(Vs + stage * PN * kTileBytes, 64, pn, ks));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int pn = 0; pn < PN; ++pn) fence_regs(o[pn]);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) fence_regs(pa[ks]);
+      }
+      __syncthreads();  // this stage is read: the next step may refill it
+    }
+    store_out<PN>(p, g, t * 64, o, mx, sum);
+  }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -494,49 +674,81 @@ void fill(P& p, const Problem& pr) {
   p.scale = pr.scale;
 }
 
-enum KernelId { kScalarF32, kScalarBf16, kMma2, kMma4, kMma8, kNumKernels };
+// Shared-memory opt-in flags: the two scalar kernels, the one-pass kernels
+// (NT, PN) and the two-pass kernels (PN).
+constexpr int kScalarF32 = 0, kScalarBf16 = 1, kOnePass0 = 2;
+constexpr int kTwoPass0 = kOnePass0 + 2 * kMaxOnePassTiles;
+constexpr int kNumKernels = kTwoPass0 + 2;
 std::atomic<bool> g_opted_in[kMaxDevices][kNumKernels];
 
-template <int KS>
-int launch_mma_ks(MmaParams p, int G, size_t smem, DeviceState* st,
-                  cudaStream_t stream) {
-  constexpr KernelId id = KS == 2 ? kMma2 : (KS == 4 ? kMma4 : kMma8);
-  const int rc = opt_in_smem(st, &g_opted_in[device_index(st)][id],
-                             sr_attention_fwd_mma_kernel<KS>);
+// Blocks a slice gets: about as many blocks in all as fit on the card at
+// once, each with at least `min_tiles` q tiles when there are that many.
+int blocks_per_slice(const DeviceState* st, int per_sm, int G, int tiles,
+                     int min_tiles) {
+  int b = per_sm * st->sms / G;
+  const int most = (tiles + min_tiles - 1) / min_tiles;
+  if (b > most) b = most;
+  return b < 1 ? 1 : b;
+}
+
+// Blocks of a kernel an SM holds, read once per (device, kernel).
+std::atomic<int> g_per_sm[kMaxDevices][kNumKernels];
+
+template <typename Kernel>
+int launch_tc(Kernel kernel, int id, const TcParams& p, int G, int threads,
+              size_t smem, int min_tiles, DeviceState* st,
+              cudaStream_t stream) {
+  int rc = opt_in_smem(st, &g_opted_in[device_index(st)][id], kernel);
   if (rc != 0) return rc;
-  // ~4 blocks per SM across the G slices, at most 8 passes of the warps each.
-  const int groups = (p.N + kMmaRows - 1) / kMmaRows;
-  const int per_slice = (4 * st->sms + G - 1) / G;
-  int gpc = (groups + per_slice - 1) / per_slice;
-  gpc = gpc < 1 ? 1 : (gpc > 8 ? 8 : gpc);
-  p.rows_per_cta = gpc * kMmaRows;
-  const dim3 grid((p.N + p.rows_per_cta - 1) / p.rows_per_cta, G);
-  sr_attention_fwd_mma_kernel<KS><<<grid, kMmaWarps * 32, smem, stream>>>(p);
+  std::atomic<int>& cached = g_per_sm[device_index(st)][id];
+  int per_sm = cached.load(std::memory_order_relaxed);
+  if (per_sm == 0) {
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            threads, smem);
+    if (rc != 0) return rc;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    cached.store(per_sm, std::memory_order_relaxed);
+  }
+  const dim3 grid(blocks_per_slice(st, per_sm, G, p.tiles, min_tiles), G);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Launches the tensor-core kernel, or returns kNoFit when k and v^T of a
-// slice do not fit in shared memory.
-int launch_mma(const Problem& pr, DeviceState* st, cudaStream_t stream) {
-  const int ks = pr.d <= 32 ? 2 : (pr.d <= 64 ? 4 : 8);
-  MmaParams p;
-  fill<MmaParams, __nv_bfloat16>(p, pr);
-  p.mp = (pr.M + 15) & ~15;
-  p.ldk = ks * 16 + 8;
-  p.ldvt = p.mp + 8;
-  p.rows_per_cta = 0;
-  const size_t smem =
-      ((size_t)p.mp * p.ldk + (size_t)ks * 16 * p.ldvt) * sizeof(__nv_bfloat16);
-  if (smem > (size_t)st->smem_optin) return kNoFit;
-  if (ks == 2) return launch_mma_ks<2>(p, pr.G, smem, st, stream);
-  if (ks == 4) return launch_mma_ks<4>(p, pr.G, smem, st, stream);
-  return launch_mma_ks<8>(p, pr.G, smem, st, stream);
+// Passes the tensor-core route takes for these sizes: 1 while the logits
+// row fits the registers (M <= 320; M <= 256 at d > 64), else 2.
+int planned_passes(int M, int d) {
+  const int nt = (M + 63) / 64;
+  return nt <= (d <= 64 ? kMaxOnePassTiles : kMaxOnePassTiles - 1) ? 1 : 2;
+}
+
+template <int NT, int PN>
+int launch_onepass(const TcParams& p, int G, DeviceState* st,
+                   cudaStream_t stream) {
+  const size_t smem = 1024 + (size_t)2 * PN * NT * kTileBytes +
+                      (size_t)kOnePassWgs * 2 * PN * kTileBytes;
+  if (smem > (size_t)st->smem_optin) return (int)cudaErrorInvalidValue;
+  return launch_tc(sr_fwd_onepass<NT, PN>, kOnePass0 + 2 * (NT - 1) + PN - 1,
+                   p, G, kOnePassWgs * kWgThreads, smem, 2 * kOnePassWgs, st,
+                   stream);
+}
+
+template <int PN>
+int launch_onepass_pn(const TcParams& p, int G, int nt, DeviceState* st,
+                      cudaStream_t stream) {
+  switch (nt) {
+    case 1: return launch_onepass<1, PN>(p, G, st, stream);
+    case 2: return launch_onepass<2, PN>(p, G, st, stream);
+    case 3: return launch_onepass<3, PN>(p, G, st, stream);
+    case 4: return launch_onepass<4, PN>(p, G, st, stream);
+    default: break;
+  }
+  if constexpr (PN == 1) return launch_onepass<5, 1>(p, G, st, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch(const Problem& pr, DeviceState* st, cudaStream_t stream) {
-  constexpr KernelId id =
-      sizeof(T) == sizeof(float) ? kScalarF32 : kScalarBf16;
+  constexpr int id = sizeof(T) == sizeof(float) ? kScalarF32 : kScalarBf16;
   const int rc = opt_in_smem(st, &g_opted_in[device_index(st)][id],
                              sr_attention_fwd_kernel<T>);
   if (rc != 0) return rc;
@@ -576,23 +788,14 @@ int launch(const Problem& pr, DeviceState* st, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+bool valid_sizes(int B, int H, int N, int M, int d) {
+  return B > 0 && H > 0 && (long long)B * H <= 65535 && N > 0 && M > 0 &&
+         M <= kMaxM && d > 0 && d <= kMaxD;
+}
 
-// dtype: 0 = float32, 1 = bfloat16. q/out: (B, H, N, d); k/v: (B, H, M, d),
-// on the current device, each with unit stride along d. `strides` holds 12
-// element strides: (batch, head, row) of q, k, v and out, in that order.
-// Returns a cudaError_t code (0 = launched).
-extern "C" int sr_attention_fwd(const void* q, const void* k, const void* v,
-                                void* out, int B, int H, int N, int M, int d,
-                                const long long* strides, float scale,
-                                int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || (long long)B * H > 65535 || N <= 0 || M <= 0 ||
-      M > kMaxM || d <= 0 || d > kMaxD)
-    return (int)cudaErrorInvalidValue;
-  cudaGetLastError();  // clear an earlier non-sticky error: report our own
-  DeviceState* st = nullptr;
-  const int rc = current_device(&st);
-  if (rc != 0) return rc;
+Problem make_problem(const void* q, const void* k, const void* v, void* out,
+                     int B, int H, int N, int M, int d,
+                     const long long* strides, float scale) {
   Problem pr;
   pr.q = q;
   pr.k = k;
@@ -607,14 +810,75 @@ extern "C" int sr_attention_fwd(const void* q, const void* k, const void* v,
   pr.M = M;
   pr.d = d;
   pr.scale = scale;
+  return pr;
+}
+
+}  // namespace
+
+// The scalar route. dtype: 0 = float32, 1 = bfloat16. q/out: (B, H, N, d);
+// k/v: (B, H, M, d), on the current device, each with unit stride along d.
+// `strides` holds 12 element strides: (batch, head, row) of q, k, v and
+// out, in that order. Returns a cudaError_t code (0 = launched).
+extern "C" int sr_attention_fwd(const void* q, const void* k, const void* v,
+                                void* out, int B, int H, int N, int M, int d,
+                                const long long* strides, float scale,
+                                int dtype, void* stream) {
+  if (!valid_sizes(B, H, N, M, d)) return (int)cudaErrorInvalidValue;
+  cudaGetLastError();  // clear an earlier non-sticky error: report our own
+  DeviceState* st = nullptr;
+  const int rc = current_device(&st);
+  if (rc != 0) return rc;
+  const Problem pr = make_problem(q, k, v, out, B, H, N, M, d, strides, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(pr, st, s);
-  if (dtype == 1) {
-    const int mma = launch_mma(pr, st, s);
-    if (mma != kNoFit) return mma;
-    return launch<__nv_bfloat16>(pr, st, s);
-  }
+  if (dtype == 1) return launch<__nv_bfloat16>(pr, st, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Passes the tensor-core route plans for (M, d): 1 or 2.
+extern "C" int sr_attention_fwd_tc_passes(int M, int d) {
+  return planned_passes(M, d);
+}
+
+// The tensor-core route: bf16, d % 8 == 0, every row of q, k, v, out
+// 16-byte aligned (base and strides). Layouts as `sr_attention_fwd`. `lse`:
+// (B * H, N) fp32, each row's logsumexp in base 2 of the scaled logits, or
+// null.
+// `passes`: 0 = planned, 1 = one pass (an error where the row does not fit),
+// 2 = two passes.
+extern "C" int sr_attention_fwd_tc(const void* q, const void* k, const void* v,
+                                   void* out, void* lse, int B, int H, int N,
+                                   int M, int d, const long long* strides,
+                                   float scale, int passes, void* stream) {
+  if (!valid_sizes(B, H, N, M, d) || d % 8 != 0 || passes < 0 || passes > 2)
+    return (int)cudaErrorInvalidValue;
+  const Problem pr = make_problem(q, k, v, out, B, H, N, M, d, strides, scale);
+  const Layout* ls[4] = {&pr.lq, &pr.lk, &pr.lv, &pr.lo};
+  const void* ptrs[4] = {q, k, v, out};
+  for (int i = 0; i < 4; ++i)
+    if (!rows_aligned16(ptrs[i], ls[i]->b, ls[i]->h, ls[i]->row))
+      return (int)cudaErrorMisalignedAddress;
+  cudaGetLastError();
+  DeviceState* st = nullptr;
+  const int rc = current_device(&st);
+  if (rc != 0) return rc;
+  TcParams p;
+  fill<TcParams, bf16>(p, pr);
+  p.lse = static_cast<float*>(lse);
+  p.tiles = (N + 63) / 64;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (passes == 0) passes = planned_passes(M, d);
+  const int nt = (M + 63) / 64;
+  if (passes == 1) {
+    if (planned_passes(M, d) != 1) return (int)cudaErrorInvalidValue;
+    return d <= 64 ? launch_onepass_pn<1>(p, pr.G, nt, st, s)
+                   : launch_onepass_pn<2>(p, pr.G, nt, st, s);
+  }
+  const size_t smem = 1024 + (size_t)6 * (d <= 64 ? 1 : 2) * kTileBytes;
+  return d <= 64 ? launch_tc(sr_fwd_twopass<1>, kTwoPass0, p, pr.G, kWgThreads,
+                             smem, 1, st, s)
+                 : launch_tc(sr_fwd_twopass<2>, kTwoPass0 + 1, p, pr.G,
+                             kWgThreads, smem, 1, st, s);
 }
 
 extern "C" const char* sr_attention_fwd_error_string(int code) {

@@ -385,3 +385,214 @@ def test_backward_raises_before_the_backward(cuda):
         S.sr_attention(q.float(), k, k, 1.0)
     with pytest.raises(ValueError, match="does not take"):
         S.sr_attention_bwd(q.float(), k, k, q.float(), 1.0)
+
+
+# ------------------------------------- tensor-core route and residual ----
+
+
+@pytest.mark.parametrize("B,h,N,M,d", SHAPES)
+def test_plain_lse_matches_jax_logits(B, h, N, M, d):
+    """The forward's saved statistic: the plain version's base-2 logsumexp
+    of each q row against logsumexp of the JAX side's fp32 logits, times
+    log2(e); fp32, 1e-5 (summation order)."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    q, k, v = (_mk((B, h, n, d), s) for n, s in ((N, 0), (M, 1), (M, 2)))
+    scale = d ** -0.5
+    logits = jnp.einsum("bhnd,bhmd->bhnm", jnp.asarray(q), jnp.asarray(k),
+                        precision=jax.lax.Precision.HIGHEST) * scale
+    want = np.asarray(jax.nn.logsumexp(logits, axis=-1)) * S.LOG2E
+    out, lse = S.sr_attention_reference(*(torch.from_numpy(a) for a in
+                                          (q, k, v)), scale, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, h, N)
+    np.testing.assert_allclose(lse.numpy(), want, atol=1e-5, rtol=1e-6)
+    assert torch.equal(out, S.sr_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), scale))
+
+
+@pytest.mark.parametrize("B,h,N,M,d", SHAPES)
+def test_residual_backward_matches_jax_kernel(B, h, N, M, d):
+    """The plain backward from the residual (q, k, v, lse2), the CPU
+    counterpart of the tensor-core backward, against jax.grad of the JAX
+    kernel (interpret mode), bf16, at the tolerances of
+    test_gradients_match_jax_kernel; the autograd path saves that residual."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from rgbx_semantic_segmentation_tpu.ops import sr_attention as JS
+
+    q, k, v, w = _grad_inputs(B, h, N, M, d)
+    scale = d ** -0.5
+    ref = _jax_grads(
+        lambda q, k, v: JS.sr_attention(q, k, v, scale, interpret=True),
+        q, k, v, w, jnp.bfloat16)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    g = torch.from_numpy(w).bfloat16()
+    _, lse = S.sr_attention_reference(tq, tk, tv, scale, return_lse=True)
+    got = S.sr_attention_bwd(tq, tk, tv, g, scale, lse=lse)
+    for name, a, b in zip("qkv", got, ref):
+        np.testing.assert_allclose(a.float().numpy(), b, atol=5e-2, rtol=2e-2,
+                                   err_msg=f"d{name}")
+    tq.requires_grad_()
+    out = S.sr_attention(tq, tk, tv, scale)
+    saved = [t for t in out.grad_fn.saved_tensors if t.dim() == 3]
+    assert len(saved) == 1 and torch.equal(saved[0], lse)
+
+
+@pytest.mark.parametrize("B,h,N,M,d", SHAPES)
+def test_residual_backward_matches_plain_fp32(B, h, N, M, d):
+    """fp32: the residual backward and the yardstick differ only in the
+    summation order of pf and delta: 1e-5 of the gradient's magnitude."""
+    q, k, v, w = (torch.from_numpy(a) for a in _grad_inputs(B, h, N, M, d))
+    scale = d ** -0.5
+    _, lse = S.sr_attention_reference(q, k, v, scale, return_lse=True)
+    a = S.sr_attention_bwd(q, k, v, w, scale, lse=lse)
+    b = S.sr_attention_bwd_reference(q, k, v, w, scale)
+    for name, x, y in zip("qkv", a, b):
+        tol = 1e-5 * max(1.0, y.abs().max().item())
+        assert (x - y).abs().max().item() <= tol, name
+
+
+def test_route_on_cpu_tensors():
+    """The route depends on dtype, head dim and alignment only; here it is
+    only read (the CPU takes the plain versions whatever it says)."""
+    x = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)
+    assert S.route(x, x, x) == "tensor_cores"
+    assert S.route(x.float(), x.float(), x.float()) == "scalar"
+    y = torch.zeros(1, 2, 64, 40, dtype=torch.bfloat16)[..., :36]
+    assert S.route(y, y, y) == "scalar"  # head dim 36, row stride 40
+    z = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16)[1:].view(
+        1, 2, 64, 64)
+    assert S.route(z, x, x) == "scalar"  # 2 bytes off a 16-byte boundary
+
+
+def _check_tc(q, k, v, w, scale, fwd_ulps=2, bwd_ulps=4):
+    """Forward and backward of the tensor-core route against the plain
+    versions at the bounds of chip_smoke.py: forward 2 bf16 ulps of the
+    output and <= 1% of outputs differing (fewer than from the unrounded-p
+    version), lse 1e-5; backward 4 bf16 ulps of each gradient's largest."""
+    assert S.route(q, k, v) == "tensor_cores"
+    ref, ref_lse = S.sr_attention_reference(q, k, v, scale, return_lse=True)
+    got, lse = S._forward(q, k, v, scale, with_lse=True)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= _bf16_ulps(ref, fwd_ulps), ("out", err)
+    assert (lse - ref_lse).abs().max().item() <= 1e-5 * max(
+        1.0, ref_lse.abs().max().item())
+    if k.shape[2] > 1:
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        unrounded = torch.matmul(torch.softmax(logits, -1),
+                                 v.float()).bfloat16()
+        right = (got != ref).float().mean().item()
+        wrong = (got != unrounded).float().mean().item()
+        assert right <= 0.01 and right < wrong, (right, wrong)
+    dref = S.sr_attention_bwd_reference(q, k, v, w, scale)
+    dgot = S.sr_attention_bwd(q, k, v, w, scale, lse=lse)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), dgot, dref):
+        assert torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= _bf16_ulps(b, bwd_ulps), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 300, 304, 320, 321, 880, 1024])
+def test_tensor_cores_across_kv_lengths(cuda, M):
+    """Both sides of the one-pass / two-pass split (M = 320) and the ragged
+    edges of the 64-wide kv tiles, on the model's layouts."""
+    B, h, N, d = 1, 2, 200, 64
+    q, k, v, w = _model_layout(B, h, N, M, d, torch.bfloat16, cuda, 3)
+    assert S._kernel().sr_attention_fwd_tc_passes(M, d) == (
+        1 if M <= 320 else 2)
+    _check_tc(q, k, v, w, d ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 7, 63, 65, 130])
+def test_tensor_cores_short_and_ragged_q(cuda, N):
+    q, k, v, w = _model_layout(2, 2, N, 300, 64, torch.bfloat16, cuda, 4)
+    _check_tc(q, k, v, w, 64 ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [300, 880])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_tensor_cores_head_dims(cuda, d, M):
+    q, k, v, w = _model_layout(1, 3, 333, M, d, torch.bfloat16, cuda, 5)
+    _check_tc(q, k, v, w, d ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,N,M,d", [(2, 2, 4800, 300, 64),
+                                       (1, 5, 96, 24, 32), (2, 1, 700, 880, 64)])
+def test_backward_takes_head_split_views(cuda, B, h, N, M, d):
+    """The model's views into the backward give the same bits as contiguous
+    copies of them."""
+    q, k, v, w = _model_layout(B, h, N, M, d, torch.bfloat16, cuda, 6)
+    lse = S._forward(q, k, v, d ** -0.5, with_lse=True)[1]
+    got = S.sr_attention_bwd(q, k, v, w, d ** -0.5, lse=lse)
+    want = S.sr_attention_bwd(*(t.contiguous() for t in (q, k, v, w)),
+                              d ** -0.5, lse=lse)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_unaligned_views_take_the_scalar_route(cuda):
+    """A bf16 view whose rows are not 16-byte aligned goes to the scalar
+    kernels by the wrapper's rule (no quiet switch inside a kernel), and
+    they hold the plain versions' bounds."""
+    B, h, N, M, d = 1, 2, 100, 75, 64
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    flat = torch.randn(B * h * N * d + 1, device=cuda,
+                       generator=gen).bfloat16()
+    q = flat[1:].view(B, h, N, d)  # 2 bytes off a 16-byte boundary
+    k = torch.randn(B, h, M, 68, device=cuda, generator=gen).bfloat16()[
+        ..., :d]  # row stride 68: rows 8 bytes apart from 16-byte multiples
+    v = torch.randn(B, h, M, d, device=cuda, generator=gen).bfloat16()
+    w = torch.randn(B, h, N, d, device=cuda, generator=gen).bfloat16()
+    assert S.route(q, k, v) == "scalar"
+    got = S.sr_attention(q, k, v, d ** -0.5)
+    ref = S.sr_attention_reference(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= _bf16_ulps(ref, 2)
+    dgot = S.sr_attention_bwd(q, k, v, w, d ** -0.5)
+    dref = S.sr_attention_bwd_reference(q, k, v, w, d ** -0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(dgot, dref):
+        assert (a.float() - b.float()).abs().max().item() <= _bf16_ulps(b, 4)
+
+
+@pytest.mark.cuda
+def test_backward_bit_equal_at_stage_one(cuda):
+    """No atomics: two runs of the backward at the first mit_b2 stage's
+    shape give the same bits (the cluster sums partials in a fixed order)."""
+    B, h, N, M, d = 8, 1, 19200, 300, 64
+    q, k, v, w = _model_layout(B, h, N, M, d, torch.bfloat16, cuda, 8)
+    lse = S._forward(q, k, v, d ** -0.5, with_lse=True)[1]
+    a = S.sr_attention_bwd(q, k, v, w, d ** -0.5, lse=lse)
+    b = S.sr_attention_bwd(q, k, v, w, d ** -0.5, lse=lse)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [64, 300])
+def test_one_and_two_passes_agree(cuda, M):
+    """Where one pass fits, the two-pass kernel computes the same function:
+    both within the plain version's bounds, and within 2 ulps of each
+    other."""
+    q, k, v, _ = _model_layout(2, 2, 500, M, 64, torch.bfloat16, cuda, 9)
+    one = S._forward(q, k, v, 0.125, passes=1)
+    two = S._forward(q, k, v, 0.125, passes=2)
+    ref = S.sr_attention_reference(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    for got in (one, two):
+        assert (got.float() - ref.float()).abs().max().item() <= _bf16_ulps(
+            ref, 2)
+    assert (one.float() - two.float()).abs().max().item() <= _bf16_ulps(
+        ref, 2)
