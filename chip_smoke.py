@@ -168,6 +168,8 @@ FLASH_RAGGED = [(1, 2, 200, 130, 32), (2, 1, 77, 1025, 64),
                 (1, 3, 1030, 65, 40), (2, 2, 64, 64, 128),
                 (1, 1, 130, 300, 64)]
 FLASH_FWD_ULPS, FLASH_BWD_ULPS, LSE_ATOL = 2, 2, 1e-5
+# Runs of the stage-1 backward that must give the same bits.
+FLASH_REPEATS = 5
 FLASH_FWD_NOISE, FLASH_REL_L2, FLASH_EXACT_FACTOR = 4, 5e-3, 1.25
 # On inputs whose row max lies in the first kv tile the kernel and the plain
 # version round p alike: at most this share of the outputs may differ, and a
@@ -796,9 +798,10 @@ def hold_flash_case(FA, label, q, k, v, w, sc, independent=True):
 def flash_kernel_phase(FA, T5):
     """K5 against its plain version: the forward kernel, the dk/dv kernel
     and the dq kernel at the three mit_b2pp shapes and the ragged cases, in
-    bf16 and (the full shapes at batch 1) in fp32; two runs bit-equal; the
-    rounding point of p; then their times. Returns ({kernel: worst error at
-    the full bf16 shapes}, {kernel: rows})."""
+    bf16 and (the full shapes at batch 1) in fp32; two runs bit-equal (the
+    stage-1 backward FLASH_REPEATS runs); the rounding point of p; then their
+    times. Returns ({kernel: worst error at the full bf16 shapes}, {kernel:
+    rows})."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -812,6 +815,19 @@ def flash_kernel_phase(FA, T5):
                                shape[4] ** -0.5)
         if dtype == torch.bfloat16 and shape in T5.SHAPES:
             worst = {key: max(worst[key], e) for key, e in errs.items()}
+    # The backward at stage 1, repeated: every run the same bits (no atomics,
+    # every sum in a fixed order).
+    q, k, v, w = T5.inputs(T5.SHAPES[0], torch.bfloat16, gen)
+    sc = q.shape[3] ** -0.5
+    out, lse = FA._forward(q, k, v, sc)
+    first = FA.flash_attention_bwd(q, k, v, out, lse, w, sc)
+    same = [all(torch.equal(a, b) for a, b in zip(
+        first, FA.flash_attention_bwd(q, k, v, out, lse, w, sc)))
+        for _ in range(FLASH_REPEATS - 1)]
+    print(f"flash bwd bf16 {T5.SHAPES[0]}: {FLASH_REPEATS} runs, the same "
+          f"bits: {same}")
+    check(all(same), f"flash backward differs between runs at {T5.SHAPES[0]}")
+    del q, k, v, w, out, lse, first
     # The rounding point of p, where kernel and plain round the same p.
     for shape in (T5.SHAPES[2], (2, 2, 1100, 1300, 32)):
         q, k, v = first_tile_max_inputs(T5, shape, gen)
@@ -1181,8 +1197,8 @@ def profile_steps(trainer, data, steps=2, top=12):
         print(f"  {e.device_time_total / (steps * 1e3):8.3f} ms "
               f"{e.count // steps:5d}x {e.key[:90]}")
     # The port's own kernels, wherever they rank.
-    own = re.compile(r"\b((?:sr|window_attention|flash_attention)_\w+"
-                     r"(?:<[^>]*>)?)")
+    own = re.compile(r"\b((?:sr|window_attention|flash_attention|flash_bwd)_"
+                     r"\w+(?:<[^>]*>)?)")
     mine = [(own.search(e.key), e) for e in ev]
     print("  the port's kernels: " + ", ".join(
         f"{m.group(1)} {e.device_time_total / (steps * 1e3):.3f} ms "

@@ -15,7 +15,8 @@ import torch
 # Criterion names the JAX build_criterion accepts and this port does not yet.
 _LATER_CRITERIA = ("SigmoidFocalLoss", "FocalLoss", "DiceLoss", "DiceCELoss",
                    "RCELoss", "BalanceLoss", "FocalLoss2d", "OhemCrossEntropy",
-                   "berHuLoss", "TopologyAwareLoss")
+                   "berHuLoss", "CE_Focal", "TopologyAwareLoss",
+                   "TopologyAwareCE")
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

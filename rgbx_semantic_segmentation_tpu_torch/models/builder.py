@@ -47,6 +47,14 @@ _LATER_DECODERS = {
 }
 
 
+def is_mit_pp(name: str) -> bool:
+    """True for the `mit_*pp` names (a MiT factory's name + "pp"), which
+    hardwire IFRM/IFFM; false for every other name that ends in "pp", such
+    as the ASPP variants `mit_b2_w_aspp` and `mit_b2_w_ef_aspp`."""
+    base = name[:-2]
+    return base in MIT_FACTORIES and name == base + "pp"
+
+
 def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
     name = cfg.model.backbone
     if cfg.model.remat:
@@ -56,10 +64,11 @@ def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
     if name in SWIN_FACTORIES:
         return _build_swin(cfg), dual_swin.CHANNELS[name]
     # mit_*pp: the same towers with IFRM/IFFM whatever the config names.
-    fusion = ({"frm": "IFRM", "ffm": "IFFM"} if name.endswith("pp") else
+    pp = is_mit_pp(name)
+    fusion = ({"frm": "IFRM", "ffm": "IFFM"} if pp else
               {"frm": cfg.model.feature_rectify_module,
                "ffm": cfg.model.feature_fusion_module})
-    base = name[:-2] if name.endswith("pp") else name
+    base = name[:-2] if pp else name
     if base not in MIT_FACTORIES:
         for key, item in _LATER_BACKBONES.items():
             if key in name:

@@ -229,11 +229,11 @@ def flash_attention_dkv(q, k, v, g, lse, di, scale
     """The dk/dv kernel alone (CUDA tensors only): (dk, dv) as the two
     halves of one (B, M, 2, h, d) buffer. `flash_attention_dkv.launches`
     counts its launches."""
+    lib = _bwd_kernels()
     B, h, N, d = q.shape
     M = k.shape[2]
     dkv = torch.empty(B, M, 2, h, d, dtype=q.dtype, device=q.device)
     dk, dv = (t.transpose(1, 2) for t in dkv.unbind(2))
-    lib = _bwd_kernels()
     with _on_device(q):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd_dkv(
@@ -254,10 +254,10 @@ def flash_attention_dq(q, k, v, g, lse, di, scale) -> torch.Tensor:
     """The dq kernel alone (CUDA tensors only): dq as a (B, h, N, d) view of
     a (B, N, h, d) buffer. `flash_attention_dq.launches` counts its
     launches."""
+    lib = _bwd_kernels()
     B, h, N, d = q.shape
     dq = torch.empty(B, N, h, d, dtype=q.dtype,
                      device=q.device).transpose(1, 2)
-    lib = _bwd_kernels()
     with _on_device(q):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd_dq(

@@ -1,21 +1,40 @@
 """Times of the long-kv flash attention kernels on one NVIDIA GPU.
 
-    python -m rgbx_semantic_segmentation_tpu_torch.tools.bench_flash_attention
+    python -m rgbx_semantic_segmentation_tpu_torch.tools.bench_flash_attention \
+        [--parent DIR] [--json PATH]
 
 At the three shapes the IFFM cross-attention of mit_b2pp gives them at
 480x640, batch 8 (stages 1-3; stage 4 is short-kv and goes to the SR
-kernels), bf16, on the model's layouts: the forward kernel, the dk/dv kernel
-and the dq kernel, each beside its plain version (the chunked reference of
-ops/flash_attention.py), beside F.scaled_dot_product_attention (a yardstick
-only: the port never calls it) and beside the card's bound for the same
-work. Plain and kernel are timed in one window (plain, kernel, kernel,
-plain).
+kernels), bf16, on the model's layouts:
 
-chip_smoke.py takes the shapes, the input builder and the work counts from
-here.
+  * the forward kernel, the dk/dv kernel and the dq kernel, each beside its
+    plain version (the chunked reference of ops/flash_attention.py), beside
+    F.scaled_dot_product_attention (a yardstick only: the port never calls
+    it) and beside the card's bound for the same work, in CUDA-event windows
+    (plain, kernel, kernel, plain);
+  * the backward (dk/dv + dq kernels) and SDPA's backward in device time by
+    kernel (torch.profiler), each checked against the plain version in bf16
+    ulps of each gradient's largest;
+  * with --parent DIR, the package directory of another checkout (the parent
+    commit unpacked under .chipcheck/, say), that checkout's backward kernels
+    instead, built from its csrc/ and called through its C entries, in the
+    same device time. Run it in its own process, before and after this
+    checkout's run in the same chip call (old, new, new, old): loaded into
+    one process, the two libraries' kernels failed with an illegal
+    instruction (PERF.md section 6).
+
+It prints the card's name and power limit first; --json writes the numbers
+to a file as well. chip_smoke.py takes the shapes, the input builder and the
+work counts from here.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import re
 import subprocess
 import sys
 
@@ -23,6 +42,8 @@ import numpy as np
 import torch
 
 from rgbx_semantic_segmentation_tpu_torch.ops import flash_attention as FA
+from rgbx_semantic_segmentation_tpu_torch.tools.bench_sr_attention import (
+    device_ms, ulps)
 
 # (B, h, N, M, d) of the IFFM cross-attentions of mit_b2pp at 480x640, batch
 # 8, and the calls of each in one forward (x1 -> x2 and x2 -> x1).
@@ -145,16 +166,129 @@ def print_rows(shape, rows) -> None:
               f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound")
 
 
+class Parent:
+    """K5's backward of another checkout's package (its dk/dv and dq
+    kernels), built from its csrc/ and called through its C entries."""
+
+    def __init__(self, pkg_dir: str):
+        spec = importlib.util.spec_from_file_location(
+            "parent_build", os.path.join(pkg_dir, "native", "build.py"))
+        build = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(build)
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        tail = [i] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                          i, vp]
+        self.lib = ctypes.CDLL(build.build("flash_attention_bwd"))
+        self.lib.flash_attention_bwd_dkv.argtypes = [vp] * 8 + tail
+        self.lib.flash_attention_bwd_dq.argtypes = [vp] * 7 + tail
+
+    def backward(self, q, k, v, g, lse, di, scale):
+        B, h, N, d = q.shape
+        M = k.shape[2]
+        dq = torch.empty(B, N, h, d, dtype=q.dtype,
+                         device=q.device).transpose(1, 2)
+        dkv = torch.empty(B, M, 2, h, d, dtype=q.dtype, device=q.device)
+        dk, dv = (t.transpose(1, 2) for t in dkv.unbind(2))
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = self.lib.flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, h,
+            N, M, d, FA._strides(q, k, v, g, dk, dv), scale, 1, stream)
+        rc = rc or self.lib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, h, N, M, d,
+            FA._strides(q, k, v, g, dq), scale, 1, stream)
+        assert rc == 0, rc
+        return dq, dk, dv
+
+
+def device_times(shape, gen, parent=None):
+    """The bf16 backward at one shape in device time (torch.profiler, by
+    kernel) and in event windows: this checkout's dk/dv and dq kernels and
+    SDPA's backward (forward + backward through autograd, minus the
+    forward), or with `parent` only that checkout's kernels; each checked
+    against the plain version (bf16 ulps of each gradient's largest)."""
+    B, h, N, M, d = shape
+    sc = d ** -0.5
+    q, k, v, w = inputs(shape, torch.bfloat16, gen)
+    out, lse = FA._forward(q, k, v, sc)
+    di = (out.float() * w.float()).sum(-1).contiguous()
+    if parent is not None:
+        tag, fn = "parent", lambda: parent.backward(q, k, v, w, lse, di, sc)
+    else:
+        tag = "new"
+
+        def fn():
+            dk, dv = FA.flash_attention_dkv(q, k, v, w, lse, di, sc)
+            return FA.flash_attention_dq(q, k, v, w, lse, di, sc), dk, dv
+    row = {"shape": list(shape)}
+    with torch.no_grad():
+        ref = FA.flash_attention_bwd_reference(q, k, v, out, lse, w, sc)
+        row[f"{tag}_ulps"] = [ulps(x, y) for x, y in zip(fn(), ref)]
+        del ref
+        row[f"{tag}_ms"] = [median_ms(fn, warmup=1, iters=5, reps=2)
+                            for _ in range(2)]
+        # Both kernels must show in the trace (a reading that lost one is
+        # taken again).
+        for _ in range(3):
+            per_kernel = device_ms(fn, calls=5, by_kernel=True)
+            by_kernel = {
+                name[0]: t for key, t in per_kernel.items()
+                if (name := re.findall(r"\bflash_\w+(?:<[^>]*>)?", key))}
+            if len(by_kernel) == 2:
+                break
+        row[f"{tag}_device_ms"] = sum(per_kernel.values())
+        row[f"{tag}_device_ms_by_kernel"] = by_kernel
+        if parent is not None:
+            return row
+        lib_fwd = device_ms(lambda: torch.nn.functional.
+                            scaled_dot_product_attention(q, k, v, scale=sc))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        for t in leaves:
+            t.grad = None
+        torch.nn.functional.scaled_dot_product_attention(
+            *leaves, scale=sc).backward(w)
+
+    row["sdpa_bwd_device_ms"] = device_ms(sdpa_fwd_bwd) - lib_fwd
+    row["bound_ms"] = bound_ms(shape, "dkv")[0] + bound_ms(shape, "dq")[0]
+    row["fused_bound_ms"] = 10 * B * h * N * M * d / PEAK_BF16_FLOPS * 1e3
+    return row
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="package directory of another checkout: "
+                    "time its backward kernels instead of this checkout's")
+    ap.add_argument("--json", help="also write the numbers to this file")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_flash_attention: no CUDA device", file=sys.stderr)
         return 1
-    print(subprocess.run(
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    parent = Parent(args.parent) if args.parent else None
     gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
     for shape in SHAPES:
-        print_rows(shape, time_shape(shape, gen))
+        if parent is None:
+            print_rows(shape, time_shape(shape, gen))
+        row = device_times(shape, gen, parent)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    step = {key: sum(c * r[key] for c, r in zip(CALLS, rows))
+            for key in rows[0] if key.endswith("device_ms")
+            or key.endswith("bound_ms")}
+    for key in [k for k in rows[0] if k.endswith("device_ms_by_kernel")]:
+        for name in rows[0][key]:
+            step[name] = sum(c * r[key][name] for c, r in zip(CALLS, rows))
+    print("per mit_b2pp step (6 calls): " + json.dumps(step))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"card": card, "rows": rows, "step": step}, f, indent=1)
     return 0
 
 

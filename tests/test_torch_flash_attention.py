@@ -253,6 +253,62 @@ def test_kernel_route_never_falls_to_sdpa(monkeypatch):
     assert reached == [True] and FA._forward is real_forward
 
 
+@pytest.mark.parametrize("through", ["flash_attention_bwd", "autograd"])
+def test_backward_kernel_route_never_falls_back(monkeypatch, through):
+    """A bf16 cotangent on a tensor that says it lies on the card, through
+    `flash_attention_bwd` and through autograd: it reaches the backward
+    kernels' launch (which raises here) and never the plain versions or
+    torch's own attention."""
+    q = torch.randn(1, 1, 1100, 32).bfloat16()
+    k = v = torch.randn(1, 1, 1200, 32).bfloat16()
+
+    def forbidden(*a, **kw):
+        raise AssertionError("the backward kernel route fell back")
+
+    for mod, attr in ((A, "_sdpa"), (FA, "flash_attention_reference"),
+                      (FA, "flash_attention_bwd_reference"),
+                      (FA, "flash_attention_plain"),
+                      (torch.nn.functional, "scaled_dot_product_attention")):
+        monkeypatch.setattr(mod, attr, forbidden)
+    reached = []
+
+    def fake_bwd_kernels():
+        reached.append(True)
+        raise RuntimeError("no backward kernel here")
+
+    monkeypatch.setattr(FA, "_bwd_kernels", fake_bwd_kernels)
+    monkeypatch.setattr(FA, "_check_kernel_inputs", lambda *a: None)
+    fake_cuda = torch.device("cuda", 0)
+
+    class OnCard(torch.Tensor):
+        """A CPU tensor whose `.device.type` reads "cuda"."""
+
+        @property
+        def device(self):
+            return fake_cuda
+
+    def as_card(t):
+        return t.as_subclass(OnCard)
+
+    out = torch.zeros(1, 1, 1100, 32).bfloat16()
+    lse = torch.zeros(1, 1, 1100)
+    g = torch.randn(1, 1, 1100, 32).bfloat16()
+    if through == "flash_attention_bwd":
+        with pytest.raises(RuntimeError, match="no backward kernel here"):
+            FA.flash_attention_bwd(*(as_card(t) for t in (q, k, v, out, lse,
+                                                          g)), 32 ** -0.5)
+    else:
+        # The forward's kernel is faked too: it hands back the residual the
+        # backward then sends to its kernels.
+        monkeypatch.setattr(FA, "_forward",
+                            lambda q, k, v, scale: (as_card(out), as_card(lse)))
+        leaves = [as_card(t).requires_grad_() for t in (q, k, v)]
+        res = FA.flash_attention(*leaves, 32 ** -0.5)
+        with pytest.raises(RuntimeError, match="no backward kernel here"):
+            torch.autograd.grad(res, leaves, as_card(g))
+    assert reached == [True]
+
+
 def test_wrapper_rejects_bad_inputs():
     q = torch.zeros(1, 1, 64, 32)
     with pytest.raises(ValueError, match="4-D"):
@@ -357,6 +413,20 @@ def test_backward_kernels_match_plain(cuda, B, h, N, M, d, dtype):
     assert got[0].transpose(1, 2).is_contiguous()
     assert got[1].data_ptr() + h * d * got[1].element_size() == \
         got[2].data_ptr()
+
+
+@pytest.mark.cuda
+def test_backward_kernels_bit_equal_at_stage1(cuda):
+    """The first mit_b2pp stage's bf16 backward, five runs: the same bits
+    every run (no atomics; every sum in a fixed order)."""
+    q, k, v, w = _model_layout(8, 1, 19200, 19200, 64, torch.bfloat16, cuda, 3)
+    sc = 64 ** -0.5
+    out, lse = FA._forward(q, k, v, sc)
+    first = FA.flash_attention_bwd(q, k, v, out, lse, w, sc)
+    for _ in range(4):
+        again = FA.flash_attention_bwd(q, k, v, out, lse, w, sc)
+        for name, a, b in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

@@ -4,6 +4,9 @@ against the JAX package's, on the CPU in fp32, with the same numpy inputs.
 Tolerance 1e-5 relative (2e-6 absolute for per-pixel values): both sides
 take an fp32 log-softmax and sum in fp32; only the summation order differs.
 """
+import inspect
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,10 +99,26 @@ def test_build_criterion():
     ref = jlosses.build_criterion(cfg)(jnp.asarray(logits),
                                        jnp.asarray(labels))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)
-    for name in ("FocalLoss", "DiceLoss", "OhemCrossEntropy",
-                 "TopologyAwareLoss"):
-        with pytest.raises(NotImplementedError, match="M11"):
-            tlosses.build_criterion(
-                cfg.replace(train=TrainConfig(criterion=name)))
+    # Every name the JAX build_criterion accepts, read off its source: the
+    # port builds it (and agrees) or raises NotImplementedError naming M11.
+    names = set()
+    for one, many in re.findall(r'name (?:== "(\w+)"|in \(([^)]*)\))',
+                                inspect.getsource(jlosses.build_criterion)):
+        names.update([one] if one else re.findall(r'"(\w+)"', many))
+    assert {"CrossEntropyLoss", "CE_Focal", "TopologyAwareCE",
+            "TopologyAwareLoss", "SigmoidFocalLoss", "berHuLoss"} <= names
+    assert len(names) == 13
+    for name in sorted(names):
+        named = cfg.replace(train=TrainConfig(criterion=name))
+        jlosses.build_criterion(named)  # JAX accepts it
+        try:
+            fn = tlosses.build_criterion(named)
+        except NotImplementedError as e:
+            assert "M11" in str(e), name
+            continue
+        np.testing.assert_allclose(
+            fn(torch.from_numpy(logits), torch.from_numpy(labels)).numpy(),
+            np.asarray(jlosses.build_criterion(named)(
+                jnp.asarray(logits), jnp.asarray(labels))), rtol=1e-5)
     with pytest.raises(KeyError):
         tlosses.build_criterion(cfg.replace(train=TrainConfig(criterion="x")))

@@ -245,6 +245,25 @@ def test_config_fusion_names_build_the_improved_modules():
         build_model(_cfg("mit_b9pp"), device="cpu", seed=None)
 
 
+def test_only_mit_factory_names_plus_pp_are_mit_pp():
+    """`is_mit_pp` holds for a MiT factory's name + "pp" and for no other
+    name that ends in "pp": mit_b2pp builds IFRM/IFFM, the ASPP variants
+    still raise NotImplementedError naming their ROADMAP item."""
+    for name in tbuilder.MIT_FACTORIES:
+        assert tbuilder.is_mit_pp(name + "pp")
+        assert not tbuilder.is_mit_pp(name)
+    for name in ("mit_b2_w_aspp", "mit_b2_w_ef_aspp", "mit_b9pp", "pp",
+                 "swin_spp"):
+        assert not tbuilder.is_mit_pp(name)
+    with torch.device("meta"):
+        pp, _ = tbuilder.build_backbone(_cfg("mit_b2pp"))
+    assert isinstance(pp.FRMs[0], tfusion.ImprovedFeatureRectifyModule)
+    assert isinstance(pp.FFMs[3], tfusion.ImprovedFeatureFusionModule)
+    for name in ("mit_b2_w_aspp", "mit_b2_w_ef_aspp"):
+        with pytest.raises(NotImplementedError, match="M10 item 1"):
+            tbuilder.build_backbone(_cfg(name))
+
+
 def test_init_reaches_the_new_parameters():
     """Seeded init: lambdas 0.5, the IFRM/IFFM LayerNorms ones / zeros,
     their Linears truncated normal (std 0.02) with zero bias; only the IFFM
