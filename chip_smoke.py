@@ -141,7 +141,10 @@ BF16_LOGITS_ULPS = 4
 
 # Long-kv flash attention (K5) against its plain version. The ragged cases:
 # N and M not multiples of the tiles, M = 1025, d = 32 / 40 / 128, h > 1,
-# B = 1, a single tile. bf16 forward: the online softmax rounds p against the
+# B = 1, a single tile, N, M one row either side of the forward's blocks of
+# 192 (d = 128: 128) q rows and kv tiles of 128 (64) rows, and kv walks of
+# 33 tiles or more, which the forward splits across a cluster of blocks
+# (d = 128 too). bf16 forward: the online softmax rounds p against the
 # running max, the plain version against the row max, so each p_j carries
 # another rounding error of <= 2^-9 p_j in the two. Over a row these errors
 # add up like noise of size 2^-9 R, R = sqrt(sum_j p_j^2 v_j^2) (about |out|
@@ -166,7 +169,11 @@ BF16_LOGITS_ULPS = 4
 # runs give the same bits.
 FLASH_RAGGED = [(1, 2, 200, 130, 32), (2, 1, 77, 1025, 64),
                 (1, 3, 1030, 65, 40), (2, 2, 64, 64, 128),
-                (1, 1, 130, 300, 64)]
+                (1, 1, 130, 300, 64), (1, 2, 191, 127, 64),
+                (1, 1, 193, 129, 32), (2, 3, 385, 257, 64),
+                (1, 1, 257, 385, 128), (1, 1, 200, 4100, 64),
+                (2, 2, 130, 4097, 32), (1, 1, 130, 2100, 128),
+                (2, 2, 130, 4097, 128)]
 FLASH_FWD_ULPS, FLASH_BWD_ULPS, LSE_ATOL = 2, 2, 1e-5
 # Runs of the stage-1 backward that must give the same bits.
 FLASH_REPEATS = 5
@@ -581,6 +588,11 @@ def window_kernel_phase(W, T):
                      "plain_ms": (p1 + p2) / 2, "library_ms": lib,
                      "bound_ms": (bounds[0][0] + bounds[1][0]) / 2,
                      "bound_by": bounds[0][1]})
+        row = rows[-1]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        # The operations do not depend on the shift.
+        row["tflops"] = (window_bytes_and_ops(shape, True, False)[1]
+                         / row["ms"] * 1e-9)
         print(f"time bf16 window fwd (B,Hp,Wp,h,d,ws)={shape}, rate "
               f"{T.RATE}: kernel shifted {t[True]:.4f} ms, unshifted "
               f"{t[False]:.4f} ms (rate 0: {t[True, 0.0]:.4f} / "
@@ -678,6 +690,11 @@ def window_bwd_kernel_phase(W, T):
                      "plain_ms": (p1 + p2) / 2, "library_ms": lib,
                      "bound_ms": (bounds[0][0] + bounds[1][0]) / 2,
                      "bound_by": bounds[0][1]})
+        row = rows[-1]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        # The operations do not depend on the shift.
+        row["tflops"] = (window_bytes_and_ops(shape, True, True)[1]
+                         / row["ms"] * 1e-9)
         print(f"time bf16 window bwd (B,Hp,Wp,h,d,ws)={shape}, rate "
               f"{T.RATE}: kernel shifted {t[True]:.4f} ms, unshifted "
               f"{t[False]:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, SDPA backward "
@@ -1738,14 +1755,15 @@ def main() -> int:
                 "library_ms": per_step(rows, "library_ms", calls),
                 "per_call": rows}
 
-    def with_rates(entry):
-        # The SR kernels' rows also carry their share of the bound and the
-        # achieved TFLOP/s (the function's operations of a step over its
-        # time), over the calls of a step.
+    def with_rates(entry, calls):
+        # Every kernel's entry also carries its share of the bound and the
+        # achieved TFLOP/s (the function's operations over the kernel's
+        # time), over the `calls` of a step: each row's operations are its
+        # rate times its time.
         rows = entry["per_call"]
         entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
         entry["tflops"] = sum(c * r["tflops"] * r["ms"] for c, r in zip(
-            CALLS_PER_FORWARD, rows)) / entry["ms"]
+            calls, rows)) / entry["ms"]
         return entry
 
     # K5 replaces the three upstream Pallas kernels that attention.py:50
@@ -1753,31 +1771,29 @@ def main() -> int:
     # flash_attention.py :758 (forward), :1121 (dk/dv), :1456 (dq).
     flash_eval = pp_eval["flash_launches"]
     flash_train = pp_train["flash_launches"]
+    entries = [
+        ("sr_attention_fwd", "sr_attention.py:104",
+         mit_eval["launches"] + train["fwd_launches"] + pp_eval["launches"]
+         + pp_train["fwd_launches"], fwd_err, fwd_rows, CALLS_PER_FORWARD,
+         None),
+        ("sr_attention_bwd", "sr_attention.py:123",
+         train["bwd_launches"] + pp_train["bwd_launches"], bwd_err, bwd_rows,
+         CALLS_PER_FORWARD, None),
+        ("window_attention_fwd", "window_attention.py:179",
+         swin_eval["launches"] + swin_train["fwd_launches"], wfwd_err,
+         wfwd_rows, SWIN_CALLS, None),
+        ("window_attention_bwd", "window_attention.py:205",
+         swin_train["bwd_launches"], wbwd_err, wbwd_rows, SWIN_CALLS, None),
+        ("flash_attention_fwd", "attention.py:50", flash_eval + flash_train[0],
+         flash_err["fwd"], flash_rows["fwd"], T5.CALLS, None),
+        ("flash_attention_bwd_dkv", "attention.py:50", flash_train[1],
+         flash_err["dkv"], flash_rows["dkv"], T5.CALLS, "flash_attention_bwd"),
+        ("flash_attention_bwd_dq", "attention.py:50", flash_train[2],
+         flash_err["dq"], flash_rows["dq"], T5.CALLS, "flash_attention_bwd")]
     print(json.dumps({"kernels": [
-        with_rates(kernel_entry(
-            "sr_attention_fwd", "sr_attention.py:104",
-            mit_eval["launches"] + train["fwd_launches"] + pp_eval["launches"]
-            + pp_train["fwd_launches"], fwd_err, fwd_rows,
-            CALLS_PER_FORWARD)),
-        with_rates(kernel_entry(
-            "sr_attention_bwd", "sr_attention.py:123",
-            train["bwd_launches"] + pp_train["bwd_launches"], bwd_err,
-            bwd_rows, CALLS_PER_FORWARD)),
-        kernel_entry("window_attention_fwd", "window_attention.py:179",
-                     swin_eval["launches"] + swin_train["fwd_launches"],
-                     wfwd_err, wfwd_rows, SWIN_CALLS),
-        kernel_entry("window_attention_bwd", "window_attention.py:205",
-                     swin_train["bwd_launches"], wbwd_err, wbwd_rows,
-                     SWIN_CALLS),
-        kernel_entry("flash_attention_fwd", "attention.py:50",
-                     flash_eval + flash_train[0], flash_err["fwd"],
-                     flash_rows["fwd"], T5.CALLS),
-        kernel_entry("flash_attention_bwd_dkv", "attention.py:50",
-                     flash_train[1], flash_err["dkv"], flash_rows["dkv"],
-                     T5.CALLS, source="flash_attention_bwd"),
-        kernel_entry("flash_attention_bwd_dq", "attention.py:50",
-                     flash_train[2], flash_err["dq"], flash_rows["dq"],
-                     T5.CALLS, source="flash_attention_bwd")],
+        with_rates(kernel_entry(name, replaces, launches, err, rows, calls,
+                                source), calls)
+        for name, replaces, launches, err, rows, calls, source in entries],
         "eval_launches": mit_eval["launches"], "mit_eval": mit_eval,
         "train": train, "swin_eval": swin_eval, "swin_train": swin_train,
         "pp_eval": pp_eval, "pp_train": pp_train, "card": card}))

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the short-kv tensor-core kernels
-// (sr_attention_fwd.cu, sr_attention_bwd.cu): 16-byte cp.async staging into
+// Hopper (sm_90a) building blocks of the tensor-core attention kernels
+// (sr_attention_*.cu, flash_attention_*.cu): 16-byte cp.async staging into
 // the 128-byte-swizzled shared-memory layout that wgmma reads, the wgmma
 // shared-memory descriptors, the m64n64k16 bf16 wgmma in its two operand
-// forms, and the fences that order them.
+// forms, an m64n128k16 form with both operands in shared memory, and the
+// fences that order them.
 //
 // Shared-memory tiles. Every bf16 operand is staged as "panels" of 64
 // columns (128 bytes a row). Inside a panel, row r lies at byte r * 128, and
@@ -195,12 +196,51 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define SR_WGMMA_D64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+  "%58, %59, %60, %61, %62, %63}"
+#define SR_WGMMA_OUT64(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),        \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),        \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),        \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),        \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),        \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128, fp32) = A (64 x 16) B (16 x 128) + (accumulate ? d : 0), A and
+// B from shared memory, both K-major (B: 128 rows of one panel, 8-row groups
+// 1024 bytes apart). The layout of d extends wgmma_ss's: d[4j + 2h + e] is
+// row 16 (t / 32) + (t % 32) / 4 + 8h, column 8j + 2 (t % 4) + e, j < 16.
+// With accumulate = 0 the old d is not read: no zeroing before a product.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SR_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SR_WGMMA_OUT64(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #undef SR_WGMMA_D32
 #undef SR_WGMMA_OUT32
+#undef SR_WGMMA_D64
+#undef SR_WGMMA_OUT64
 
-// Columns [16k, 16k + 16) of a rounded accumulator tile as the A operand of
-// k step k.
-__device__ __forceinline__ void pack_a(const float (&s)[32], int k,
+// Columns [16k, 16k + 16) of a rounded accumulator tile (R floats a thread:
+// 64 x 64 for R = 32, 64 x 128 for R = 64) as the A operand of k step k.
+template <int R>
+__device__ __forceinline__ void pack_a(const float (&s)[R], int k,
                                        uint32_t (&a)[4]) {
   const float* x = s + 8 * k;
   __nv_bfloat162 h;

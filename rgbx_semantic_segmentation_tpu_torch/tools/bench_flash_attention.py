@@ -10,18 +10,24 @@ kernels), bf16, on the model's layouts:
   * the forward kernel, the dk/dv kernel and the dq kernel, each beside its
     plain version (the chunked reference of ops/flash_attention.py), beside
     F.scaled_dot_product_attention (a yardstick only: the port never calls
-    it) and beside the card's bound for the same work, in CUDA-event windows
-    (plain, kernel, kernel, plain);
-  * the backward (dk/dv + dq kernels) and SDPA's backward in device time by
-    kernel (torch.profiler), each checked against the plain version in bf16
-    ulps of each gradient's largest;
+    it; its inputs require grad, so that its forward writes the logsumexp
+    as the forward kernel does) and beside the card's bound for the same
+    work, in CUDA-event windows (plain, kernel, kernel, plain);
+  * the forward kernel and SDPA's forward, then the backward (dk/dv + dq
+    kernels) and SDPA's backward, in device time by kernel (torch.profiler),
+    each checked against the plain version in bf16 ulps of the output's (of
+    each gradient's) largest magnitude;
+  * the forward's host time a call: its C entry (tensor maps, launch
+    plan, launches) called back to back through ctypes without waiting for
+    the card, the same Python path for this checkout and the parent's;
   * with --parent DIR, the package directory of another checkout (the parent
-    commit unpacked under .chipcheck/, say), that checkout's backward kernels
-    instead, built from its csrc/ and called through its C entries, in the
-    same device time. Run it in its own process, before and after this
-    checkout's run in the same chip call (old, new, new, old): loaded into
-    one process, the two libraries' kernels failed with an illegal
-    instruction (PERF.md section 6).
+    commit unpacked under .chipcheck/, say), that checkout's forward and
+    backward kernels instead, built from its csrc/ and called through its C
+    entries, in the same device time. Run it in its own process, before and
+    after this checkout's run in the same chip call (old, new, new, old):
+    loaded into one process, two checkouts' libraries failed with an illegal
+    instruction (PERF.md section 6), so the parent's process loads only the
+    parent's libraries.
 
 It prints the card's name and power limit first; --json writes the numbers
 to a file as well. chip_smoke.py takes the shapes, the input builder and the
@@ -37,6 +43,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -111,7 +118,8 @@ def median_ms(fn, warmup=2, iters=5, reps=2) -> float:
 
 def time_shape(shape, gen):
     """The times of one shape in bf16: {"fwd" | "dkv" | "dq": {"ms",
-    "plain_ms", "library_ms", "bound_ms", "bound_by"}}. The plain backward
+    "plain_ms", "library_ms", "bound_ms", "bound_by", "share_of_bound",
+    "tflops"}}. The plain backward
     is one function, so the dk/dv and dq rows share its time and the
     library's backward (SDPA forward + backward through autograd, minus the
     forward alone)."""
@@ -133,7 +141,6 @@ def time_shape(shape, gen):
         k1 = median_ms(lambda: FA._forward(q, k, v, sc))
         k2 = median_ms(lambda: FA._forward(q, k, v, sc))
         p2 = median_ms(plain_fwd, warmup=1, iters=3, reps=1)
-        lib_fwd = median_ms(lambda: sdpa(q, k, v, scale=sc))
         b1 = median_ms(plain_bwd, warmup=1, iters=3, reps=1)
         kv1 = median_ms(lambda: FA.flash_attention_dkv(q, k, v, w, lse, di, sc))
         dq1 = median_ms(lambda: FA.flash_attention_dq(q, k, v, w, lse, di, sc))
@@ -145,6 +152,7 @@ def time_shape(shape, gen):
     def fwd_bwd():
         torch.autograd.grad(sdpa(lq, lk, lv, scale=sc), (lq, lk, lv), w)
 
+    lib_fwd = median_ms(lambda: sdpa(lq, lk, lv, scale=sc))
     lib_bwd = median_ms(fwd_bwd) - lib_fwd
     rows = {}
     for which, ms, plain, lib in (
@@ -153,7 +161,9 @@ def time_shape(shape, gen):
             ("dq", (dq1 + dq2) / 2, (b1 + b2) / 2, lib_bwd)):
         bound, by = bound_ms(shape, which)
         rows[which] = {"shape": list(shape), "ms": ms, "plain_ms": plain,
-                       "library_ms": lib, "bound_ms": bound, "bound_by": by}
+                       "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                       "share_of_bound": bound / ms,
+                       "tflops": work(shape, which)[0] / ms * 1e-9}
     return rows
 
 
@@ -167,8 +177,8 @@ def print_rows(shape, rows) -> None:
 
 
 class Parent:
-    """K5's backward of another checkout's package (its dk/dv and dq
-    kernels), built from its csrc/ and called through its C entries."""
+    """K5 of another checkout's package (its forward, dk/dv and dq kernels),
+    built from its csrc/ and called through its C entries."""
 
     def __init__(self, pkg_dir: str):
         spec = importlib.util.spec_from_file_location(
@@ -178,9 +188,23 @@ class Parent:
         vp, i = ctypes.c_void_p, ctypes.c_int
         tail = [i] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                           i, vp]
+        self.fwd_lib = ctypes.CDLL(build.build("flash_attention_fwd"))
+        self.fwd_lib.flash_attention_fwd.argtypes = [vp] * 5 + tail
         self.lib = ctypes.CDLL(build.build("flash_attention_bwd"))
         self.lib.flash_attention_bwd_dkv.argtypes = [vp] * 8 + tail
         self.lib.flash_attention_bwd_dq.argtypes = [vp] * 7 + tail
+
+    def forward(self, q, k, v, scale):
+        B, h, N, d = q.shape
+        out = torch.empty(B, N, h, d, dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        lse = torch.empty(B, h, N, dtype=torch.float32, device=q.device)
+        rc = self.fwd_lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, h, N, k.shape[2], d, FA._strides(q, k, v, out),
+            scale, 1, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out, lse
 
     def backward(self, q, k, v, g, lse, di, scale):
         B, h, N, d = q.shape
@@ -202,56 +226,99 @@ class Parent:
         return dq, dk, dv
 
 
+def host_us(fn, calls=50):
+    """Host time of one call of fn in us: `calls` calls back to back on
+    the host's clock, the card left to catch up afterwards; the median of
+    three such runs."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def kernel_device_ms(fn, pattern, count):
+    """(device ms per call of fn's kernels, {kernel name: ms per call}) from
+    torch.profiler; a reading that lost one of the `count` kernels matching
+    `pattern` is taken again."""
+    for _ in range(3):
+        per_kernel = device_ms(fn, calls=5, by_kernel=True)
+        by_kernel = {
+            name[0]: t for key, t in per_kernel.items()
+            if (name := re.findall(pattern, key))}
+        if len(by_kernel) == count:
+            break
+    return sum(per_kernel.values()), by_kernel
+
+
 def device_times(shape, gen, parent=None):
-    """The bf16 backward at one shape in device time (torch.profiler, by
-    kernel) and in event windows: this checkout's dk/dv and dq kernels and
-    SDPA's backward (forward + backward through autograd, minus the
-    forward), or with `parent` only that checkout's kernels; each checked
-    against the plain version (bf16 ulps of each gradient's largest)."""
+    """K5 in bf16 at one shape in device time (torch.profiler, by kernel)
+    and in event windows: this checkout's forward kernel and its dk/dv and
+    dq kernels, SDPA's forward (inputs that require grad: it writes its
+    logsumexp) and SDPA's backward (forward + backward through autograd,
+    minus that forward); or with `parent` only that checkout's kernels. Each
+    is checked against the plain version: bf16 ulps of the output's largest
+    magnitude (and the lse's largest error), of each gradient's largest."""
     B, h, N, M, d = shape
     sc = d ** -0.5
     q, k, v, w = inputs(shape, torch.bfloat16, gen)
-    out, lse = FA._forward(q, k, v, sc)
-    di = (out.float() * w.float()).sum(-1).contiguous()
     if parent is not None:
-        tag, fn = "parent", lambda: parent.backward(q, k, v, w, lse, di, sc)
+        tag = "parent"
+        fwd = lambda: parent.forward(q, k, v, sc)  # noqa: E731
+        entry = parent
     else:
         tag = "new"
-
-        def fn():
+        fwd = lambda: FA._forward(q, k, v, sc)  # noqa: E731
+        entry = Parent(os.path.dirname(os.path.dirname(FA.__file__)))
+    out, lse = fwd()
+    di = (out.float() * w.float()).sum(-1).contiguous()
+    if parent is not None:
+        bwd = lambda: parent.backward(q, k, v, w, lse, di, sc)  # noqa: E731
+    else:
+        def bwd():
             dk, dv = FA.flash_attention_dkv(q, k, v, w, lse, di, sc)
             return FA.flash_attention_dq(q, k, v, w, lse, di, sc), dk, dv
     row = {"shape": list(shape)}
     with torch.no_grad():
+        ref_out, ref_lse = FA.flash_attention_reference(q, k, v, sc)
+        row[f"{tag}_fwd_ulps"] = ulps(out, ref_out)
+        row[f"{tag}_fwd_lse_err"] = float((lse - ref_lse).abs().max())
         ref = FA.flash_attention_bwd_reference(q, k, v, out, lse, w, sc)
-        row[f"{tag}_ulps"] = [ulps(x, y) for x, y in zip(fn(), ref)]
+        row[f"{tag}_ulps"] = [ulps(x, y) for x, y in zip(bwd(), ref)]
         del ref
-        row[f"{tag}_ms"] = [median_ms(fn, warmup=1, iters=5, reps=2)
+        row[f"{tag}_fwd_ms"] = [median_ms(fwd, warmup=1, iters=5, reps=2)
+                                for _ in range(2)]
+        row[f"{tag}_ms"] = [median_ms(bwd, warmup=1, iters=5, reps=2)
                             for _ in range(2)]
-        # Both kernels must show in the trace (a reading that lost one is
-        # taken again).
-        for _ in range(3):
-            per_kernel = device_ms(fn, calls=5, by_kernel=True)
-            by_kernel = {
-                name[0]: t for key, t in per_kernel.items()
-                if (name := re.findall(r"\bflash_\w+(?:<[^>]*>)?", key))}
-            if len(by_kernel) == 2:
-                break
-        row[f"{tag}_device_ms"] = sum(per_kernel.values())
-        row[f"{tag}_device_ms_by_kernel"] = by_kernel
-        if parent is not None:
-            return row
-        lib_fwd = device_ms(lambda: torch.nn.functional.
-                            scaled_dot_product_attention(q, k, v, scale=sc))
+        row[f"{tag}_fwd_device_ms"] = kernel_device_ms(
+            fwd, r"\bflash_\w+(?:<[^>]*>)?", 1)[0]
+        row[f"{tag}_fwd_host_us"] = host_us(
+            lambda: entry.forward(q, k, v, sc))
+        (row[f"{tag}_device_ms"],
+         row[f"{tag}_device_ms_by_kernel"]) = kernel_device_ms(
+             bwd, r"\bflash_\w+(?:<[^>]*>)?", 2)
+    if parent is not None:
+        return row
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(*leaves, scale=sc)
+    row["sdpa_fwd_ulps"] = ulps(lib_out.detach(), ref_out)
+    del lib_out
+    lib_fwd = device_ms(lambda: sdpa(*leaves, scale=sc))
+    row["sdpa_fwd_device_ms"] = lib_fwd
 
     def sdpa_fwd_bwd():
         for t in leaves:
             t.grad = None
-        torch.nn.functional.scaled_dot_product_attention(
-            *leaves, scale=sc).backward(w)
+        sdpa(*leaves, scale=sc).backward(w)
 
     row["sdpa_bwd_device_ms"] = device_ms(sdpa_fwd_bwd) - lib_fwd
+    row["fwd_bound_ms"] = bound_ms(shape, "fwd")[0]
     row["bound_ms"] = bound_ms(shape, "dkv")[0] + bound_ms(shape, "dq")[0]
     row["fused_bound_ms"] = 10 * B * h * N * M * d / PEAK_BF16_FLOPS * 1e3
     return row
@@ -260,7 +327,7 @@ def device_times(shape, gen, parent=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="package directory of another checkout: "
-                    "time its backward kernels instead of this checkout's")
+                    "time its kernels instead of this checkout's")
     ap.add_argument("--json", help="also write the numbers to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():

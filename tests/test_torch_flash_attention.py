@@ -31,10 +31,20 @@ torch.set_num_threads(2)
 # (B, h, N, M, d): ragged N and M > 1024; N == M with h > 1; d = 64.
 SHAPES = [(1, 2, 200, 1300, 32), (2, 2, 333, 333, 32), (1, 1, 130, 1025, 64)]
 # The kernels' cases on the card: ragged tiles, M = 1025, d = 32 / 40 / 128,
-# h > 1, B = 1, a single tile, and one long shape.
+# h > 1, B = 1, a single tile, one long shape, N, M one row either side of
+# the forward's blocks of 192 (d = 128: 128) q rows and kv tiles of 128
+# (d = 128: 64) rows, and kv walks of 33 tiles or more, which the forward
+# splits across a cluster of blocks (d = 128 too).
 CUDA_SHAPES = [(1, 2, 200, 130, 32), (2, 1, 77, 1025, 64),
                (1, 3, 1030, 65, 40), (2, 2, 64, 64, 128),
-               (1, 1, 130, 300, 64), (2, 5, 1200, 1200, 64)]
+               (1, 1, 130, 300, 64), (2, 5, 1200, 1200, 64),
+               (1, 2, 191, 127, 64), (1, 1, 193, 129, 32),
+               (2, 3, 385, 257, 64), (1, 1, 257, 385, 128),
+               (1, 1, 200, 4100, 64), (2, 2, 130, 4097, 32),
+               (1, 1, 130, 2100, 128), (2, 2, 130, 4097, 128)]
+# bf16, the plain version against the upstream Pallas forward: ragged N and
+# M > 1024 (the JAX wrapper walks kv in 128-row blocks here), d = 32 and 64.
+BF16_SHAPES = [(1, 2, 1030, 1300, 32), (1, 1, 1100, 1025, 64)]
 
 
 def _mk(shape, seed):
@@ -96,6 +106,47 @@ def test_forward_and_gradients_match_upstream_pallas_kernels(B, h, N, M, d):
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
     for name, a, b in zip("qkv", grads, ref_grads):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=0, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,h,N,M,d", BF16_SHAPES)
+def test_bf16_forward_rounds_as_the_upstream_pallas_kernel(B, h, N, M, d):
+    """bf16: the plain forward (what the kernel is held to on the card)
+    against the JAX package's `_flash_attention`, the upstream Pallas TPU
+    forward in interpret mode, on the same bf16 inputs. Both round p to
+    bf16 before p @ v and sum the unrounded p; the TPU kernel rounds p
+    against the running max of its kv blocks and renormalises its
+    accumulator every block, the plain version uses the row max. So each
+    p_j rounds differently by <= 2^-9 p_j, and on independent inputs these
+    errors add like noise of size 2^-9 R over a row, R = sqrt(sum_j p_j^2
+    v_j^2). chip_smoke.py's bound of the kernel against the plain version:
+    every element within 2 bf16 ulps of itself + 4 * 2^-8 R, the tensor
+    within 5e-3 relative L2."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from rgbx_semantic_segmentation_tpu.ops import attention as JA
+
+    q, k, v, _ = _inputs(B, h, N, M, d, seed=11)
+    scale = d ** -0.5
+    with pltpu.force_tpu_interpret_mode():
+        ref = JA._flash_attention(*(jnp.asarray(a, jnp.bfloat16)
+                                    for a in (q, k, v)), scale)
+    assert ref.dtype == jnp.bfloat16
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got, lse = FA.flash_attention_reference(tq, tk, tv, scale)
+    assert got.dtype == torch.bfloat16
+    got = got.float()
+    out2, lse2 = FA.flash_attention_reference(tq.float(), tk.float(),
+                                              tv.float().square(), 2 * scale)
+    noise = (out2 * torch.exp(lse2 - 2 * lse).unsqueeze(-1)).sqrt()
+    err = (got - ref).abs()
+    tol = 2 * _ulp(torch.maximum(got.abs(), ref.abs())) + 4 * 2.0 ** -8 * noise
+    assert float((err / tol).max()) <= 1.0
+    assert float(err.norm() / ref.norm()) <= 5e-3
+    # The two do round differently: not bit-equal.
+    assert float((got != ref).float().mean()) > 0
 
 
 @pytest.mark.parametrize("B,h,N,M,d", SHAPES)
@@ -354,18 +405,13 @@ def _ulp(x):
     return 2.0 ** (torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,h,N,M,d", CUDA_SHAPES)
-def test_forward_kernel_matches_plain(cuda, B, h, N, M, d, dtype):
-    """bf16: the running max rounds each p_j elsewhere than the row max
-    (<= 2^-9 p_j each, noise of size 2^-9 R over a row, R = sqrt(sum_j
-    p_j^2 v_j^2)) and the output's own rounding adds an ulp: every element
-    within 2 bf16 ulps of itself + 4 * 2^-8 R, the tensor within 5e-3
-    relative L2. fp32: 1e-5. lse: 1e-5."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v, _ = _model_layout(B, h, N, M, d, dtype, cuda, 0)
-    sc = d ** -0.5
+def _forward_against_plain(q, k, v, sc):
+    """The forward kernel against the plain version, one launch. bf16: the
+    running max rounds each p_j elsewhere than the row max (<= 2^-9 p_j
+    each, noise of size 2^-9 R over a row, R = sqrt(sum_j p_j^2 v_j^2)) and
+    the output's own rounding adds an ulp: every element within 2 bf16 ulps
+    of itself + 4 * 2^-8 R, the tensor within 5e-3 relative L2. fp32: 1e-5.
+    lse: 1e-5."""
     ref, lse_ref = FA.flash_attention_reference(q, k, v, sc)
     before = FA.flash_attention.launches
     got, lse = FA._forward(q, k, v, sc)
@@ -373,7 +419,7 @@ def test_forward_kernel_matches_plain(cuda, B, h, N, M, d, dtype):
     assert FA.flash_attention.launches == before + 1
     assert got.transpose(1, 2).is_contiguous()
     err = (got.float() - ref.float()).abs()
-    if dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:
         out2, lse2 = FA.flash_attention_reference(
             q.float(), k.float(), v.float().square(), 2 * sc)
         noise = (out2 * torch.exp(lse2 - 2 * lse_ref).unsqueeze(-1)).sqrt()
@@ -384,6 +430,48 @@ def test_forward_kernel_matches_plain(cuda, B, h, N, M, d, dtype):
     else:
         assert float(err.max()) <= 1e-5
     assert float((lse - lse_ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,h,N,M,d", CUDA_SHAPES)
+def test_forward_kernel_matches_plain(cuda, B, h, N, M, d, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = _model_layout(B, h, N, M, d, dtype, cuda, 0)
+    _forward_against_plain(q, k, v, d ** -0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+@pytest.mark.parametrize("B,h,N,M,d", [(1, 2, 200, 4100, 64),
+                                       (1, 1, 130, 2100, 128)])
+def test_forward_kernel_takes_any_scale(cuda, B, h, N, M, d, scale):
+    """A negative or zero scale, ragged, with the split tail (the plain
+    version and the JAX forward take any scale)."""
+    q, k, v, _ = _model_layout(B, h, N, M, d, torch.bfloat16, cuda, 4)
+    _forward_against_plain(q, k, v, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+@pytest.mark.parametrize("axis", ["batch", "head", "row", "overlapping rows"])
+def test_forward_kernel_takes_broadcast_operands(cuda, operand, axis):
+    """An operand expanded along one axis (stride 0), or with rows that
+    overlap (a row stride below d), as the wrapper's checks let through."""
+    B, h, N, M, d = 2, 2, 200, 300, 64
+    ops = dict(zip("qkv", _model_layout(B, h, N, M, d, torch.bfloat16, cuda,
+                                        5)[:3]))
+    t = ops[operand]
+    if axis == "overlapping rows":
+        t = torch.randn(B * h * t.shape[2] * 8 + d, device=cuda).bfloat16()
+        t = t.as_strided(ops[operand].shape, (h * 8 * ops[operand].shape[2],
+                                              8 * ops[operand].shape[2], 8, 1))
+    else:
+        dim = ("batch", "head", "row").index(axis)
+        t = t.narrow(dim, 0, 1).expand_as(t)
+        assert t.stride(dim) == 0
+    ops[operand] = t
+    _forward_against_plain(ops["q"], ops["k"], ops["v"], d ** -0.5)
 
 
 @pytest.mark.cuda
