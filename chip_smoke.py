@@ -339,8 +339,24 @@ def bound_ms(operations: float, nbytes: float):
 
 def per_step(rows, key, calls=None):
     """A per-shape reading summed over the calls of one forward (or one
-    backward) of the model: the 32 SR attentions of mit_b2 by default."""
+    backward) of the model: the 32 SR attentions of mit_b2 by default; None
+    where a shape's reading is None."""
+    if any(r[key] is None for r in rows):
+        return None
     return sum(c * r[key] for c, r in zip(calls or CALLS_PER_FORWARD, rows))
+
+
+def device_reading(dev):
+    """The mean of the shifted and unshifted device times of a shape, None
+    where torch.profiler lost a kernel's events (bench_window_attention.
+    kernel_ms): no time is then reported rather than a low one."""
+    if dev[True] is None or dev[False] is None:
+        return None
+    return (dev[True] + dev[False]) / 2
+
+
+def ms_text(ms):
+    return "not read" if ms is None else f"{ms:.4f}"
 
 
 def bwd_kernel_phase(S):
@@ -422,58 +438,6 @@ def bwd_kernel_phase(S):
     return flagship_err, rows
 
 
-def window_bytes_and_ops(shape, shifted, backward):
-    """Bytes a window attention must move (qkv and the bias read once, out
-    written once; the backward also reads g and writes dqkv and db) and its
-    operations (2 products forward, 5 backward)."""
-    B, Hp, Wp, h, d, ws = shape
-    N, nW = ws * ws, (Hp // ws) * (Wp // ws)
-    pixels, C = B * Hp * Wp, h * d
-    bias = (nW if shifted else 1) * h * N * N * 4
-    if backward:
-        nbytes = 2 * pixels * (3 * C + C + 3 * C) + bias + nW * h * N * N * 4
-    else:
-        nbytes = 2 * pixels * (3 * C + C) + bias
-    return nbytes, (10 if backward else 4) * B * nW * h * N * N * d
-
-
-def kernel_mask(W, shape, seed, rate):
-    """The keep mask the forward KERNEL drew, read off its outputs: with
-    q = k = 0 and a zero bias every probability is 1 / N > 0, and with v
-    one-hot over d keys at a time, out[row, e] > 0 iff key e of the chunk
-    was kept. bool (B, nW, h, N, N), to be equal to W.keep_mask."""
-    import torch
-
-    B, Hp, Wp, h, d, ws = shape
-    N, nW = ws * ws, (Hp // ws) * (Wp // ws)
-    bias = torch.zeros(1, h, N, N, device="cuda").expand(nW, -1, -1, -1)
-    kept = torch.zeros(B, nW, h, N, N, dtype=torch.bool, device="cuda")
-    for c0 in range(0, N, d):
-        x = torch.zeros(B, nW, 3, h, N, d, device="cuda", dtype=torch.bfloat16)
-        keys = torch.arange(c0, min(c0 + d, N), device="cuda")
-        x[:, :, 2, :, keys, keys - c0] = 1.0
-        out = W.window_attention(W._merge_windows(x, ws, Hp, Wp), bias, seed,
-                                 1.0, rate, ws)
-        out = W._split_windows(out, ws, 1, h)[:, :, 0]    # (B, nW, h, N, d)
-        kept[..., c0:c0 + len(keys)] = out[..., :len(keys)] > 0
-    return kept
-
-
-def sdpa_window_inputs(W, qkv, bias, shape):
-    """What the library yardstick takes: q, k, v partitioned into contiguous
-    (B * nW, h, N, d) windows and the bias as a bf16 additive mask of shape
-    (B * nW, h, N, N). SDPA then runs with its own dropout; the partition
-    and reverse copies a library path would need are not in its time."""
-    import torch
-
-    B, _, _, h, d, ws = shape
-    x = W._split_windows(qkv, ws, 3, h)
-    q, k, v = (x[:, :, i].reshape(-1, h, ws * ws, d).contiguous()
-               for i in range(3))
-    mask = bias.to(torch.bfloat16)[None].expand(B, -1, -1, -1, -1)
-    return q, k, v, mask.reshape(-1, h, ws * ws, ws * ws).contiguous()
-
-
 def window_cases(T):
     import torch
 
@@ -540,7 +504,7 @@ def window_kernel_phase(W, T):
         B, Hp, Wp, h, d, ws = shape
         want = W.keep_mask(seed, B, (Hp // ws) * (Wp // ws), h, ws * ws,
                            T.RATE)
-        got = kernel_mask(W, shape, seed, T.RATE)
+        got = T.kernel_mask(shape, seed, T.RATE)
         share = float(got.float().mean())
         print(f"window dropout mask (B,Hp,Wp,h,d,ws)={shape}: kernel == plain "
               f"{bool(torch.equal(got, want))}, kept share {share:.4f}")
@@ -556,7 +520,7 @@ def window_kernel_phase(W, T):
         shape = (*stage, T.D, T.WS)
         B, Hp, Wp, h, d, ws = shape
         sc = d ** -0.5
-        t = {}
+        t, dev = {}, {}
         with torch.no_grad():
             for shifted in (True, False):
                 qkv, bias, _, seed = T.window_inputs(
@@ -576,29 +540,40 @@ def window_kernel_phase(W, T):
                 t[shifted] = (k1 + k2) / 2
                 t[shifted, 0.0] = median_ms(W.window_attention, qkv, bias,
                                             None, sc, 0.0, ws, reps=10)
-            lq, lk, lv, mask = sdpa_window_inputs(W, qkv, bias, shape)
+                # Device time (torch.profiler): the events above also hold
+                # the host's time a call where it exceeds the kernel's.
+                dev[shifted] = T.kernel_ms(lambda: W.window_attention(*args))
+            blocks = T.launch_blocks(lambda: W.window_attention(*args))
+            lq, lk, lv, mask = T.sdpa_inputs(qkv, bias, shape)
             lib = median_ms(lambda: sdpa(lq, lk, lv, attn_mask=mask,
                                          dropout_p=T.RATE, scale=sc),
                             reps=5)
-        bounds = [bound_ms(*reversed(window_bytes_and_ops(shape, sh, False)))
+        bounds = [bound_ms(*reversed(T.work(shape, sh, False)))
                   for sh in (True, False)]
         rows.append({"shape": list(shape), "ms": (t[True] + t[False]) / 2,
                      "ms_shifted": t[True], "ms_unshifted": t[False],
                      "ms_rate0": (t[True, 0.0] + t[False, 0.0]) / 2,
                      "plain_ms": (p1 + p2) / 2, "library_ms": lib,
                      "bound_ms": (bounds[0][0] + bounds[1][0]) / 2,
-                     "bound_by": bounds[0][1]})
+                     "bound_by": bounds[0][1],
+                     "device_ms": device_reading(dev),
+                     "device_ms_shifted": dev[True],
+                     "device_ms_unshifted": dev[False], "blocks": blocks,
+                     "images_per_block": -(-B * T.units(shape) // blocks)
+                     if blocks else None})
         row = rows[-1]
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         # The operations do not depend on the shift.
-        row["tflops"] = (window_bytes_and_ops(shape, True, False)[1]
+        row["tflops"] = (T.work(shape, True, False)[1]
                          / row["ms"] * 1e-9)
         print(f"time bf16 window fwd (B,Hp,Wp,h,d,ws)={shape}, rate "
               f"{T.RATE}: kernel shifted {t[True]:.4f} ms, unshifted "
               f"{t[False]:.4f} ms (rate 0: {t[True, 0.0]:.4f} / "
-              f"{t[False, 0.0]:.4f}), plain {p1:.3f}/{p2:.3f} ms, SDPA "
-              f"{lib:.4f} ms, bound {bounds[0][0]:.4f} / {bounds[1][0]:.4f} ms "
-              f"({bounds[0][1]})")
+              f"{t[False, 0.0]:.4f}), device {ms_text(dev[True])} / "
+              f"{ms_text(dev[False])} ms, {blocks} blocks of "
+              f"{row['images_per_block']} images, plain {p1:.3f}/{p2:.3f} ms, "
+              f"SDPA {lib:.4f} ms, bound {bounds[0][0]:.4f} / "
+              f"{bounds[1][0]:.4f} ms ({bounds[0][1]})")
     return stage_err, rows
 
 
@@ -652,7 +627,7 @@ def window_bwd_kernel_phase(W, T):
         shape = (*stage, T.D, T.WS)
         B, Hp, Wp, h, d, ws = shape
         sc = d ** -0.5
-        t = {}
+        t, dev = {}, {}
         for shifted in (True, False):
             qkv, bias, cot, seed = T.window_inputs(
                 shape, torch.bfloat16, "shifted" if shifted else "unshifted",
@@ -667,10 +642,12 @@ def window_bwd_kernel_phase(W, T):
                 p2 = median_ms(W.window_attention_bwd_reference, *args,
                                warmup=1, iters=3)
             t[shifted] = (k1 + k2) / 2
+            dev[shifted] = T.kernel_ms(lambda: W.window_attention_bwd(*args))
+        blocks = T.launch_blocks(lambda: W.window_attention_bwd(*args))
         # The library's backward: forward + backward through autograd (the
         # mask's gradient too: it is the bias), minus the forward alone.
         lq, lk, lv, mask = (t.requires_grad_() for t in
-                            sdpa_window_inputs(W, qkv, bias, shape))
+                            T.sdpa_inputs(qkv, bias, shape))
         w = W._split_windows(cot, ws, 1, h)[:, :, 0].reshape(lq.shape)
 
         def fwd():
@@ -683,23 +660,30 @@ def window_bwd_kernel_phase(W, T):
         with torch.no_grad():
             lib_fwd = median_ms(fwd, reps=5)
         lib = median_ms(fwd_bwd, reps=5) - lib_fwd
-        bounds = [bound_ms(*reversed(window_bytes_and_ops(shape, sh, True)))
+        bounds = [bound_ms(*reversed(T.work(shape, sh, True)))
                   for sh in (True, False)]
         rows.append({"shape": list(shape), "ms": (t[True] + t[False]) / 2,
                      "ms_shifted": t[True], "ms_unshifted": t[False],
                      "plain_ms": (p1 + p2) / 2, "library_ms": lib,
                      "bound_ms": (bounds[0][0] + bounds[1][0]) / 2,
-                     "bound_by": bounds[0][1]})
+                     "bound_by": bounds[0][1],
+                     "device_ms": device_reading(dev),
+                     "device_ms_shifted": dev[True],
+                     "device_ms_unshifted": dev[False], "blocks": blocks,
+                     "images_per_block": -(-B * T.units(shape) // blocks)
+                     if blocks else None})
         row = rows[-1]
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         # The operations do not depend on the shift.
-        row["tflops"] = (window_bytes_and_ops(shape, True, True)[1]
+        row["tflops"] = (T.work(shape, True, True)[1]
                          / row["ms"] * 1e-9)
         print(f"time bf16 window bwd (B,Hp,Wp,h,d,ws)={shape}, rate "
               f"{T.RATE}: kernel shifted {t[True]:.4f} ms, unshifted "
-              f"{t[False]:.4f} ms, plain {p1:.3f}/{p2:.3f} ms, SDPA backward "
-              f"{lib:.4f} ms, bound {bounds[0][0]:.4f} / {bounds[1][0]:.4f} ms "
-              f"({bounds[0][1]})")
+              f"{t[False]:.4f} ms, device {ms_text(dev[True])} / "
+              f"{ms_text(dev[False])} ms, {blocks} blocks of "
+              f"{row['images_per_block']} images, plain "
+              f"{p1:.3f}/{p2:.3f} ms, SDPA backward {lib:.4f} ms, bound "
+              f"{bounds[0][0]:.4f} / {bounds[1][0]:.4f} ms ({bounds[0][1]})")
     return stage_err, rows
 
 
@@ -1190,7 +1174,8 @@ def one_step_losses_and_grads(train_lib, encoder, cfg, batch, names,
 def profile_steps(trainer, data, steps=2, top=12):
     """Device kernels and device time of one step, by the profiler (its
     host overhead makes its wall time meaningless; the counts and device
-    times hold). Returns (kernels per step, device ms per step) or None."""
+    times hold). Returns (kernels per step, device ms per step, {the port's
+    kernel: device ms per step}) or None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1216,12 +1201,13 @@ def profile_steps(trainer, data, steps=2, top=12):
     # The port's own kernels, wherever they rank.
     own = re.compile(r"\b((?:sr|window_attention|flash_attention|flash_bwd)_"
                      r"\w+(?:<[^>]*>)?)")
-    mine = [(own.search(e.key), e) for e in ev]
+    mine = sorted(((m, e) for m, e in ((own.search(e.key), e) for e in ev)
+                   if m), key=lambda x: x[0].group(1))
     print("  the port's kernels: " + ", ".join(
         f"{m.group(1)} {e.device_time_total / (steps * 1e3):.3f} ms "
-        f"({e.count // steps}x)" for m, e in sorted(
-            ((m, e) for m, e in mine if m), key=lambda x: x[0].group(1))))
-    return count, total
+        f"({e.count // steps}x)" for m, e in mine))
+    return count, total, {m.group(1): e.device_time_total / (steps * 1e3)
+                          for m, e in mine}
 
 
 def compare_step(tag, kernel, plain, loss_rtol, grad_rtol, names=None,
@@ -1640,6 +1626,7 @@ def swin_train_phase(S, W, T, cfg_lib, train_lib, dual_swin, items):
             "plain_peak_gib": plain_peak,
             "device_kernels": prof[0] if prof else None,
             "device_ms": prof[1] if prof else None,
+            "kernel_device_ms": prof[2] if prof else None,
             "bf16_loss_rel": bf16[0], "bf16_grad_rel": bf16[1],
             "fp32_loss_rel": fp32[0], "fp32_grad_rel": fp32[1]}
 
@@ -1703,11 +1690,17 @@ def main() -> int:
     wfwd_err, wfwd_rows = window_kernel_phase(W, T)
     wbwd_err, wbwd_rows = window_bwd_kernel_phase(W, T)
     for tag, rows in (("forward", wfwd_rows), ("backward", wbwd_rows)):
+        dev_ms = per_step(rows, "device_ms", SWIN_CALLS)
+        bound = per_step(rows, "bound_ms", SWIN_CALLS)
+        dev_text = ("device not read" if dev_ms is None else
+                    f"device {dev_ms:.3f} ms, {bound / dev_ms:.1%} of the "
+                    "bound")
         print(f"window attention {tag}, the 48 calls of a step at rate "
-              f"{T.RATE}: kernel {per_step(rows, 'ms', SWIN_CALLS):.3f} ms, "
+              f"{T.RATE}: kernel {per_step(rows, 'ms', SWIN_CALLS):.3f} ms "
+              f"({dev_text}), "
               f"plain {per_step(rows, 'plain_ms', SWIN_CALLS):.3f} ms, SDPA "
               f"{per_step(rows, 'library_ms', SWIN_CALLS):.3f} ms, bound "
-              f"{per_step(rows, 'bound_ms', SWIN_CALLS):.3f} ms")
+              f"{bound:.3f} ms")
     flash_err, flash_rows = flash_kernel_phase(FA, T5)
     for which, tag in (("fwd", "forward"), ("dkv", "dk/dv"), ("dq", "dq")):
         rows = flash_rows[which]
@@ -1740,8 +1733,9 @@ def main() -> int:
     def kernel_entry(name, replaces, launches, err, rows, calls, source=None):
         # Times are those of the calls of one forward (backward) of the
         # model that runs the kernel (32 for mit_b2, 48 for swin_s, 6 for
-        # mit_b2pp's flash attention); `per_call` has them per shape.
-        return {"name": name, "route": "cuda",
+        # mit_b2pp's flash attention); `per_call` has them per shape. K3
+        # and K4 also carry their device time (torch.profiler).
+        entry = {"name": name, "route": "cuda",
                 "source": "rgbx_semantic_segmentation_tpu_torch/csrc/"
                           f"{source or name}.cu",
                 "replaces": f"rgbx_semantic_segmentation_tpu/ops/{replaces}",
@@ -1754,6 +1748,9 @@ def main() -> int:
                     if r["bound_by"] == by)),
                 "library_ms": per_step(rows, "library_ms", calls),
                 "per_call": rows}
+        if "device_ms" in rows[0]:
+            entry["device_ms"] = per_step(rows, "device_ms", calls)
+        return entry
 
     def with_rates(entry, calls):
         # Every kernel's entry also carries its share of the bound and the
@@ -1762,6 +1759,10 @@ def main() -> int:
         # rate times its time.
         rows = entry["per_call"]
         entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+        if "device_ms" in entry:
+            entry["device_share_of_bound"] = (
+                None if entry["device_ms"] is None
+                else entry["bound_ms"] / entry["device_ms"])
         entry["tflops"] = sum(c * r["tflops"] * r["ms"] for c, r in zip(
             calls, rows)) / entry["ms"]
         return entry

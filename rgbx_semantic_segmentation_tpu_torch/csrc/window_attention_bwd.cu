@@ -19,24 +19,32 @@
 // What bounds it on the H100: bytes (qkv, g and the bias read once, dqkv and
 // db written once), as the forward.
 //
-// What the design does about it.
+// What the design does about it. As in the forward, issue slots bind more
+// than bytes (Philox, exps, the softmax's and dl's elementwise work), so
+// the design keeps copies in flight and the card filled.
 //   * db is a sum over the batch. The TPU kernel makes the batch its
 //     sequential grid axis and accumulates in scratch memory; CUDA blocks run
-//     in no order. Here the block that owns a unit (w, i) loops over the
-//     images itself and keeps the db tile in registers (tensor-core kernel)
-//     or updates its own block of the output (scalar kernel): no atomics,
-//     the same bits every run.
+//     in no order. Here one block owns a unit (w, i), walks all B images of
+//     it and keeps the unit's db tile in registers, written once at the end
+//     (the scalar kernel: its threads own their elements of the block). No
+//     atomics, no workspace: the same bits every run. Splitting a unit's
+//     images over a thread-block cluster that sums db through distributed
+//     shared memory measured 13-86% slower a swin_s step at batch 8 (PERF.md
+//     section 6): a block's own cost (its first copy, the bias, the zeroed
+//     tiles, the sum) outweighs the waves it saves.
 //   * bf16, d a multiple of 8 up to 64, N <= 56 (window 7):
-//     `window_attention_bwd_mma_kernel`, 4 warps. Per image: q, k, v, g of
-//     the unit are staged in shared memory. Phase 1, a warp per 16 query
-//     rows: pf, pd, dp, dl in mma accumulator registers; dl adds into the
-//     warp's db registers; dq = dlf k with dlf straight from the registers
-//     as the A operand; pd and dlf also go to shared memory. Phase 2, a warp
-//     per 16 keys: dv = pd^T g and dk = dlf^T q, the transposed A fragments
-//     and the B fragments both out of ldmatrix.trans. The unit's bias block
-//     is read once, into shared memory, and serves all images. The three
-//     output tiles go back through the staged q, k, v rows and leave in
-//     16-byte stores.
+//     `window_attention_bwd_tc`, 4 warps. q, k, v, g of the next image
+//     arrive by 16-byte cp.async in a two-stage ring while the current one
+//     is computed; the unit's bias block is staged once a block (as N
+//     rows of 56 columns, -inf past N: padding needs no masks), and the
+//     window's pixel offsets are computed once. Per image: phase 1, a warp
+//     per 16 query rows: pf, pd, dp, dl in mma accumulator registers; dl adds
+//     into the warp's db registers; dq = dlf k with dlf straight from the
+//     registers as the A operand; pd and dlf also go to shared memory.
+//     Phase 2, a warp per 16 keys: dv = pd^T g and dk = dlf^T q, the
+//     transposed A fragments and the B fragments both out of ldmatrix.trans.
+//     The three output tiles go back through the staged q, k, v rows and
+//     leave in 16-byte stores.
 //   * fp32 and every other shape up to N = 256, d = 128:
 //     `window_attention_bwd_scalar_kernel`: phase A a warp per query row
 //     (row statistics, db, dq), phase B a warp per key (the column of pd and
@@ -52,35 +60,50 @@ namespace {
 constexpr int kMmaWarps = 4;
 constexpr int kNT = 7;                // 8-wide key tiles: N <= 56
 constexpr int kRows = kMmaWarps * 16;  // one 16-row tile per warp
+constexpr int kLdp = kRows + 8;        // pd, dlf: (query row, key) rows
+template <int KS>
+constexpr int kLd = KS * 16 + 8;
 
+// Dynamic shared memory of the tensor-core kernel: the window's pixels, the
+// staged bias block, a ring of two (q, k, v, g) stages and the pd and dlf
+// tiles.
+template <int KS>
+constexpr size_t kBwdSmem =
+    (size_t)kRows * sizeof(int) + kBiasBytes<kNT> +
+    ((size_t)2 * 4 * kRows * kLd<KS> + (size_t)2 * kRows * kLdp) *
+        sizeof(__nv_bfloat16);
+
+// One block a unit (window, head), walking all B images of it with the
+// unit's db tile in registers.
 template <int KS>  // padded head dim / 16
 __global__ void __launch_bounds__(kMmaWarps * 32)
-    window_attention_bwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                                    const float* __restrict__ bias,
-                                    const __nv_bfloat16* __restrict__ gout,
-                                    __nv_bfloat16* __restrict__ dqkv,
-                                    float* __restrict__ db,
-                                    const long long* __restrict__ seed,
-                                    const Window g, Dropout dr) {
+    window_attention_bwd_tc(const __nv_bfloat16* __restrict__ qkv,
+                            const float* __restrict__ bias,
+                            const __nv_bfloat16* __restrict__ gout,
+                            __nv_bfloat16* __restrict__ dqkv,
+                            float* __restrict__ db,
+                            const long long* __restrict__ seed, const Window g,
+                            Dropout dr) {
   constexpr int NT = kNT;
   constexpr int DP = KS * 16;
   constexpr int DT = DP / 8;
-  constexpr int LD = DP + 8;
-  constexpr int LDP = kRows + 8;  // pd, dlf: (query row, key), conflict-free
+  constexpr int LD = kLd<KS>;
+  constexpr int LDP = kLdp;
+  constexpr int TILE = kRows * LD;  // elements of one staged tile
   static_assert(NT * 8 <= kRows, "one row tile per warp covers all keys");
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kRows * LD;
-  __nv_bfloat16* Vs = Ks + kRows * LD;
-  __nv_bfloat16* Gs = Vs + kRows * LD;
-  __nv_bfloat16* Pd = Gs + kRows * LD;
+  int* pix = reinterpret_cast<int*>(smem);
+  float* Bs = reinterpret_cast<float*>(smem + kRows * sizeof(int));
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
+      smem + kRows * sizeof(int) + kBiasBytes<NT>);
+  __nv_bfloat16* Pd = ring + 2 * 4 * TILE;
   __nv_bfloat16* Dl = Pd + kRows * LDP;
-  float* Bs = reinterpret_cast<float*>(Dl + kRows * LDP);  // (N, N) bias
 
   const int unit = blockIdx.x;
   const int w = unit / g.h;
   const int head = unit - w * g.h;
   const int C = g.h * g.d;
+  const long long image = (long long)g.Hp * g.Wp;  // pixels an image
   load_seed(dr, seed);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -90,12 +113,27 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
 
   // Key columns [NT*8, kRows) of pd and dlf are never written: zero both
   // tiles once (two bf16 a word). The unit's bias block serves every image:
-  // it is read once, into shared memory.
+  // it is staged once, with the first image.
   for (int i = threadIdx.x; i < kRows * LDP; i += blockDim.x)
     reinterpret_cast<uint32_t*>(Pd)[i] = 0u;
-  const float* bias_g = bias_block(bias, g, w, head);
-  for (int i = threadIdx.x; i < g.N * g.N; i += blockDim.x) Bs[i] = bias_g[i];
-  const float* bb = Bs;
+  window_pixels(pix, g, w, kRows);
+  stage_bias_async<kBiasLd<NT>>(Bs, bias_block(bias, g, w, head), g.N);
+  __syncthreads();  // pix
+
+  // Image b: q, k, v, g into ring stage b % 2, one commit group.
+  auto stage = [&](int b) {
+    const long long px = b * image;
+    const __nv_bfloat16* src = qkv + px * 3 * C + head * g.d;
+    const uint32_t dst = smem_u32(ring + (b & 1) * 4 * TILE);
+    stage_tile_async<DP>(dst, LD, src, 3 * C, pix, g.d, kRows);
+    stage_tile_async<DP>(dst + TILE * 2, LD, src + C, 3 * C, pix, g.d, kRows);
+    stage_tile_async<DP>(dst + TILE * 4, LD, src + 2 * C, 3 * C, pix, g.d,
+                         kRows);
+    stage_tile_async<DP>(dst + TILE * 6, LD, gout + px * C + head * g.d, C,
+                         pix, g.d, kRows);
+    cp_async_commit();
+  };
+  stage(0);  // with the bias block
 
   float dbacc[NT][4];
 #pragma unroll
@@ -103,18 +141,24 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
     dbacc[t][0] = dbacc[t][1] = dbacc[t][2] = dbacc[t][3] = 0.f;
 
   for (int b = 0; b < g.B; ++b) {
-    const __nv_bfloat16* src = qkv + head * g.d;
-    stage_tile<DP>(Qs, LD, src, 3 * C, g, b, w, kRows);
-    stage_tile<DP>(Ks, LD, src + C, 3 * C, g, b, w, kRows);
-    stage_tile<DP>(Vs, LD, src + 2 * C, 3 * C, g, b, w, kRows);
-    stage_tile<DP>(Gs, LD, gout + head * g.d, C, g, b, w, kRows);
+    // Image b has landed, and every thread is done with image b - 1, whose
+    // stage the copy of image b + 1 now refills under image b's compute.
+    cp_async_wait<0>();
     __syncthreads();
+    if (b + 1 < g.B) stage(b + 1);
+    __nv_bfloat16* Qs = ring + (b & 1) * 4 * TILE;
+    __nv_bfloat16* Ks = Qs + TILE;
+    __nv_bfloat16* Vs = Ks + TILE;
+    const __nv_bfloat16* Gs = Vs + TILE;
 
-    // Phase 1: this warp's 16 query rows against all keys.
+    // Phase 1: this warp's 16 query rows against all keys. Padding needs no
+    // masks: q, g rows >= N and v rows >= N are zero and the bias is -inf
+    // in columns >= N, so pf and dp vanish in columns >= N, and dp, delta,
+    // dl in rows >= N; pd of a row >= N meets only zero g rows.
     float dq[DT][4];
     {
       float s[NT][4], dp[NT][4];
-      probs_tile<KS, NT>(Qs, Ks, LD, bb, g, warp, gq, tq, s);
+      probs_tile<KS, NT>(Qs, Ks, LD, Bs, g, warp, gq, tq, s);
       rows_times_rows<KS, NT>(Gs, Vs, LD, warp, gq, tq, dp);
       float delta[2] = {0.f, 0.f};
       uint32_t pdk[NT][2];
@@ -122,22 +166,17 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
       for (int t = 0; t < NT; ++t) {
         uint32_t bits[4] = {0u, 0u, 0u, 0u};
         if (dr.on) dropout_bits(dr, t * 4 + tq, warp * 8 + gq, unit, b, bits);
-        float pd[4];
+        bool keep[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int row = e < 2 ? ra : rb;
-          const int col = t * 8 + 2 * tq + (e & 1);
-          const bool valid = row < g.N && col < g.N;
-          const bool keep = !dr.on || bits[e] >= dr.thr;
-          if (!valid) s[t][e] = 0.f;
-          pd[e] = valid ? dropped_prob<__nv_bfloat16>(s[t][e], keep, dr) : 0.f;
-          float x = valid && keep ? dp[t][e] : 0.f;
+          keep[e] = !dr.on || bits[e] >= dr.thr;
+          float x = keep[e] ? dp[t][e] : 0.f;
           if (dr.on) x *= dr.inv_keep;
           dp[t][e] = x;
           delta[e >> 1] += x * s[t][e];
         }
-        pdk[t][0] = pack_bf16(pd[0], pd[1]);
-        pdk[t][1] = pack_bf16(pd[2], pd[3]);
+        pdk[t][0] = dropped_pair(s[t][0], s[t][1], keep[0], keep[1], dr);
+        pdk[t][1] = dropped_pair(s[t][2], s[t][3], keep[2], keep[3], dr);
       }
       delta[0] = quad_sum(delta[0]);
       delta[1] = quad_sum(delta[1]);
@@ -194,18 +233,17 @@ __global__ void __launch_bounds__(kMmaWarps * 32)
         mma16816(dk[u + 1], ad, bq[2], bq[3]);
       }
     }
-    __syncthreads();  // every read of the staged tiles is done
+    __syncthreads();  // every read of this stage's tiles is done
 
     // dq, dk, dv through this warp's rows of the q, k, v tiles to the image.
     store_acc<DT>(Qs, LD, warp * 16, gq, tq, dq);
     store_acc<DT>(Ks, LD, warp * 16, gq, tq, dk);
     store_acc<DT>(Vs, LD, warp * 16, gq, tq, dv);
     __syncwarp();
-    __nv_bfloat16* dst = dqkv + head * g.d;
-    unstage_rows<DP>(dst, 3 * C, Qs, LD, g, b, w, warp * 16, lane);
-    unstage_rows<DP>(dst + C, 3 * C, Ks, LD, g, b, w, warp * 16, lane);
-    unstage_rows<DP>(dst + 2 * C, 3 * C, Vs, LD, g, b, w, warp * 16, lane);
-    __syncthreads();
+    __nv_bfloat16* dst = dqkv + b * image * 3 * C + head * g.d;
+    unstage_rows<DP>(dst, 3 * C, Qs, LD, pix, g.d, warp * 16, lane);
+    unstage_rows<DP>(dst + C, 3 * C, Ks, LD, pix, g.d, warp * 16, lane);
+    unstage_rows<DP>(dst + 2 * C, 3 * C, Vs, LD, pix, g.d, warp * 16, lane);
   }
 
   float* dbu = db + (long long)unit * g.N * g.N;
@@ -401,26 +439,23 @@ __global__ void __launch_bounds__(kScalarWarps * 32)
 // Host side.
 // ---------------------------------------------------------------------------
 
-enum KernelId { kMma2, kMma4, kNumKernels };
+enum KernelId { kTc2, kTc4, kNumKernels };
 std::atomic<bool> g_opted_in[kMaxDevices][kNumKernels];
 
+// The tensor-core route: one block a unit.
 template <int KS>
-int launch_mma(KernelId id, const void* qkv, const float* bias,
-               const void* gout, void* dqkv, float* db, const long long* seed,
-               const Window& g, const Dropout& dr, int units, DeviceState* st,
-               cudaStream_t stream) {
-  constexpr size_t smem =
-      ((size_t)4 * kRows * (KS * 16 + 8) + (size_t)2 * kRows * (kRows + 8)) *
-          sizeof(__nv_bfloat16) +
-      (size_t)kNT * 8 * kNT * 8 * sizeof(float);
+int launch_tc(KernelId id, const void* qkv, const float* bias,
+              const void* gout, void* dqkv, float* db, const long long* seed,
+              const Window& g, const Dropout& dr, int units, DeviceState* st,
+              cudaStream_t stream) {
+  constexpr size_t smem = kBwdSmem<KS>;
   const int rc = opt_in_smem(st, &g_opted_in[device_index(st)][id],
-                             window_attention_bwd_mma_kernel<KS>);
+                             window_attention_bwd_tc<KS>);
   if (rc != 0) return rc;
-  window_attention_bwd_mma_kernel<KS>
-      <<<units, kMmaWarps * 32, smem, stream>>>(
-          static_cast<const __nv_bfloat16*>(qkv), bias,
-          static_cast<const __nv_bfloat16*>(gout),
-          static_cast<__nv_bfloat16*>(dqkv), db, seed, g, dr);
+  window_attention_bwd_tc<KS><<<units, kMmaWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), bias,
+      static_cast<const __nv_bfloat16*>(gout),
+      static_cast<__nv_bfloat16*>(dqkv), db, seed, g, dr);
   return (int)cudaGetLastError();
 }
 
@@ -478,10 +513,10 @@ extern "C" int window_attention_bwd(const void* qkv, const float* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && d % 8 == 0 && d <= 64 && win.N <= kNT * 8) {
     if (d <= 32)
-      return launch_mma<2>(kMma2, qkv, bias, g, dqkv, db, seed, win, dr,
-                           (int)units, st, s);
-    return launch_mma<4>(kMma4, qkv, bias, g, dqkv, db, seed, win, dr,
-                         (int)units, st, s);
+      return launch_tc<2>(kTc2, qkv, bias, g, dqkv, db, seed, win, dr,
+                          (int)units, st, s);
+    return launch_tc<4>(kTc4, qkv, bias, g, dqkv, db, seed, win, dr,
+                        (int)units, st, s);
   }
   if (dtype == 1)
     return launch_scalar<__nv_bfloat16>(qkv, bias, g, dqkv, db, seed, win, dr,

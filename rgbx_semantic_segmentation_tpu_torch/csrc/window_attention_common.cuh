@@ -1,12 +1,14 @@
 // Helpers shared by the window-attention kernels (window_attention_fwd.cu,
 // window_attention_bwd.cu): the geometry of a call, the addressing of a
-// window's tokens inside the whole image, staging of one head's q, k, v (or
-// cotangent) tile into shared memory, and the tensor-core tiles both kernels
-// compute the same way (logits and probabilities of 16 query rows; a bf16
-// tile in accumulator layout times a row-major shared-memory matrix).
+// window's tokens inside the whole image, asynchronous staging of one head's
+// q, k, v (or cotangent) tile and of the bias block into shared memory, the
+// tensor-core tiles both kernels compute the same way (logits and
+// probabilities of 16 query rows; a bf16 tile in accumulator layout times a
+// row-major shared-memory matrix).
 #pragma once
 
 #include "attention_common.cuh"
+#include "wgmma_common.cuh"  // cp.async
 
 namespace {
 
@@ -49,48 +51,82 @@ __device__ __forceinline__ void load_seed(Dropout& dr, const long long* seed) {
 
 // ---- tensor-core (bf16) helpers -------------------------------------------
 
-// Whether a kernel with NT 8-wide key tiles keeps the unit's (N, N) fp32
-// bias block in shared memory (at most 64 * 64 * 4 bytes).
+// Whether a kernel with NT 8-wide key tiles keeps the unit's bias block in
+// shared memory: N rows of kBiasLd<NT> = NT * 8 fp32 columns, -inf past
+// column N (at most 56 x 56 x 4 bytes). With rows kBiasLd apart, the eight
+// rows and four column pairs a warp reads at once fall in distinct banks.
 template <int NT>
 constexpr bool kStageBias = NT <= 8;
+template <int NT>
+constexpr int kBiasLd = NT * 8;
+template <int NT>  // shared memory of the staged block (room for N <= NT * 8)
+constexpr size_t kBiasBytes =
+    kStageBias<NT> ? (size_t)NT * 8 * kBiasLd<NT> * sizeof(float) : 0;
 
-// Stage d channels of every token of window w, image b, into a (rows, ld)
-// bf16 tile, 16 bytes a thread; rows >= N and channels [d, DP) are zero.
-// `src` points at the first channel of the head inside pixel 0; pixels are
-// `pixel_stride` elements apart. d is a multiple of 8.
+// The pixel, within one image, of every token of window w: pix[t] for t <
+// rows, -1 for the padding rows t >= N. Written by the block; the caller
+// synchronises before reading it.
+__device__ __forceinline__ void window_pixels(int* pix, const Window& g, int w,
+                                              int rows) {
+  for (int t = threadIdx.x; t < rows; t += blockDim.x)
+    pix[t] = t < g.N ? (int)token_pixel(g, 0, w, t) : -1;
+}
+
+// Stage d channels of every token of one window into a (rows, ld) bf16
+// tile at shared address `dst`, by 16-byte cp.async; rows >= N and channels
+// [d, DP) are zero-filled. `src` points at the first channel of the head
+// inside pixel 0 of the image; pixels are `pixel_stride` elements apart; d is
+// a multiple of 8. The caller commits and waits.
 template <int DP>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, int ld,
-                                           const __nv_bfloat16* src,
-                                           long long pixel_stride,
-                                           const Window& g, int b, int w,
-                                           int rows) {
+__device__ __forceinline__ void stage_tile_async(uint32_t dst, int ld,
+                                                 const __nv_bfloat16* src,
+                                                 long long pixel_stride,
+                                                 const int* pix, int d,
+                                                 int rows) {
   constexpr int CH = DP / 8;
   for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
     const int row = i / CH;
     const int ch = i - row * CH;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row < g.N && ch * 8 < g.d)
-      x = *reinterpret_cast<const uint4*>(
-          src + token_pixel(g, b, w, row) * pixel_stride + ch * 8);
-    *reinterpret_cast<uint4*>(dst + row * ld + ch * 8) = x;
+    const int p = pix[row];
+    const bool in = p >= 0 && ch * 8 < d;
+    cp_async16(dst + (uint32_t)(row * ld + ch * 8) * 2,
+               in ? src + p * pixel_stride + ch * 8 : src, in ? 16 : 0);
   }
 }
 
-// Rows [row0, row0 + 16) of a (rows, ld) shared tile to their pixels, 16
-// bytes a thread, one warp.
+// The unit's (N, N) fp32 bias block `bb` into shared memory as N rows of
+// LDB columns, -inf in columns [N, LDB): 4-byte cp.async (a block starts
+// on any 4-byte boundary) and plain stores for the padding. The caller
+// commits, waits and synchronises.
+template <int LDB>
+__device__ __forceinline__ void stage_bias_async(float* Bs, const float* bb,
+                                                 int N) {
+  for (int i = threadIdx.x; i < N * LDB; i += blockDim.x) {
+    const int r = i / LDB;
+    const int c = i - r * LDB;
+    if (c < N)
+      cp_async4(smem_u32(Bs + i), bb + r * N + c, 4);
+    else
+      Bs[i] = -INFINITY;
+  }
+}
+
+// Rows [row0, row0 + 16) of a (rows, ld) shared tile to their pixels of one
+// image (`dst` at the head's first channel of pixel 0), 16 bytes a thread,
+// one warp.
 template <int DP>
 __device__ __forceinline__ void unstage_rows(__nv_bfloat16* dst,
                                              long long pixel_stride,
                                              const __nv_bfloat16* tile, int ld,
-                                             const Window& g, int b, int w,
-                                             int row0, int lane) {
+                                             const int* pix, int d, int row0,
+                                             int lane) {
   constexpr int CH = DP / 8;
   for (int i = lane; i < 16 * CH; i += 32) {
     const int row = row0 + i / CH;
     const int ch = i % CH;
-    if (row < g.N && ch * 8 < g.d)
-      *reinterpret_cast<uint4*>(dst + token_pixel(g, b, w, row) * pixel_stride +
-                                ch * 8) =
+    const int p = pix[row];
+    if (p >= 0 && ch * 8 < d)
+      *reinterpret_cast<uint4*>(dst + p * pixel_stride + ch * 8) =
           *reinterpret_cast<const uint4*>(tile + row * ld + ch * 8);
   }
 }
@@ -142,7 +178,9 @@ __device__ __forceinline__ void rows_times_rows(const __nv_bfloat16* A,
 // fp32 probabilities of query rows [rt*16, rt*16 + 16) against all N keys:
 // s = softmax((q k^T) * scale + bias), the scale applied to the fp32 logits
 // and the fp32 bias added after it. Columns >= N get probability exactly 0;
-// rows >= N (zero q, no bias) get finite values the callers drop.
+// rows >= N get finite values the callers drop. With kStageBias<NT>, `bias`
+// is the block staged by stage_bias_async (rows >= N read row N - 1, columns
+// >= N hold -inf); else the (N, N) block in device memory.
 template <int KS, int NT>
 __device__ __forceinline__ void probs_tile(const __nv_bfloat16* Qs,
                                            const __nv_bfloat16* Ks, int ld,
@@ -152,17 +190,33 @@ __device__ __forceinline__ void probs_tile(const __nv_bfloat16* Qs,
   rows_times_rows<KS, NT>(Qs, Ks, ld, rt, gq, tq, s);
   const int ra = rt * 16 + gq, rb = ra + 8;
   float mx[2] = {-INFINITY, -INFINITY};
+  if constexpr (kStageBias<NT>) {
+    const float* ba = bias + min(ra, g.N - 1) * kBiasLd<NT> + 2 * tq;
+    const float* bbr = bias + min(rb, g.N - 1) * kBiasLd<NT> + 2 * tq;
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
+    for (int t = 0; t < NT; ++t) {
+      const float2 x = *reinterpret_cast<const float2*>(ba + t * 8);
+      const float2 y = *reinterpret_cast<const float2*>(bbr + t * 8);
+      s[t][0] = s[t][0] * g.scale + x.x;
+      s[t][1] = s[t][1] * g.scale + x.y;
+      s[t][2] = s[t][2] * g.scale + y.x;
+      s[t][3] = s[t][3] * g.scale + y.y;
+      mx[0] = fmaxf(mx[0], fmaxf(s[t][0], s[t][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[t][2], s[t][3]));
+    }
+  } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = e < 2 ? ra : rb;
-      const int col = t * 8 + 2 * tq + (e & 1);
-      float l = -INFINITY;
-      if (col < g.N)
-        l = s[t][e] * g.scale + (row < g.N ? bias[row * g.N + col] : 0.f);
-      s[t][e] = l;
-      mx[e >> 1] = fmaxf(mx[e >> 1], l);
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? ra : rb;
+        const int col = t * 8 + 2 * tq + (e & 1);
+        float l = -INFINITY;
+        if (col < g.N)
+          l = s[t][e] * g.scale + (row < g.N ? bias[row * g.N + col] : 0.f);
+        s[t][e] = l;
+        mx[e >> 1] = fmaxf(mx[e >> 1], l);
+      }
     }
   }
   mx[0] = quad_max(mx[0]);
@@ -227,6 +281,19 @@ __device__ __forceinline__ float dropped_prob(float pf, bool keep,
   const float p = round_to<T>(pf);
   if (!dr.on) return p;
   return keep ? round_to<T>(p * dr.inv_keep) : 0.f;
+}
+
+// dropped_prob of two neighbouring probabilities, as the bf16 pair an mma
+// A fragment takes: p rounded once, scaled, rounded again, and the dropped
+// halves cleared in the packed bits.
+__device__ __forceinline__ uint32_t dropped_pair(float pf0, float pf1,
+                                                 bool keep0, bool keep1,
+                                                 const Dropout& dr) {
+  const uint32_t p = pack_bf16(pf0, pf1);
+  if (!dr.on) return p;
+  const uint32_t pd = pack_bf16(__uint_as_float(p << 16) * dr.inv_keep,
+                                __uint_as_float(p & 0xFFFF0000u) * dr.inv_keep);
+  return pd & ((keep0 ? 0x0000FFFFu : 0u) | (keep1 ? 0xFFFF0000u : 0u));
 }
 
 }  // namespace

@@ -26,19 +26,29 @@
 // strides (ws runs of ws pixels), writing out (B, Hp, Wp, C): no partition,
 // pack or reverse copies exist, and no off-diagonal work.
 //   * bf16, d a multiple of 8 up to 64, N <= 144 (both Swin variants):
-//     `window_attention_fwd_mma_kernel`. One block of 4 warps per
-//     (b, w, i); the image index runs fastest over the grid, so the blocks
-//     that share a bias block run together and it is read from L2. q, k, v
-//     of the unit are staged in shared memory with 16-byte loads (each
-//     token's d channels are one 2*d-byte run). A warp owns 16 query rows:
-//     the logits of all N keys are mma.sync m16n8k16 accumulators and stay
-//     in registers (28 at N = 49), so the softmax is a single exact pass, p
-//     in accumulator layout is already the A operand of p @ v, and v's B
-//     fragments come transposed out of ldmatrix. The bias block of a 7x7
-//     window is staged with q, k, v (coalesced, its latency hidden behind
-//     theirs) instead of being read element by element after the product.
-//     The output tile goes back through the warp's own q rows in shared
-//     memory and leaves in 16-byte stores.
+//     `window_attention_fwd_tc`, 4 warps. The kernel is bound by issue
+//     slots more than by bytes (per (unit, image) and thread: 7 Philox
+//     calls, 28 exps, the softmax's index math), so the design keeps copies
+//     in flight and instructions few rather than moving products to wgmma.
+//     A 7x7 window's block owns one (window, head) unit and walks all B of
+//     its images: the unit's bias block is staged once, with the first
+//     image (4-byte cp.async), as N rows of 56 columns with -inf past N, so
+//     the logits need no masks, and q, k, v of image i + 1 arrive by 16-byte
+//     cp.async in a two-stage ring while image i is computed (one barrier
+//     an image), padding rows zero-filled. (Splitting a unit's images over
+//     2-8 blocks measured no faster a swin_s step at batch 8, PERF.md
+//     section 6.) A 12x12 window's bias block stays in device memory, so a
+//     group of images would save no bias reads: there a block takes one
+//     image of a unit and a single stage, with half the ring's shared
+//     memory, and the blocks of a unit are neighbours in the grid, so a
+//     shifted call reads each bias block from device memory once. The
+//     window's pixel offsets are computed once a block. A warp owns 16 query
+//     rows: the logits of all N keys are mma.sync m16n8k16 accumulators and
+//     stay in registers (28 at N = 49), so the softmax is a single exact
+//     pass, p in accumulator layout is already the A operand of p @ v, and
+//     v's B fragments come transposed out of ldmatrix. The output tile goes
+//     back through the warp's own q rows in shared memory and leaves in
+//     16-byte stores.
 //   * fp32 and every other shape up to N = 256, d = 128:
 //     `window_attention_fwd_scalar_kernel`, a warp per query row with fp32
 //     FMAs, reading k and v through the caches.
@@ -52,74 +62,116 @@ namespace {
 
 constexpr int kMmaWarps = 4;
 
+template <int NT>
+constexpr int kRows = (NT * 8 + 15) / 16 * 16;  // 16-row tiles of the window
+template <int KS>
+constexpr int kLd = KS * 16 + 8;  // 16-byte aligned rows, conflict-free
+
+// (q, k, v) stages a block: a ring of two where it walks all of a unit's
+// images (the bias block staged, kStageBias<NT>), else one.
+template <int NT>
+constexpr int kStages = kStageBias<NT> ? 2 : 1;
+
+// Dynamic shared memory of the tensor-core kernel: the window's pixels, the
+// staged bias block (kStageBias<NT>) and the (q, k, v) stages.
+template <int KS, int NT>
+constexpr size_t kFwdSmem =
+    (size_t)kRows<NT> * sizeof(int) + kBiasBytes<NT> +
+    (size_t)kStages<NT> * 3 * kRows<NT> * kLd<KS> * sizeof(__nv_bfloat16);
+
+// A block owns one (window, head) unit: all of its B images with the bias
+// staged (blockIdx.x = unit), else image blockIdx.x % B (blockIdx.x = unit
+// * B + image, so the blocks of a unit run together and its bias block is
+// read from L2).
 template <int KS, int NT>  // padded head dim / 16; 8-wide key tiles
 __global__ void __launch_bounds__(kMmaWarps * 32)
-    window_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
-                                    const float* __restrict__ bias,
-                                    __nv_bfloat16* __restrict__ out,
-                                    const long long* __restrict__ seed,
-                                    const Window g, Dropout dr) {
+    window_attention_fwd_tc(const __nv_bfloat16* __restrict__ qkv,
+                            const float* __restrict__ bias,
+                            __nv_bfloat16* __restrict__ out,
+                            const long long* __restrict__ seed, const Window g,
+                            Dropout dr) {
   constexpr int DP = KS * 16;
   constexpr int DT = DP / 8;
-  constexpr int RT = (NT * 8 + 15) / 16;  // 16-row tiles
-  constexpr int ROWS = RT * 16;
-  constexpr int LD = DP + 8;  // 16-byte aligned rows, conflict-free fragments
+  constexpr int ROWS = kRows<NT>;
+  constexpr int RT = ROWS / 16;
+  constexpr int LD = kLd<KS>;
+  constexpr int TILE = ROWS * LD;  // elements of one staged tile
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + ROWS * LD;
-  __nv_bfloat16* Vs = Ks + ROWS * LD;
-  float* Bs = reinterpret_cast<float*>(Vs + ROWS * LD);  // if kStageBias<NT>
+  int* pix = reinterpret_cast<int*>(smem);
+  float* Bs = reinterpret_cast<float*>(smem + ROWS * sizeof(int));
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
+      smem + ROWS * sizeof(int) + kBiasBytes<NT>);
 
-  const int b = blockIdx.x % g.B;
-  const int unit = blockIdx.x / g.B;
+  constexpr int STAGES = kStages<NT>;
+  const int blocks_a_unit = STAGES == 2 ? 1 : g.B;
+  const int unit = blockIdx.x / blocks_a_unit;
+  const int b0 = blockIdx.x - unit * blocks_a_unit;
+  const int nb = STAGES == 2 ? g.B : 1;  // images of this block
   const int w = unit / g.h;
   const int head = unit - w * g.h;
   const int C = g.h * g.d;
+  const long long image = (long long)g.Hp * g.Wp;  // pixels an image
   load_seed(dr, seed);
-
-  const __nv_bfloat16* src = qkv + head * g.d;
-  stage_tile<DP>(Qs, LD, src, 3 * C, g, b, w, ROWS);
-  stage_tile<DP>(Ks, LD, src + C, 3 * C, g, b, w, ROWS);
-  stage_tile<DP>(Vs, LD, src + 2 * C, 3 * C, g, b, w, ROWS);
-  // A small window's bias block rides along with coalesced loads, so the
-  // softmax reads it from shared memory; a large one stays in global memory.
+  window_pixels(pix, g, w, ROWS);
   const float* bb = bias_block(bias, g, w, head);
   if constexpr (kStageBias<NT>) {
-    for (int i = threadIdx.x; i < g.N * g.N; i += blockDim.x) Bs[i] = bb[i];
+    stage_bias_async<kBiasLd<NT>>(Bs, bb, g.N);
     bb = Bs;
   }
-  __syncthreads();
+  __syncthreads();  // pix
+
+  // Image b0 + i's q, k, v into stage i % STAGES, one commit group.
+  auto stage = [&](int i) {
+    const __nv_bfloat16* src = qkv + (b0 + i) * image * 3 * C + head * g.d;
+    const uint32_t dst = smem_u32(ring + (i % STAGES) * 3 * TILE);
+    stage_tile_async<DP>(dst, LD, src, 3 * C, pix, g.d, ROWS);
+    stage_tile_async<DP>(dst + TILE * 2, LD, src + C, 3 * C, pix, g.d, ROWS);
+    stage_tile_async<DP>(dst + TILE * 4, LD, src + 2 * C, 3 * C, pix, g.d,
+                         ROWS);
+    cp_async_commit();
+  };
+  stage(0);  // with the bias block
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gq = lane >> 2;
   const int tq = lane & 3;
 
-  for (int rt = warp; rt < RT; rt += kMmaWarps) {
-    float s[NT][4];
-    probs_tile<KS, NT>(Qs, Ks, LD, bb, g, rt, gq, tq, s);
-    uint32_t pk[NT][2];
+  for (int i = 0; i < nb; ++i) {
+    // Image i has landed, and every thread is done with image i - 1, whose
+    // stage the copy of image i + 1 now refills under image i's compute.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < nb) stage(i + 1);
+    const int b = b0 + i;
+    __nv_bfloat16* Qs = ring + (i % STAGES) * 3 * TILE;
+    const __nv_bfloat16* Ks = Qs + TILE;
+    const __nv_bfloat16* Vs = Ks + TILE;
+    for (int rt = warp; rt < RT; rt += kMmaWarps) {
+      float s[NT][4];
+      probs_tile<KS, NT>(Qs, Ks, LD, bb, g, rt, gq, tq, s);
+      uint32_t pk[NT][2];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      uint32_t bits[4] = {0u, 0u, 0u, 0u};
-      if (dr.on) dropout_bits(dr, t * 4 + tq, rt * 8 + gq, unit, b, bits);
-      float p[4];
+      for (int t = 0; t < NT; ++t) {
+        uint32_t bits[4] = {0u, 0u, 0u, 0u};
+        if (dr.on) dropout_bits(dr, t * 4 + tq, rt * 8 + gq, unit, b, bits);
+        pk[t][0] = dropped_pair(s[t][0], s[t][1], bits[0] >= dr.thr,
+                                bits[1] >= dr.thr, dr);
+        pk[t][1] = dropped_pair(s[t][2], s[t][3], bits[2] >= dr.thr,
+                                bits[3] >= dr.thr, dr);
+      }
+      float o[DT][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[e] = dropped_prob<__nv_bfloat16>(s[t][e], bits[e] >= dr.thr, dr);
-      pk[t][0] = pack_bf16(p[0], p[1]);
-      pk[t][1] = pack_bf16(p[2], p[3]);
+      for (int u = 0; u < DT; ++u) o[u][0] = o[u][1] = o[u][2] = o[u][3] = 0.f;
+      acc_tile_times<NT, DT>(pk, Vs, LD, lane, o);
+      // Only this warp reads q rows [rt*16, rt*16 + 16): they carry the
+      // output tile to the coalesced store.
+      __syncwarp();
+      store_acc<DT>(Qs, LD, rt * 16, gq, tq, o);
+      __syncwarp();
+      unstage_rows<DP>(out + b * image * C + head * g.d, C, Qs, LD, pix, g.d,
+                       rt * 16, lane);
     }
-    float o[DT][4];
-#pragma unroll
-    for (int u = 0; u < DT; ++u) o[u][0] = o[u][1] = o[u][2] = o[u][3] = 0.f;
-    acc_tile_times<NT, DT>(pk, Vs, LD, lane, o);
-    // Only this warp reads q rows [rt*16, rt*16 + 16): they carry the
-    // output tile to the coalesced store.
-    __syncwarp();
-    store_acc<DT>(Qs, LD, rt * 16, gq, tq, o);
-    __syncwarp();
-    unstage_rows<DP>(out + head * g.d, C, Qs, LD, g, b, w, rt * 16, lane);
   }
 }
 
@@ -219,21 +271,22 @@ __global__ void __launch_bounds__(kScalarWarps * 32)
 // Host side.
 // ---------------------------------------------------------------------------
 
-enum KernelId { kMma2x7, kMma4x7, kMma2x18, kMma4x18, kNumKernels };
+enum KernelId { kTc2x7, kTc4x7, kTc2x18, kTc4x18, kNumKernels };
 std::atomic<bool> g_opted_in[kMaxDevices][kNumKernels];
 
+// The tensor-core route: a block a unit, or a block a (unit, image) where
+// the bias block is not staged.
 template <int KS, int NT>
-int launch_mma(KernelId id, const void* qkv, const float* bias, void* out,
-               const long long* seed, const Window& g, const Dropout& dr,
-               long long blocks, DeviceState* st, cudaStream_t stream) {
-  constexpr int ROWS = (NT * 8 + 15) / 16 * 16;
-  constexpr size_t smem =
-      (size_t)3 * ROWS * (KS * 16 + 8) * sizeof(__nv_bfloat16) +
-      (kStageBias<NT> ? (size_t)NT * 8 * NT * 8 * sizeof(float) : 0);
+int launch_tc(KernelId id, const void* qkv, const float* bias, void* out,
+              const long long* seed, const Window& g, const Dropout& dr,
+              DeviceState* st, cudaStream_t stream) {
+  constexpr size_t smem = kFwdSmem<KS, NT>;
   const int rc = opt_in_smem(st, &g_opted_in[device_index(st)][id],
-                             window_attention_fwd_mma_kernel<KS, NT>);
+                             window_attention_fwd_tc<KS, NT>);
   if (rc != 0) return rc;
-  window_attention_fwd_mma_kernel<KS, NT>
+  const long long blocks =
+      (long long)g.nW * g.h * (kStages<NT> == 2 ? 1 : g.B);
+  window_attention_fwd_tc<KS, NT>
       <<<(unsigned)blocks, kMmaWarps * 32, smem, stream>>>(
           static_cast<const __nv_bfloat16*>(qkv), bias,
           static_cast<__nv_bfloat16*>(out), seed, g, dr);
@@ -295,14 +348,12 @@ extern "C" int window_attention_fwd(const void* qkv, const float* bias,
   if (dtype == 1 && d % 8 == 0 && d <= 64 && g.N <= 144) {
     const bool small = g.N <= 56;
     if (d <= 32)
-      return small ? launch_mma<2, 7>(kMma2x7, qkv, bias, out, seed, g, dr,
-                                      blocks, st, s)
-                   : launch_mma<2, 18>(kMma2x18, qkv, bias, out, seed, g, dr,
-                                       blocks, st, s);
-    return small ? launch_mma<4, 7>(kMma4x7, qkv, bias, out, seed, g, dr,
-                                    blocks, st, s)
-                 : launch_mma<4, 18>(kMma4x18, qkv, bias, out, seed, g, dr,
-                                     blocks, st, s);
+      return small ? launch_tc<2, 7>(kTc2x7, qkv, bias, out, seed, g, dr, st, s)
+                   : launch_tc<2, 18>(kTc2x18, qkv, bias, out, seed, g, dr, st,
+                                      s);
+    return small ? launch_tc<4, 7>(kTc4x7, qkv, bias, out, seed, g, dr, st, s)
+                 : launch_tc<4, 18>(kTc4x18, qkv, bias, out, seed, g, dr, st,
+                                    s);
   }
   if (dtype == 1)
     return launch_scalar<__nv_bfloat16>(qkv, bias, out, seed, g, dr, blocks, s);

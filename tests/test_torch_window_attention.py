@@ -59,17 +59,15 @@ def _inputs(B, ni, nj, h, d, ws, shifted, seed=0):
     return qkv, bias, g
 
 
-def _jax_window_attention(qkv, bias, ws):
-    """The JAX kernel on whole-image inputs: the pack / unpack transposes
-    of the JAX WindowAttention (dual_swin.py) around WA.window_attention in
-    interpret mode, rate 0. jnp arrays in and out (differentiable)."""
-    import jax.numpy as jnp
-
+def _jax_pack(qkv, bias, ws):
+    """Whole-image inputs in the JAX kernel's packed layout, as the JAX
+    WindowAttention (dual_swin.py) packs them: qkv (S, B, P*N, 3C), bias
+    (S, h, P, N, N); returns them with the unpack of a packed (S, B, T, c)
+    image and of a packed (S, h, P, N, N) bias gradient."""
     from rgbx_semantic_segmentation_tpu.ops import window_attention as WA
 
     B, Hp, Wp, c3 = qkv.shape
     nW, h, N, _ = bias.shape
-    C = c3 // 3
     ni, nj = Hp // ws, Wp // ws
     P = WA.pack_factor(ni, N)
     nip = ni // P
@@ -78,10 +76,33 @@ def _jax_window_attention(qkv, bias, ws):
     x = x.transpose(1, 4, 0, 2, 3, 5, 6).reshape(S, B, P * N, c3)
     comb = (bias.reshape(nip, P, nj, h, N, N).transpose(0, 2, 3, 1, 4, 5)
             .reshape(S, h, P, N, N))
+
+    def unpack(y):
+        c = y.shape[-1]
+        return (y.reshape(nip, nj, B, P, ws, ws, c)
+                .transpose(2, 0, 3, 4, 1, 5, 6).reshape(B, Hp, Wp, c))
+
+    def unpack_bias(db):
+        return (db.reshape(nip, nj, h, P, N, N).transpose(0, 3, 1, 2, 4, 5)
+                .reshape(nW, h, N, N))
+
+    return x, comb, unpack, unpack_bias
+
+
+def _jax_window_attention(qkv, bias, ws):
+    """The JAX kernel on whole-image inputs: the pack / unpack transposes
+    of the JAX WindowAttention (dual_swin.py) around WA.window_attention in
+    interpret mode, rate 0. jnp arrays in and out (differentiable)."""
+    import jax.numpy as jnp
+
+    from rgbx_semantic_segmentation_tpu.ops import window_attention as WA
+
+    C = qkv.shape[-1] // 3
+    h = bias.shape[1]
+    x, comb, unpack, _ = _jax_pack(qkv, bias, ws)
     seed = jnp.zeros((1,), jnp.int32)
-    out = WA.window_attention(x, comb, seed, (C // h) ** -0.5, 0.0, True)
-    return (out.reshape(nip, nj, B, P, ws, ws, C)
-            .transpose(2, 0, 3, 4, 1, 5, 6).reshape(B, Hp, Wp, C))
+    return unpack(WA.window_attention(x, comb, seed, (C // h) ** -0.5, 0.0,
+                                      True))
 
 
 @pytest.fixture
@@ -131,6 +152,55 @@ def test_gradients_match_jax_kernel(B, ni, nj, h, d, ws, shifted):
         b = np.asarray(jax.device_get(b))
         np.testing.assert_allclose(a.numpy(), b, rtol=0,
                                    atol=1e-4 * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("B,ni,nj,h,d,ws,shifted", [
+    (2, 3, 2, 3, 32, 7, True), (2, 2, 3, 4, 32, 7, False)])
+def test_bf16_plain_versions_round_as_the_jax_kernels(B, ni, nj, h, d, ws,
+                                                      shifted):
+    """bf16 at rate 0: the plain forward and backward (what the kernels are
+    held to on the card) against the JAX `_wfwd_call` and `_wbwd_call` in
+    interpret mode, on the same bf16 inputs and fp32 bias. Both take fp32
+    logits with the scale on them, an fp32 softmax pf, p = bf16(pf), fp32
+    sums of bf16 products, dl from the unrounded pf and dlf = bf16(dl *
+    scale); they differ in the last bits of exp and in summation order, so
+    a rounding to bf16 flips now and then. The bounds are those the card
+    holds the kernels to (chip_smoke.py): the output within 2 bf16 ulps of
+    its largest magnitude and at most 1% of it differing at all (unrounded
+    p: ~40%), dqkv within 4 bf16 ulps of its largest magnitude, db (fp32
+    in both) within 1e-3 of its largest."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from rgbx_semantic_segmentation_tpu.ops import window_attention as WA
+
+    qkv, bias, g = _inputs(B, ni, nj, h, d, ws, shifted, seed=7)
+    scale = d ** -0.5
+    x, comb, unpack, unpack_bias = _jax_pack(jnp.asarray(qkv, jnp.bfloat16),
+                                             jnp.asarray(bias), ws)
+    gp = _jax_pack(jnp.asarray(g, jnp.bfloat16), jnp.asarray(bias), ws)[0]
+    seed = jnp.zeros((1,), jnp.int32)
+    out = WA._wfwd_call(x, comb, seed, scale, 0.0, True)
+    dqkv, db = WA._wbwd_call(x, comb, seed, gp, scale, 0.0, True)
+    assert out.dtype == dqkv.dtype == jnp.bfloat16
+
+    def to_torch(y):
+        return torch.from_numpy(np.array(jax.device_get(y).astype(np.float32)))
+
+    ref_out, ref_dqkv = to_torch(unpack(out)), to_torch(unpack(dqkv))
+    ref_db = to_torch(unpack_bias(db))
+    tq = torch.from_numpy(qkv).bfloat16()
+    tb = torch.from_numpy(bias)
+    got = W.window_attention_reference(tq, tb, None, scale, 0.0, ws)
+    got_dqkv, got_db = W.window_attention_bwd_reference(
+        tq, tb, None, torch.from_numpy(g).bfloat16(), scale, 0.0, ws)
+    assert got.dtype == got_dqkv.dtype == torch.bfloat16
+    got, got_dqkv = got.float(), got_dqkv.float()
+    assert float((got - ref_out).abs().max()) <= _bf16_ulps(ref_out, 2)
+    assert float((got != ref_out).float().mean()) <= 0.01
+    assert float((got_dqkv - ref_dqkv).abs().max()) <= _bf16_ulps(ref_dqkv, 4)
+    assert float((got_db - ref_db).abs().max()) <= (
+        1e-3 * float(ref_db.abs().max()))
 
 
 @pytest.mark.parametrize("n,d", [(49, 32), (144, 32), (256, 128), (257, 32),
@@ -432,6 +502,88 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, shifted, rate):
             tol = _bf16_ulps(b, 4) if name == "dqkv" else 1e-3 * mag
         err = (a.float() - b.float()).abs().max().item()
         assert err <= tol, (name, err, tol)
+
+
+# (B, Hp, Wp, h, d, ws): the swin_s stage-3 and stage-4 shapes at the
+# model's batch 8, and batches 1, 3, 5 and 13, odd counts of images for the
+# two-stage ring a block walks (batch 1: the first image alone).
+TC_SHAPES = [(8, 35, 42, 12, 32, 7), (8, 21, 21, 24, 32, 7),
+             (1, 21, 21, 24, 32, 7), (3, 35, 42, 12, 32, 7),
+             (5, 21, 21, 24, 32, 7), (5, 14, 21, 2, 64, 7),
+             (13, 7, 14, 1, 32, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_tensor_core_kernels_at_model_batches_and_ragged_shares(
+        cuda, shape, shifted, rate):
+    """bf16 forward and backward kernels at the model's batch and at ragged
+    batches, against their plain versions under the bounds of
+    test_kernel_matches_plain and test_backward_kernel_matches_plain, and
+    each run twice with the same bits (forward; dqkv and db)."""
+    qkv, bias, cot, seed = _cuda_inputs(shape, torch.bfloat16, cuda, shifted,
+                                        seed=3)
+    d, ws = shape[4], shape[5]
+    args = (qkv, bias, seed, d ** -0.5, rate, ws)
+    ref = W.window_attention_reference(*args)
+    got = W.window_attention(*args)
+    again = W.window_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got.float() - ref.float()).abs().max().item() <= _bf16_ulps(ref, 2)
+    assert (got != ref).float().mean().item() <= 0.01
+    bargs = (qkv, bias, seed, cot, d ** -0.5, rate, ws)
+    ref = W.window_attention_bwd_reference(*bargs)
+    got = W.window_attention_bwd(*bargs)
+    again = W.window_attention_bwd(*bargs)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dqkv", "db"), got, ref, again):
+        assert torch.isfinite(a).all() and torch.equal(a, c), name
+        tol = (_bf16_ulps(b, 4) if name == "dqkv"
+               else 1e-3 * b.abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 35, 42, 12, 32, 7),
+                                   (5, 21, 21, 24, 32, 7),
+                                   (1, 24, 36, 4, 32, 12)])
+def test_tensor_core_forward_draws_keep_mask(cuda, shape):
+    """At rate 0.3 the mask the bf16 forward kernel applies, read off its
+    outputs, is `keep_mask`, bit for bit, whichever block computes an
+    image."""
+    from rgbx_semantic_segmentation_tpu_torch.tools import (
+        bench_window_attention as T)
+
+    seed = torch.tensor([987654321012], device=cuda)
+    B, Hp, Wp, h, _, ws = shape
+    want = W.keep_mask(seed, B, (Hp // ws) * (Wp // ws), h, ws * ws, 0.3)
+    assert torch.equal(T.kernel_mask(shape, seed, 0.3), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,fwd,bwd", [
+    ((2, 35, 42, 12, 32, 7), "fwd_tc", "bwd_tc"),
+    ((2, 24, 36, 4, 32, 12), "fwd_tc", "bwd_scalar"),
+    ((1, 14, 21, 2, 64, 7), "fwd_tc", "bwd_tc")])
+def test_bf16_shapes_take_the_tensor_core_kernels(cuda, shape, fwd, bwd):
+    """The device kernels a bf16 call launches, by name: window 7 (swin_s)
+    takes the tensor-core forward and backward, window 12 (swin_b, N = 144)
+    still the tensor-core forward and the scalar backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    qkv, bias, cot, seed = _cuda_inputs(shape, torch.bfloat16, cuda, True)
+    d, ws = shape[4], shape[5]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        W.window_attention(qkv, bias, seed, d ** -0.5, 0.3, ws)
+        W.window_attention_bwd(qkv, bias, seed, cot, d ** -0.5, 0.3, ws)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if "window_attention" in e.key]
+    assert any(f"window_attention_{fwd}" in n for n in names), names
+    assert any(f"window_attention_{bwd}" in n for n in names), names
 
 
 @pytest.mark.cuda
