@@ -29,7 +29,24 @@ backbone swin_s and with backbone mit_b2pp (IFRM/IFFM):
     and gradients on the kernel path against the plain attention path, in
     bf16 and in fp32 (for swin_s the bias tables' gradients among them;
     for mit_b2pp the IFFM projections' among them, its fp32 runs at batch 2:
-    the fp32 flash kernels are scalar and N does not depend on the batch).
+    the fp32 flash kernels are scalar and N does not depend on the batch);
+  * the CLIs, with the preset's mit_b2 on a synthetic MFNet-shaped dataset
+    written to a temporary directory (16 train and 8 val PNG triples at
+    480x640): the TrainLoader alone (native and numpy image ops, pinned
+    batches or not) and feeding Trainer.fit_epoch (against the same trainer
+    on batches held in memory), over epochs of 32 batches, each rate read
+    steady over batches 2..32 and over the whole epoch; a checkpoint's
+    write and restore (the optimizer's moments on the card, its step
+    counters fp32 CPU scalars), train_cli for 2 epochs of 3 steps then -c
+    to 3 with the last epoch under torch.profiler (the device's idle
+    share), two uninterrupted 3-epoch runs (the resumed run must lie as
+    close to one as the two lie to each other: the step is not
+    bit-reproducible on the card), one train_cli epoch of 32 steps (its
+    steady rate over steps 2..32 and the device's idle share estimated
+    from it), eval_cli -e last (its confusion matrix equal to evaluate()'s on
+    the same weights) and predict_cli -e last (its PNGs equal to the
+    eval's argmax), counting the forward and backward kernels' launches
+    over the CLI calls.
 
 Any failed check raises and the exit code is non-zero. Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -44,6 +61,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1631,6 +1649,368 @@ def swin_train_phase(S, W, T, cfg_lib, train_lib, dual_swin, items):
             "fp32_loss_rel": fp32[0], "fp32_grad_rel": fp32[1]}
 
 
+# The CLI phase: a synthetic MFNet-shaped dataset on disk (PNG triples),
+# CLI_TRAIN train and CLI_VAL val pairs at 480x640, epochs of CLI_NITERS
+# steps of batch 8. The preset's warm-up (10 epochs) covers every step, so
+# the lr does not depend on --epochs and a resumed run takes the steps of an
+# uninterrupted one. CLI_STEADY_NITERS batches an epoch for the loader
+# alone, the loader feeding Trainer.fit_epoch and one more train_cli run:
+# their steady rates are read over batches (steps) 2..N, without the
+# workers' start-up.
+CLI_TRAIN, CLI_VAL, CLI_NITERS, CLI_STEADY_NITERS = 16, 8, 3, 32
+# Resume on the card: the step is not bit-reproducible (atomics in cuDNN's
+# weight gradients, the bilinear resize backward and the loss), so the
+# resumed run is held to the spread of two uninterrupted runs: its distance
+# (relative L2 per group of tensors) from one uninterrupted run may be at
+# most RESUME_FACTOR times the distance between the two uninterrupted runs,
+# plus RESUME_FLOOR. A resume that lost the optimizer moments or the step
+# moves every weight by about the lr (1e-5 here), orders beyond that.
+RESUME_FACTOR, RESUME_FLOOR = 4.0, 1e-6
+
+
+def _state_groups(payload):
+    """A checkpoint's tensors in groups: weights, BatchNorm statistics and
+    the two AdamW moments, each flattened into one fp32 vector."""
+    import torch
+
+    model = payload["model"]
+    stats = [k for k in model if k.endswith(("running_mean", "running_var"))]
+    weights = [k for k in model if model[k].is_floating_point()
+               and k not in stats]
+    opt = payload["optimizer"]["state"]
+    cat = lambda ts: torch.cat([t.float().flatten() for t in ts])
+    return {"weights": cat(model[k] for k in weights),
+            "bn_stats": cat(model[k] for k in stats),
+            "exp_avg": cat(opt[i]["exp_avg"] for i in sorted(opt)),
+            "exp_avg_sq": cat(opt[i]["exp_avg_sq"] for i in sorted(opt))}
+
+
+def cli_phase(S, cfg_lib, train):
+    """The port's CLIs on the card, through the entry points a user calls:
+    the loader alone (native and numpy image ops, pinned or not), the feed
+    into Trainer.fit_epoch pinned or not or from batches held in memory,
+    train_cli for 2 epochs, -c to 3 (a profiled last epoch), two
+    uninterrupted 3-epoch runs, one epoch of CLI_STEADY_NITERS steps (its
+    steady rate), eval_cli -e last against SegEvaluator.evaluate
+    in-process, predict_cli -e last against the eval's PNGs; K1/K2 launches
+    counted over the CLI calls. `train` is the train phase's record (its
+    in-memory rate and device time a step)."""
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from rgbx_semantic_segmentation_tpu_torch import (
+        eval_cli, predict_cli, train_cli)
+    from rgbx_semantic_segmentation_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from rgbx_semantic_segmentation_tpu_torch.data import cv_ops
+    from rgbx_semantic_segmentation_tpu_torch.data.dataset import RGBXDataset
+    from rgbx_semantic_segmentation_tpu_torch.data.loader import TrainLoader
+    from rgbx_semantic_segmentation_tpu_torch.data.synthetic import (
+        make_synthetic_dataset)
+    from rgbx_semantic_segmentation_tpu_torch.evaluator import SegEvaluator
+    from rgbx_semantic_segmentation_tpu_torch.models.builder import (
+        build_model)
+    from rgbx_semantic_segmentation_tpu_torch.native import cv_ops as native
+    from rgbx_semantic_segmentation_tpu_torch.train import Trainer
+
+    out = {}
+    cfg = cfg_lib.mfnet_config()
+    bs = cfg.train.batch_size
+    launches = {"fwd": 0, "bwd": 0}
+
+    def counted(tag, fn, argv, fwd, bwd):
+        """Run a CLI's main(argv) with K1/K2's counts from 0; check them
+        against `fwd` / `bwd` forwards / backwards of 32 calls each."""
+        S.sr_attention.launches = S.sr_attention_bwd.launches = 0
+        result = fn(argv)
+        got = (S.sr_attention.launches, S.sr_attention_bwd.launches)
+        print(f"  {tag}: K1 {got[0]}, K2 {got[1]} launches (expected "
+              f"{32 * fwd}, {32 * bwd})")
+        check(got == (32 * fwd, 32 * bwd), f"{tag} launches {got}")
+        launches["fwd"] += got[0]
+        launches["bwd"] += got[1]
+        torch.cuda.empty_cache()
+        return result
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        make_synthetic_dataset(data, num_train=CLI_TRAIN, num_val=CLI_VAL,
+                               hw=HW, num_classes=cfg.dataset.num_classes,
+                               seed=0)
+        print(f"CLI phase: synthetic dataset, {CLI_TRAIN} + {CLI_VAL} PNG "
+              f"triples at {HW}, written in {time.perf_counter() - t0:.2f} s")
+        lcfg = cfg.replace(
+            dataset=dataclasses.replace(cfg.dataset, train_source="train.txt"),
+            train=dataclasses.replace(cfg.train,
+                                      niters_per_epoch=CLI_STEADY_NITERS))
+        n = CLI_STEADY_NITERS
+
+        def rates(t0, stamps, t_end):
+            """img/s over the whole epoch (from t0, the workers' start-up
+            included) and steady, over batches 2..N (from the second
+            batch's stamp)."""
+            return {"epoch": n * bs / (t_end - t0),
+                    "steady": (n - 1) * bs / (t_end - stamps[1])}
+
+        def stamped(batches, stamps):
+            for batch in batches:
+                stamps.append(time.perf_counter())
+                yield batch
+
+        # The loader alone: one epoch, no step, in turns, after an untimed
+        # epoch (the files in the page cache, scipy imported).
+        cv_ops.gaussian_blur(np.zeros((8, 8, 3), np.uint8))
+        for _ in TrainLoader(lcfg, root=data).epoch(0):
+            pass
+        alone = {}
+        for tag, ops, pin in (("native, pinned", native, True),
+                              ("native", native, False),
+                              ("numpy", cv_ops, False),
+                              ("numpy, pinned", cv_ops, True),
+                              ("native, pinned", native, True),
+                              ("native", native, False)):
+            loader = TrainLoader(lcfg, root=data, ops=ops, pin_memory=pin)
+            stamps = []
+            t0 = time.perf_counter()
+            for batch in stamped(loader.epoch(1), stamps):
+                check(batch["rgb"].is_pinned() == pin
+                      and batch["rgb"].shape == (bs, *HW, 3),
+                      f"loader batch ({tag})")
+            check(len(stamps) == n, f"loader epoch of {n} batches ({tag})")
+            alone.setdefault(tag, []).append(
+                rates(t0, stamps, stamps[-1]))
+        out["loader_img_per_s"] = alone
+        rates_text = lambda d: "; ".join(
+            "%s %s img/s" % (k, ", ".join(
+                "%.1f (epoch %.1f)" % (r["steady"], r["epoch"]) for r in v))
+            for k, v in d.items())
+        print(f"loader alone, one epoch of {n} batches of {bs} "
+              f"({loader.num_workers} threads), steady over batches 2..{n} "
+              f"(whole epoch with the workers' start-up): {rates_text(alone)}")
+
+        # The feed: TrainLoader into Trainer.fit_epoch, pinned or not, and
+        # the same trainer on the batches of one loader epoch held in pinned
+        # memory, in turns after a warm-up epoch; then the checkpoint write
+        # of that trainer.
+        memory = list(TrainLoader(lcfg, root=data).epoch(0))
+        trainer = Trainer(lcfg, seed=0)
+        feed = {}
+        for epoch, kind in enumerate(
+                ("pinned", "pinned", "pageable", "in memory", "pageable",
+                 "pinned", "in memory"), start=1):
+            loader = TrainLoader(lcfg, root=data,
+                                 pin_memory=kind != "pageable")
+            stamps = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.closing(
+                    (b for b in memory) if kind == "in memory"
+                    else loader.epoch(epoch)) as batches:
+                trainer.fit_epoch(stamped(batches, stamps), n)
+            torch.cuda.synchronize()
+            if epoch > 1:   # the first is the warm-up
+                feed.setdefault(kind, []).append(
+                    rates(t0, stamps, time.perf_counter()))
+        del memory
+        out["feed_img_per_s"] = feed
+        print(f"TrainLoader -> fit_epoch, {n} steps an epoch (after a "
+              f"warm-up epoch), steady over steps 2..{n} (whole epoch): "
+              f"{rates_text(feed)}")
+        mgr = CheckpointManager(os.path.join(tmp, "ck"))
+        writes = []
+        for epoch in (1, 2):
+            t0 = time.perf_counter()
+            path = mgr.save(epoch, trainer)
+            writes.append(time.perf_counter() - t0)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        fresh = Trainer(lcfg, init_values=False)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(mgr.restore(fresh) == 3, "restore resumes at epoch + 1")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        moments = [st[k] for st in fresh.optimizer.state.values()
+                   for k in ("exp_avg", "exp_avg_sq")]
+        steps = [st["step"] for st in fresh.optimizer.state.values()]
+        check(all(m.is_cuda for m in moments)
+              and all(not t.is_cuda and t.dtype == torch.float32
+                      and t.dim() == 0 for t in steps)
+              and all(p.is_cuda for p in fresh.model.parameters()),
+              "restored: moments on the card, AdamW steps fp32 CPU scalars")
+        check(fresh.global_step == trainer.global_step, "restored global step")
+        out["checkpoint"] = {"bytes": size, "write_s": writes,
+                             "restore_s": restore_s}
+        print(f"checkpoint (mit_b2 + AdamW): {size / 1e6:.1f} MB, written in "
+              f"{', '.join('%.2f' % w for w in writes)} s, restored in "
+              f"{restore_s:.2f} s (model build {build_s:.2f} s); moments on "
+              "the card, AdamW step counters fp32 CPU scalars")
+        del trainer, fresh, moments, steps
+        shutil.rmtree(os.path.join(tmp, "ck"))
+        torch.cuda.empty_cache()
+
+        # train_cli: 2 epochs, -c to 3 with the last epoch profiled; two
+        # uninterrupted 3-epoch runs in other directories.
+        argv = ["--config", "mfnet", "--dataset_root", data,
+                "--train_source", "train.txt", "--niters", str(CLI_NITERS)]
+        for run in ("A", "B", "C"):
+            os.makedirs(os.path.join(tmp, run))
+        with contextlib.chdir(os.path.join(tmp, "A")):
+            first = counted("train_cli --epochs 2", train_cli.main,
+                            argv + ["--epochs", "2"], 2 * CLI_NITERS,
+                            2 * CLI_NITERS)
+            resumed = counted("train_cli -c --epochs 3 -p", train_cli.main,
+                              argv + ["--epochs", "3", "-c", "-p",
+                                      os.path.join(tmp, "prof")],
+                              CLI_NITERS, CLI_NITERS)
+        whole = {}
+        for run in ("B", "C"):
+            with contextlib.chdir(os.path.join(tmp, run)):
+                whole[run] = counted(f"train_cli --epochs 3 ({run})",
+                                     train_cli.main, argv + ["--epochs", "3"],
+                                     3 * CLI_NITERS, 3 * CLI_NITERS)
+        # train_cli's steady rate: one epoch of n steps, the steps' entries
+        # and the end of fit_epoch (which reads the mean loss: a sync)
+        # stamped on the host clock.
+        stamps = []
+        step, fit_epoch = Trainer.step, Trainer.fit_epoch
+
+        def timed_step(self, batch):
+            stamps.append(time.perf_counter())
+            return step(self, batch)
+
+        def timed_fit_epoch(self, *a, **kw):
+            result = fit_epoch(self, *a, **kw)
+            stamps.append(time.perf_counter())
+            return result
+
+        os.makedirs(os.path.join(tmp, "D"))
+        Trainer.step, Trainer.fit_epoch = timed_step, timed_fit_epoch
+        try:
+            with contextlib.chdir(os.path.join(tmp, "D")):
+                long_run = counted(
+                    f"train_cli --epochs 1 --niters {n}", train_cli.main,
+                    argv[:-2] + ["--niters", str(n), "--epochs", "1"], n, n)
+        finally:
+            Trainer.step, Trainer.fit_epoch = step, fit_epoch
+        check(len(stamps) == n + 1 and np.isfinite(long_run[0]["loss"]),
+              f"train_cli ran {n} steps")
+        steady = (n - 1) * bs / (stamps[-1] - stamps[1])
+        # The device's busy time a step, from the train phase's profile of
+        # the same step on in-memory batches.
+        idle = (None if train["device_ms"] is None
+                else 1.0 - train["device_ms"] * steady / (bs * 1e3))
+        shutil.rmtree(os.path.join(tmp, "D"))
+        records = first + resumed
+        check([r["epoch"] for r in records] == [1, 2, 3]
+              and all(np.isfinite(r["loss"]) for r in records),
+              "train_cli epochs 1, 2, then 3 after -c, finite losses")
+        prof = resumed[-1].get("profile")
+        check(prof is not None and prof["device_busy_ms"] is not None,
+              "the profiled epoch recorded device time")
+        out["train_cli"] = {"epochs": records, "uninterrupted": whole["B"],
+                            "profile": prof,
+                            "steady": {"steps": n, "img_per_s": steady,
+                                       "epoch_img_per_s":
+                                           long_run[0]["img_per_s"],
+                                       "idle_share_estimate": idle}}
+        rate_text = lambda recs: ", ".join(
+            "%.1f" % r["img_per_s"] for r in recs)
+        print(f"train_cli img/s per epoch of {CLI_NITERS} steps (workers' "
+              f"start-up included): {rate_text(records)} (2 epochs, then "
+              f"-c); uninterrupted {rate_text(whole['B'])}")
+        print(f"train_cli, one epoch of {n} steps: steady over steps 2..{n} "
+              f"{steady:.1f} img/s, whole epoch "
+              f"{long_run[0]['img_per_s']:.1f} img/s; in-memory batches "
+              f"(train phase, 2-step readings) {train['img_per_s']:.1f} "
+              f"img/s; device idle share at the steady rate {idle} "
+              f"(estimated: 1 - the train phase's device time a step, "
+              f"{train['device_ms']} ms, over the steady step)")
+        print(f"train_cli, profiled epoch 3 ({CLI_NITERS} steps): wall "
+              f"{prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.1f} ms, idle share "
+              f"{prof['idle_share']:.3f} (under the profiler)")
+
+        tag = cfg.tag()
+        ck = {run: CheckpointManager(os.path.join(tmp, run, "logs", tag,
+                                                  "checkpoint"))
+              for run in ("A", "B", "C")}
+        check(ck["A"].all_epochs() == [2, 3] and ck["B"].all_epochs() == [3],
+              "checkpoints at the cadence: the last epoch of each run")
+        pa, pb, pc = (ck[r].load(3) for r in ("A", "B", "C"))
+        check(pa["iteration"] == pb["iteration"] == 3 * CLI_NITERS
+              and pa["epoch"] == pb["epoch"] == 3, "resumed epoch and step")
+        check(pa["optimizer"]["param_groups"]
+              == pb["optimizer"]["param_groups"], "optimizer lr and groups")
+        check(all(torch.equal(pa["optimizer"]["state"][i]["step"],
+                              pb["optimizer"]["state"][i]["step"])
+                  for i in pb["optimizer"]["state"]), "AdamW step counters")
+        check(all(torch.equal(pa["model"][k], pb["model"][k])
+                  for k in pb["model"] if k.endswith("num_batches_tracked")),
+              "BatchNorm batch counters")
+        ga, gb, gc = (_state_groups(p) for p in (pa, pb, pc))
+        resume = {}
+        for name in gb:
+            norm = float(gb[name].norm())
+            d_ab = float((ga[name] - gb[name]).norm()) / norm
+            d_cb = float((gc[name] - gb[name]).norm()) / norm
+            resume[name] = {"resumed": d_ab, "two_runs": d_cb,
+                            "bit_equal": bool(torch.equal(ga[name], gb[name]))}
+            print(f"  resume {name}: rel L2 from an uninterrupted run "
+                  f"{d_ab:.3e}, between two uninterrupted runs {d_cb:.3e} "
+                  f"(bound {RESUME_FACTOR:g}x + {RESUME_FLOOR:g}); bit-equal "
+                  f"{resume[name]['bit_equal']}")
+            check(d_ab <= RESUME_FACTOR * d_cb + RESUME_FLOOR,
+                  f"resume {name}: {d_ab} vs {d_cb}")
+        out["resume"] = resume
+        del pb, pc, gb, gc
+
+        # eval_cli -e last against SegEvaluator.evaluate on the same weights
+        with contextlib.chdir(os.path.join(tmp, "A")):
+            res = counted("eval_cli -e last", eval_cli.main,
+                          ["--config", "mfnet", "--dataset_root", data,
+                           "-e", "last", "-p", "eval_out"],
+                          CLI_VAL // bs, 0)
+            names = counted("predict_cli -e last", predict_cli.main,
+                            ["--config", "mfnet", "--dataset_root", data,
+                             "-e", "last", "-p", "pred_out"], CLI_VAL // bs, 0)
+        check(list(res) == ["epoch 3"], "eval_cli evaluated epoch 3")
+        scores, hist = res["epoch 3"]
+        model = build_model(cfg, seed=None)
+        model.load_state_dict(pa["model"], strict=True)
+        del pa, ga
+        ev = SegEvaluator(cfg, model)
+        ref, _ = ev.evaluate(RGBXDataset(cfg.dataset, "val", root=data),
+                             eval_batch=8)
+        check(np.array_equal(hist, ev.last_hist) and hist.sum() > 0,
+              "eval_cli's confusion matrix is evaluate()'s")
+        print(f"eval_cli -e last: mIoU {scores.mean_iou:.4f}, pixel acc "
+              f"{scores.pixel_acc:.4f}, confusion matrix equal to evaluate() "
+              f"in-process ({int(hist.sum())} pixels)")
+        same = 0
+        for name in names:
+            a = np.asarray(Image.open(os.path.join(tmp, "A", "pred_out",
+                                                   name + ".png")))
+            b = np.asarray(Image.open(os.path.join(tmp, "A", "eval_out",
+                                                   name + ".png")))
+            check(a.shape == HW, f"predict PNG {name} shape")
+            same += int(np.array_equal(a, b))
+        check(same == len(names) == CLI_VAL,
+              f"predict_cli PNGs equal the eval's argmax ({same} of "
+              f"{len(names)})")
+        print(f"predict_cli -e last: {len(names)} PNGs, all equal to the "
+              "eval's argmax maps")
+        out["eval"] = {"mean_iou": scores.mean_iou,
+                       "pixel_acc": scores.pixel_acc}
+        del model, ev
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1728,6 +2108,7 @@ def main() -> int:
                            flash_calls=PP_FLASH_CALLS,
                            grad_names=PP_GRAD_NAMES, fp32_batch=PP_FP32_BATCH,
                            vs_truth=True)
+    cli = cli_phase(S, cfg_lib, train)
     print(card)
 
     def kernel_entry(name, replaces, launches, err, rows, calls, source=None):
@@ -1775,11 +2156,12 @@ def main() -> int:
     entries = [
         ("sr_attention_fwd", "sr_attention.py:104",
          mit_eval["launches"] + train["fwd_launches"] + pp_eval["launches"]
-         + pp_train["fwd_launches"], fwd_err, fwd_rows, CALLS_PER_FORWARD,
-         None),
+         + pp_train["fwd_launches"] + cli["launches"]["fwd"], fwd_err,
+         fwd_rows, CALLS_PER_FORWARD, None),
         ("sr_attention_bwd", "sr_attention.py:123",
-         train["bwd_launches"] + pp_train["bwd_launches"], bwd_err, bwd_rows,
-         CALLS_PER_FORWARD, None),
+         train["bwd_launches"] + pp_train["bwd_launches"]
+         + cli["launches"]["bwd"], bwd_err, bwd_rows, CALLS_PER_FORWARD,
+         None),
         ("window_attention_fwd", "window_attention.py:179",
          swin_eval["launches"] + swin_train["fwd_launches"], wfwd_err,
          wfwd_rows, SWIN_CALLS, None),
@@ -1797,7 +2179,8 @@ def main() -> int:
         for name, replaces, launches, err, rows, calls, source in entries],
         "eval_launches": mit_eval["launches"], "mit_eval": mit_eval,
         "train": train, "swin_eval": swin_eval, "swin_train": swin_train,
-        "pp_eval": pp_eval, "pp_train": pp_train, "card": card}))
+        "pp_eval": pp_eval, "pp_train": pp_train, "cli": cli,
+        "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,11 +2,12 @@
 rgbx_semantic_segmentation_tpu for NVIDIA Hopper GPUs.
 
 The JAX package beside it is the reference. This package mirrors its module
-structure and names, imports its jax-free host code (config dataclasses,
-data/cv_ops, dataset, logger) instead of copying it, and never imports jax.
-The short-kv SR-attention forward runs as a hand-written CUDA kernel
-(csrc/sr_attention_fwd.cu); all other math is plain PyTorch.
+structure and names, keeps its own copies of the host-side code it needs
+(config, data pipeline, logger, visualize, the C++ image ops) and never
+imports jax or the JAX package. The attentions run as hand-written CUDA
+kernels (csrc/); all other math is plain PyTorch.
 
-First slice: whole-image inference of the CMX MiT + MLPDecoder models
-(models/builder.py, evaluator.py, eval_cli.py).
+Entry points: models/builder.build_model, evaluator.SegEvaluator,
+train.Trainer, engine.Engine, and the CLIs train_cli, eval_cli and
+predict_cli (python -m rgbx_semantic_segmentation_tpu_torch.<cli>).
 """

@@ -8,11 +8,19 @@ the host exactly as the JAX evaluator does, stacked into batches of
 argmax'd on the device; the confusion matrix is accumulated on the device
 too (metrics.hist_info). Images larger than the crop (the sliding grid),
 multi-scale and flip raise NotImplementedError (ROADMAP M6).
+
+The output side: palettised and raw prediction PNGs (`save_path`),
+[image | prediction | gt] composites (`show_image_dir`), the running
+metric per image (`verbose`), sweeps over weights (`evaluate_weights`, which
+eval_cli runs; `evaluate_checkpoints` over saved epochs) and the `-e` epoch
+specs (`parse_epoch_spec`).
 """
 from __future__ import annotations
 
+import functools
+import os
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,27 +106,58 @@ class SegEvaluator:
 
     # ----------------------------------------------------------------- run --
 
-    def evaluate(self, dataset, logger=None, eval_batch: int = 1
+    def evaluate(self, dataset, logger=None, eval_batch: int = 1,
+                 save_path: Optional[str] = None,
+                 show_image_dir: Optional[str] = None, verbose: bool = False
                  ) -> Tuple[metrics_lib.Scores, str]:
         """Evaluate a dataset (a sequence of {rgb, modal_x, label, fn}
-        dicts); returns (scores, formatted result line)."""
+        dicts); returns (scores, formatted result line) and keeps the
+        confusion matrix in `last_hist` (reference eval.py:23-83).
+
+        save_path: raw and palettised prediction PNGs there (and in
+        `<save_path>_color`); show_image_dir: [image | prediction | gt]
+        composites there (the reference's interactive `-s` view as files);
+        verbose: log the running mIoU after every image (reference -v)."""
         n_cl = self.num_classes
         hist = torch.zeros((n_cl, n_cl), dtype=torch.long, device=self.device)
         labeled = torch.zeros((), dtype=torch.long, device=self.device)
         correct = torch.zeros((), dtype=torch.long, device=self.device)
         t0 = time.time()
-        done = 0
+        n = len(dataset)
+        done = last_log = 0
 
         def account(preds: torch.Tensor, items: List[dict]):
-            nonlocal hist, labeled, correct, done
-            gt = torch.from_numpy(np.stack([np.asarray(it["label"])
-                                            for it in items]))
-            h, l, c = metrics_lib.hist_info(n_cl, preds,
-                                            gt.to(self.device, non_blocking=True))
-            hist += h
-            labeled += l
-            correct += c
-            done += len(items)
+            nonlocal hist, labeled, correct, done, last_log
+            # verbose: one image at a time, for the running metric
+            groups = ([(preds[b:b + 1], items[b:b + 1])
+                       for b in range(len(items))] if verbose
+                      else [(preds, items)])
+            for p, its in groups:
+                gt = torch.from_numpy(np.stack([np.asarray(it["label"])
+                                                for it in its]))
+                h, l, c = metrics_lib.hist_info(
+                    n_cl, p, gt.to(self.device, non_blocking=True))
+                hist += h
+                labeled += l
+                correct += c
+                done += len(its)
+                if verbose and logger is not None:
+                    s = metrics_lib.compute_score(hist.cpu().numpy(),
+                                                  correct.item(),
+                                                  labeled.item())
+                    logger.info("  %s: running mIoU %.4f acc %.4f",
+                                its[0].get("fn", done), s.mean_iou,
+                                s.pixel_acc)
+            if save_path is not None or show_image_dir is not None:
+                for pred, item in zip(preds.cpu().numpy(), items):
+                    if save_path is not None:
+                        self._save_prediction(pred, item["fn"], save_path)
+                    if show_image_dir is not None:
+                        self._save_composite(pred, item, show_image_dir)
+            if logger is not None and done - last_log >= 25:
+                last_log = done
+                logger.info("eval %d/%d (%.2f img/s)", done, n,
+                            done / max(time.time() - t0, 1e-9))
 
         buf: List[dict] = []
 
@@ -128,7 +167,7 @@ class SegEvaluator:
                 account(self._batched_whole_image(buf), buf)
                 buf = []
 
-        for i in range(len(dataset)):
+        for i in range(n):
             item = dataset[i]
             if eval_batch > 1 and self._one_shot(item):
                 if buf and buf[0]["rgb"].shape != item["rgb"].shape:
@@ -142,8 +181,116 @@ class SegEvaluator:
                 account(pred[None], [item])
         flush()
         if logger is not None:
-            logger.info("eval %d/%d done (%.2f img/s)", done, len(dataset),
+            logger.info("eval %d/%d done (%.2f img/s)", done, n,
                         done / max(time.time() - t0, 1e-9))
-        scores = metrics_lib.compute_score(hist.cpu().numpy(), correct.item(),
+        self.last_hist = hist.cpu().numpy()
+        scores = metrics_lib.compute_score(self.last_hist, correct.item(),
                                            labeled.item())
         return scores, metrics_lib.print_iou(scores, self.class_names)
+
+    # -------------------------------------------------------------- output --
+
+    def _save_composite(self, pred: np.ndarray, item: dict, out_dir: str):
+        """[raw image | prediction | gt] composite (the reference's
+        `-s/--show_image` cv2.imshow view, eval.py:57-65, saved to disk)."""
+        from PIL import Image
+
+        from rgbx_semantic_segmentation_tpu_torch import visualize
+        from rgbx_semantic_segmentation_tpu_torch.data.dataset import (
+            RGBXDataset)
+
+        colors = RGBXDataset.get_class_colors(self.cfg.dataset.dataset_name)
+        # Photo to RGB order for the PIL save: the pipeline's images are BGR
+        # (reference cv2 convention) while get_class_colors triples are RGB.
+        rgb_view = np.asarray(item["rgb"])[:, :, ::-1]
+        comp = visualize.show_img(colors, self.cfg.dataset.background,
+                                  rgb_view, None, np.asarray(item["label"]),
+                                  pred)
+        os.makedirs(out_dir, exist_ok=True)
+        Image.fromarray(comp.astype(np.uint8)).save(
+            os.path.join(out_dir, str(item["fn"]) + ".png"))
+
+    def _save_prediction(self, pred: np.ndarray, name: str, save_path: str):
+        """Palettised + raw PNG dumps (reference eval.py:38-55)."""
+        from PIL import Image
+
+        from rgbx_semantic_segmentation_tpu_torch.data.dataset import (
+            RGBXDataset)
+
+        os.makedirs(save_path, exist_ok=True)
+        os.makedirs(save_path + "_color", exist_ok=True)
+        result = Image.fromarray(pred.astype(np.uint8), mode="P")
+        colors = RGBXDataset.get_class_colors(self.cfg.dataset.dataset_name)
+        palette = list(np.array(colors).flat)
+        palette += [0] * (768 - len(palette))
+        result.putpalette(palette)
+        result.save(os.path.join(save_path + "_color", name + ".png"))
+        Image.fromarray(pred.astype(np.uint8)).save(
+            os.path.join(save_path, name + ".png"))
+
+
+def evaluate_weights(cfg: Config, dataset, targets, val_log: Optional[str] = None,
+                     logger=None, device=None, **eval_kw
+                     ) -> Dict[str, Tuple[metrics_lib.Scores, np.ndarray]]:
+    """The sweep (reference evaluator.py:42-98): one model on `device`; for
+    each (label, load) of `targets` load(model) puts the weights in (a None
+    load: the seed-0 init), the dataset is evaluated with `eval_kw`
+    (SegEvaluator.evaluate's eval_batch, save_path, show_image_dir,
+    verbose), and the table is printed and appended to `val_log`. Returns
+    {label: (scores, confusion matrix)}."""
+    from rgbx_semantic_segmentation_tpu_torch.models.builder import build_model
+
+    device = resolve_device(device)
+    results = {}
+    if not targets:
+        return results
+    model = build_model(cfg, device=device,
+                        seed=0 if targets[0][1] is None else None)
+    evaluator = SegEvaluator(cfg, model, device=device)
+    for label, load in targets:
+        if load is not None:
+            load(model)
+        scores, line = evaluator.evaluate(dataset, logger=logger, **eval_kw)
+        results[label] = (scores, evaluator.last_hist)
+        text = f"======= {label} =======\n{line}"
+        print(text)
+        if val_log:
+            os.makedirs(os.path.dirname(os.path.abspath(val_log)),
+                        exist_ok=True)
+            with open(val_log, "a") as f:
+                f.write(text + "\n")
+    return results
+
+
+def evaluate_checkpoints(cfg: Config, dataset, epochs: Sequence[int],
+                         checkpoint_dir: str, val_log: Optional[str] = None,
+                         logger=None, device=None, **eval_kw
+                         ) -> Dict[int, metrics_lib.Scores]:
+    """Epoch-range checkpoint sweep: evaluate_weights over the saved epochs
+    of `checkpoint_dir`; returns {epoch: scores}."""
+    from rgbx_semantic_segmentation_tpu_torch.checkpoint import (
+        CheckpointManager)
+
+    mgr = CheckpointManager(checkpoint_dir)
+    results = evaluate_weights(
+        cfg, dataset, [(f"epoch {e}", functools.partial(mgr.load_model, e))
+                       for e in epochs],
+        val_log=val_log, logger=logger, device=device, **eval_kw)
+    return {e: results[f"epoch {e}"][0] for e in epochs}
+
+
+def parse_epoch_spec(spec: str, available: Sequence[int]) -> List[int]:
+    """'300' | '250-400' | '250-' | 'last' -> epoch list
+    (reference evaluator.py:42-81 link/range logic)."""
+    available = sorted(available)
+    if not available:
+        return []
+    if spec in ("last", ""):
+        return [available[-1]]
+    if "-" in spec:
+        lo, _, hi = spec.partition("-")
+        lo = int(lo)
+        hi = int(hi) if hi else available[-1]
+        return [e for e in available if lo <= e <= hi]
+    e = int(spec)
+    return [e] if e in available else []

@@ -1,8 +1,12 @@
 """The port's own copies of the host-side modules against the JAX package's:
 `config` field by field (so the copies cannot drift unnoticed), the numpy
-`cv_ops` functions, `RGBXDataset` and the device default of the entry
-points."""
+`cv_ops` functions, `RGBXDataset`, the public names of the copied runtime
+modules (their behaviour: tests/test_torch_data.py, test_torch_runtime.py)
+and the device default of the entry points."""
 import dataclasses
+import importlib
+import inspect
+import types
 
 import numpy as np
 import pytest
@@ -112,6 +116,32 @@ def test_dataset_matches(tmp_path):
             == jdataset.RGBXDataset.get_class_colors())
 
 
+# The JAX names a port module leaves out, and why.
+_NOT_COPIED = {
+    "engine": {"default_parser"},   # unused by the CLIs of either package
+    # flax layout code: the port's loaders work in torch key space
+    "convert": {"merge_variables", "missing_leaves", "torch_key_to_path",
+                "torch_to_flax_variables"},
+}
+
+
+@pytest.mark.parametrize("name", [
+    "data.cv_ops", "data.transforms", "data.preprocess", "data.loader",
+    "data.synthetic", "utils.fs", "metrics_writer", "visualize", "checkpoint",
+    "engine", "convert", "evaluator"])
+def test_copied_modules_have_the_jax_names(name):
+    """Every public function and class the JAX module defines is in the
+    port's module of the same name (signatures may add a device)."""
+    j = importlib.import_module("rgbx_semantic_segmentation_tpu." + name)
+    t = importlib.import_module("rgbx_semantic_segmentation_tpu_torch." + name)
+    defined = {n for n, v in vars(j).items() if not n.startswith("_")
+               and (inspect.isfunction(v) or inspect.isclass(v))
+               and v.__module__ == j.__name__}
+    assert defined, name
+    missing = defined - set(vars(t)) - _NOT_COPIED.get(name, set())
+    assert not missing, (name, sorted(missing))
+
+
 def _tiny():
     return tconfig.mfnet_config().replace(
         dataset=tconfig.DatasetConfig(image_height=32, image_width=32),
@@ -119,8 +149,9 @@ def _tiny():
                                   use_mixed_precision=False))
 
 
-@pytest.mark.parametrize("entry", ["build_model", "SegEvaluator", "Trainer"])
-def test_entry_points_default_to_the_card(entry):
+@pytest.mark.parametrize("entry", ["build_model", "SegEvaluator", "Trainer",
+                                   "Engine", "evaluate_checkpoints"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
     """device=None means cuda: without a CUDA device it raises; the CPU
     only when asked."""
     if torch.cuda.is_available():
@@ -131,6 +162,16 @@ def test_entry_points_default_to_the_card(entry):
             build_model(cfg)
         elif entry == "SegEvaluator":
             SegEvaluator(cfg, build_model(cfg, device="cpu"))
+        elif entry == "Engine":
+            from rgbx_semantic_segmentation_tpu_torch.engine import Engine
+
+            Engine(cfg.replace(log_dir=str(tmp_path)),
+                   types.SimpleNamespace(devices=""))
+        elif entry == "evaluate_checkpoints":
+            from rgbx_semantic_segmentation_tpu_torch.evaluator import (
+                evaluate_checkpoints)
+
+            evaluate_checkpoints(cfg, [], [1], str(tmp_path))
         else:
             Trainer(cfg)
 

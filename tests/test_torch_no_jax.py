@@ -3,10 +3,12 @@
 interpreter imports it, builds mit_tiny, runs one forward and one train
 step, imports the window-attention op and the Swin encoder and runs a small
 Swin tower forward and backward, builds mit_tinypp (IFRM/IFFM) and runs a
-train step through the flash-attention op, imports the bench tools, with
+train step through the flash-attention op, imports the bench tools, runs
+train_cli -> eval_cli -e last -> predict_cli on a synthetic dataset (the
+threaded loader on the native image ops, checkpoints, the engine), with
 none of them in sys.modules, and a
-static scan of the package sources (the CUDA sources too) and chip_smoke.py
-finds no such import."""
+static scan of the package sources (the CUDA and C++ sources too) and
+chip_smoke.py finds no such import."""
 import os
 import re
 import subprocess
@@ -73,6 +75,27 @@ loss = float(trainer.step(batch)["loss"])
 assert loss == loss, loss
 assert calls == [(2, 1, 1280, 32)] * 2, calls
 assert flash_attention.flash_attention.launches == 0
+import os
+import tempfile
+from rgbx_semantic_segmentation_tpu_torch import (
+    config, eval_cli, predict_cli, train_cli)
+from rgbx_semantic_segmentation_tpu_torch.data import transforms  # noqa: F401
+from rgbx_semantic_segmentation_tpu_torch.data.synthetic import (
+    make_synthetic_dataset)
+with tempfile.TemporaryDirectory() as tmp:
+    ds = make_synthetic_dataset(os.path.join(tmp, "d"), num_train=2,
+                                num_val=1, hw=(32, 32), num_classes=9)
+    small = cfg.replace(dataset=ds, log_dir=os.path.join(tmp, "logs"),
+                        eval=dataclasses.replace(cfg.eval,
+                                                 eval_crop_size=(32, 32)))
+    config.get_config = lambda name: small
+    root = ["--dataset_root", ds.dataset_path, "--device", "cpu"]
+    rec = train_cli.main(root + ["--epochs", "1", "--niters", "1"])
+    assert rec[0]["epoch"] == 1, rec
+    res = eval_cli.main(root + ["-e", "last"])
+    assert list(res) == ["epoch 1"], res
+    assert predict_cli.main(root + ["-p", os.path.join(tmp, "p")]) == [
+        "val_0000"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "rgbx_semantic_segmentation_tpu"))
@@ -99,7 +122,7 @@ def test_no_jax_import_in_sources():
     sources = [os.path.join(os.path.dirname(root), "chip_smoke.py")]
     for dirpath, _, files in os.walk(root):
         sources += [os.path.join(dirpath, n) for n in files
-                    if n.endswith((".py", ".cu", ".cuh"))]
+                    if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
     for path in sources:
         with open(path) as f:
             hits = pattern.findall(f.read())
@@ -110,5 +133,9 @@ def test_no_jax_import_in_sources():
             "csrc/attention_common.cuh", "ops/flash_attention.py",
             "tools/bench_flash_attention.py", "csrc/flash_attention_fwd.cu",
             "csrc/flash_attention_bwd.cu",
-            "csrc/flash_attention_common.cuh"} <= names
+            "csrc/flash_attention_common.cuh", "native/cv_ops.cpp",
+            "native/cv_ops.py", "data/loader.py", "data/preprocess.py",
+            "data/transforms.py", "data/synthetic.py", "checkpoint.py",
+            "engine.py", "train_cli.py", "eval_cli.py", "predict_cli.py",
+            "metrics_writer.py", "visualize.py", "utils/fs.py"} <= names
     assert len(sources) >= 10
