@@ -17,7 +17,8 @@ and the card's bound for the same work. Then it drives the port's paths
 through the entry points a user would call, at the full width and depth of
 the MFNet preset (480x640, batch 8, bf16, seeded random weights, synthetic
 pairs made in memory), with the preset's CMX mit_b2 + MLPDecoder, with
-backbone swin_s and with backbone mit_b2pp (IFRM/IFFM):
+backbone swin_s and with backbone mit_b2pp (IFRM/IFFM), then the pst900
+and nyu presets:
 
   * whole-image evaluation (SegEvaluator.evaluate), counting the forward
     kernel's launches, and holding the model's logits on the kernel path
@@ -46,7 +47,22 @@ backbone swin_s and with backbone mit_b2pp (IFRM/IFFM):
     from it), eval_cli -e last (its confusion matrix equal to evaluate()'s on
     the same weights) and predict_cli -e last (its PNGs equal to the
     eval's argmax), counting the forward and backward kernels' launches
-    over the CLI calls.
+    over the CLI calls;
+  * the pst900 preset (mit_b2_w_aspp: an ASPP on each stage's fused map;
+    UPernet with the aux FCNHead, whose loss weighs 0.4; 5 classes) at full
+    width and depth: the same eval and train checks as the mit_b2 preset
+    (its named gradients include the ASPP, the UPerHead and the aux head;
+    both paths draw the same ASPP dropout masks from the step's generator),
+    and the decode and aux heads' device time against the forward's;
+  * the nyu preset's protocol with flip (scales 0.75, 1, 1.25, the sliding
+    grid; mit_b2 + MLPDecoder, 40 classes, 3-channel X) on 480x640 and
+    720x960 items: evaluate(eval_batch=8)'s maps equal per-image
+    sliding_eval_rgbx's, K1's launches equal 32 x the forwards the grid
+    predicts, argmax agreement of the kernel and the plain attention path;
+    eval_cli --compat-stride-swap against an in-process evaluator;
+  * train_cli --config pst900 for one short epoch on a synthetic 5-class
+    PNG dataset, then eval_cli -e last (its confusion matrix equal to
+    evaluate()'s).
 
 Any failed check raises and the exit code is non-zero. Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -150,6 +166,24 @@ GRAD_NAMES = ["backbone.patch_embed1.proj.weight",
               "backbone.block4.2.mlp.fc2.weight",
               "decode_head.linear_c1.proj.weight",
               "decode_head.linear_pred.weight"]
+# pst900 (mit_b2_w_aspp + UPernet + the aux FCNHead): gradients of the
+# towers, the per-stage ASPPs, the UPerHead and the aux head. At seeded
+# weights its bf16 step is ill-conditioned: the bf16 plain path itself lies
+# 0.10-0.18 (relative L2) from the fp32 plain path on the towers' and the
+# aux head's gradients (read on the H100, PERF.md section 6), so two bf16
+# paths cannot be held to BF16_GRAD_RTOL of each other; its bf16 kernel
+# path is held to the fp32 plain path as mit_b2pp's is (PP_TRUTH_FACTOR).
+# fp32 keeps the mit_b2 bounds.
+PST_GRAD_NAMES = ["backbone.patch_embed1.proj.weight",
+                  "backbone.block1.0.attn.q.weight",
+                  "backbone.block4.2.mlp.fc2.weight",
+                  "backbone.aspp_modules.0.b1.block.0.weight",
+                  "backbone.aspp_modules.3.project.0.weight",
+                  "decode_head.psp_modules.3.1.weight",
+                  "decode_head.fpn_bottleneck.0.weight",
+                  "decode_head.conv_seg.weight",
+                  "aux_head.conv.0.weight",
+                  "aux_head.classifier.weight"]
 BF16_LOSS_RTOL, BF16_GRAD_RTOL = 5e-3, 0.15
 FP32_LOSS_RTOL, FP32_GRAD_RTOL = 1e-5, 1e-3
 # bf16 logits, tensor-core kernel path vs plain path: bf16 ulps at the
@@ -875,9 +909,10 @@ def flash_kernel_phase(FA, T5):
     return worst, rows
 
 
-def synthetic_items(n, hw, num_classes, seed=0):
+def synthetic_items(n, hw, num_classes, seed=0, x_channels=1):
     """MFNet-shaped uint8 pairs with structured labels, made in memory
-    (class bands, thermal tracking the label, 2% ignore pixels)."""
+    (class bands, thermal tracking the label, 2% ignore pixels); with
+    x_channels=3 the modal image has three channels (an HHA-like X)."""
     rng = np.random.RandomState(seed)
     h, w = hw
     band = h // num_classes
@@ -893,6 +928,8 @@ def synthetic_items(n, hw, num_classes, seed=0):
                           + rng.randint(-15, 15, (h, w)), 0, 255).astype(np.uint8)
         label = label.copy()
         label[rng.rand(h, w) < 0.02] = 255
+        if x_channels == 3:
+            thermal = np.stack([thermal, 255 - thermal, thermal // 2], axis=-1)
         items.append({"rgb": rgb, "modal_x": thermal, "label": label,
                       "fn": f"smoke_{i:04d}"})
     return items
@@ -1027,10 +1064,11 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
              for it in items[:EVAL_BATCH]]
     rgb_t = torch.from_numpy(np.stack([p[0] for p in pairs])).cuda()
     mx_t = torch.from_numpy(np.stack([p[1] for p in pairs])).cuda()
+    logits_of = builder.main_logits   # the logits of an (logits, aux) pair
     with torch.no_grad():
-        logits = model(rgb_t, mx_t)
+        logits = logits_of(model(rgb_t, mx_t))
         with dual_segformer.plain_attention(model):
-            plain_bf16 = model(rgb_t, mx_t)
+            plain_bf16 = logits_of(model(rgb_t, mx_t))
     check(logits.shape == (EVAL_BATCH, *HW, cfg.dataset.num_classes)
           and logits.dtype == torch.bfloat16, f"logits {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "bf16 logits are finite")
@@ -1064,6 +1102,7 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
           f"({EVAL_BATCH * 1e3 / plain_fwd_ms:.2f} img/s)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"peak device memory {peak:.2f} GiB (eval and both forward paths)")
+    heads = head_share(model, rgb_t, mx_t) if model.aux_head is not None else {}
     if flash_calls:
         in_model = flash_in_model_phase(FA, model, rgb_t, mx_t)
         print(f"{tag}: K5 on the model's activations and cotangents, "
@@ -1087,9 +1126,9 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
     model32 = builder.build_model(cfg32, seed=0)
     rgb_t, mx_t = rgb_t[:fp32_batch], mx_t[:fp32_batch]
     with torch.no_grad():
-        k32 = model32(rgb_t, mx_t)
+        k32 = logits_of(model32(rgb_t, mx_t))
         with dual_segformer.plain_attention(model32):
-            p32 = model32(rgb_t, mx_t)
+            p32 = logits_of(model32(rgb_t, mx_t))
     err = float((k32 - p32).abs().max())
     agree = float((k32.argmax(-1) == p32.argmax(-1)).float().mean())
     # Both paths fp32 with TF32 off; only summation order differs (~1e-6
@@ -1132,7 +1171,83 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
     torch.cuda.empty_cache()
     return {"launches": launches, "flash_launches": flash_launches,
             "img_per_s": N_IMAGES / dt, "forward_ms": float(fwd_ms),
-            "plain_forward_ms": float(plain_fwd_ms), "peak_gib": peak}
+            "plain_forward_ms": float(plain_fwd_ms), "peak_gib": peak,
+            **heads}
+
+
+def device_ms(fn, floor_ms=0.0, reps=3, tries=3):
+    """Device time of one call of `fn` (torch.profiler, kernels and
+    copies), over `reps` calls after one untimed. A reading at or below
+    `floor_ms` (the work's bound: the profiler lost kernel events) is
+    retaken; None after `tries` such readings."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+        if total / (reps * 1e3) > floor_ms:
+            return total / (reps * 1e3)
+    return None
+
+
+def conv_flops(module, *args):
+    """Operations (2 per multiply-add) of the Conv2d layers of one call of
+    `module`, from the output shapes its convs give."""
+    import torch
+
+    flops, handles = [0], []
+
+    def hook(m, _args, out):
+        kh, kw = m.kernel_size
+        flops[0] += (2 * kh * kw * m.in_channels // m.groups * out.numel())
+
+    for m in module.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            handles.append(m.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            module(*args)
+    finally:
+        for h in handles:
+            h.remove()
+    return flops[0]
+
+
+def head_share(model, rgb_t, mx_t):
+    """Device time of the eval forward, of its decode head and of its aux
+    head (each run alone on the backbone's features), with the heads' conv
+    operations: the UPerHead's share of the forward."""
+    import torch
+
+    x, e = rgb_t.permute(0, 3, 1, 2), mx_t.permute(0, 3, 1, 2)
+    bound_ms = lambda ops: ops / PEAK_BF16_FLOPS * 1e3
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        feats = model.backbone(x, e)
+        head_ops = conv_flops(model.decode_head, feats)
+        aux_ops = conv_flops(model.aux_head, feats)
+        whole = device_ms(lambda: model(rgb_t, mx_t), bound_ms(head_ops))
+        head = device_ms(lambda: model.decode_head(feats), bound_ms(head_ops))
+        aux = device_ms(lambda: model.aux_head(feats), bound_ms(aux_ops))
+    ok = None not in (whole, head, aux)
+    print(f"{model.cfg.model.decoder} eval forward, batch {x.shape[0]}, device "
+          f"time (torch.profiler): whole {whole} ms, decode head alone {head} "
+          f"ms ({head_ops / 1e12:.3f} TFLOP of convs"
+          + (f", {100 * head / whole:.1f}% of the forward, "
+             f"{head_ops / head / 1e9:.0f} TFLOP/s" if ok else "")
+          + f"), aux head alone {aux} ms ({aux_ops / 1e12:.4f} TFLOP"
+          + (f", {100 * aux / whole:.1f}%" if ok else "") + ")")
+    return {"forward_device_ms": whole, "head_device_ms": head,
+            "aux_device_ms": aux, "head_tflop": head_ops / 1e12,
+            "aux_tflop": aux_ops / 1e12}
 
 
 def uint8_batches(items, batch):
@@ -2011,6 +2126,224 @@ def cli_phase(S, cfg_lib, train):
     return out
 
 
+# The nyu protocol (scales 0.75, 1, 1.25 at the crop 480x640, stride 2/3)
+# with flip, on (size, count) items with a 3-channel X: 480x640 (one-shot at
+# 0.75 and 1, the 2x2 grid at 1.25) and 720x960 (a grid at every scale:
+# 2x2, 2x2, 3x3). Kernel path vs plain attention path: argmax agreement.
+PROTO_ITEMS = (((480, 640), 3), ((720, 960), 2))
+PROTO_AGREE = 0.99
+# pst900 through the CLIs: train and val PNG triples, steps of the epoch.
+PST_CLI_TRAIN, PST_CLI_VAL, PST_CLI_NITERS = 16, 8, 3
+
+
+def forwards_of(evaluator_lib, ev, hw):
+    """Windows of each scale's forward for a raw image of size `hw` under
+    evaluator `ev` (1 where the scaled image fits the crop on one side)."""
+    ch, cw = ev.crop
+    out = []
+    for s in ev.scales:
+        h, w = round(hw[0] * s), round(hw[1] * s)
+        out.append(1 if h <= ch or w <= cw else len(evaluator_lib._window_grid(
+            h, w, ev.crop, ev.stride_rate)))
+    return out
+
+
+def write_nyu_dataset(root, items):
+    """`items` on disk in the nyu preset's layout: RGB/*.jpg, HHA/*.jpg,
+    Label/*.png (class + 1: the preset's gt_transform subtracts 1, 0
+    becoming the ignore label), test.txt."""
+    from PIL import Image
+
+    for sub in ("RGB", "HHA", "Label"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for it in items:
+        # the pipeline's images are BGR (cv2 order): back to RGB for PIL
+        Image.fromarray(it["rgb"][:, :, ::-1]).save(
+            os.path.join(root, "RGB", it["fn"] + ".jpg"), quality=95)
+        Image.fromarray(it["modal_x"][:, :, ::-1]).save(
+            os.path.join(root, "HHA", it["fn"] + ".jpg"), quality=95)
+        label = np.where(it["label"] == 255, 0, it["label"] + 1)
+        Image.fromarray(label.astype(np.uint8)).save(
+            os.path.join(root, "Label", it["fn"] + ".png"))
+    with open(os.path.join(root, "test.txt"), "w") as f:
+        f.write("\n".join(it["fn"] for it in items) + "\n")
+
+
+def protocol_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer):
+    """The nyu preset's protocol with flip (multi-scale, the sliding grid,
+    the flipped forward) on the card: evaluate(eval_batch=8) against
+    per-image sliding_eval_rgbx (equal maps), K1's launches against the
+    forwards the grid predicts, the kernel path against the plain attention
+    path (argmax agreement); then eval_cli --compat-stride-swap on the same
+    items written in the preset's layout, against an in-process evaluator
+    with the flag."""
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from rgbx_semantic_segmentation_tpu_torch import eval_cli
+    from rgbx_semantic_segmentation_tpu_torch.data.dataset import RGBXDataset
+
+    preset = cfg_lib.nyu_config()
+    cfg = preset.replace(eval=dataclasses.replace(preset.eval, eval_flip=True))
+    check(cfg.model.backbone == "mit_b2"
+          and tuple(cfg.eval.eval_scale_array) == (0.75, 1.0, 1.25)
+          and tuple(cfg.eval.eval_crop_size) == HW
+          and not cfg.dataset.x_is_single_channel, "the nyu preset's protocol")
+    nc = cfg.dataset.num_classes
+    items = []
+    for i, (hw, n) in enumerate(PROTO_ITEMS):
+        items += synthetic_items(n, hw, nc, seed=10 + i, x_channels=3)
+    for j, it in enumerate(items):
+        it["fn"] = f"proto_{j:02d}"
+    model = builder.build_model(cfg, seed=0)
+    ev = evaluator_lib.SegEvaluator(cfg, model)
+    windows = [forwards_of(evaluator_lib, ev, it["rgb"].shape[:2])
+               for it in items]
+    forwards = sum(len(w) for w in windows) * (2 if ev.flip else 1)
+    ev.sliding_eval_rgbx(items[0]["rgb"], items[0]["modal_x"])   # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        S.sr_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores, _ = ev.evaluate(items, eval_batch=EVAL_BATCH, save_path=tmp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = S.sr_attention.launches
+        batched = [np.asarray(Image.open(os.path.join(tmp, it["fn"] + ".png")))
+                   for it in items]
+    print(f"nyu protocol (scales {ev.scales}, flip, crop {ev.crop}): "
+          f"{len(items)} images {[tuple(it['rgb'].shape[:2]) for it in items]}"
+          f", windows per scale {windows}; {forwards} forwards, K1 "
+          f"{launches} launches (expected {32 * forwards}); evaluate("
+          f"eval_batch={EVAL_BATCH}) {len(items) / dt:.2f} img/s ({dt:.3f} s,"
+          " host resize and normalisation included)")
+    check(launches == 32 * forwards, f"protocol K1 launches {launches}")
+    check(np.isfinite(scores.pixel_acc), "protocol pixel_acc is finite")
+    agree = total = 0
+    per_size = {}
+    for it, b in zip(items, batched):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = ev.sliding_eval_rgbx(it["rgb"], it["modal_x"]).cpu().numpy()
+        per_size.setdefault(str(p.shape), []).append(
+            time.perf_counter() - t0)
+        check(p.shape == it["rgb"].shape[:2] and np.array_equal(p, b),
+              f"evaluate's map of {it['fn']} equals sliding_eval_rgbx's")
+        with dual_segformer.plain_attention(model):
+            q = ev.sliding_eval_rgbx(it["rgb"], it["modal_x"]).cpu().numpy()
+        agree += int((p == q).sum())
+        total += p.size
+    print(f"nyu protocol: evaluate's maps equal per-image sliding_eval_rgbx's"
+          f" ({len(items)} of {len(items)}); seconds an image by size "
+          f"{ {k: [round(t, 3) for t in v] for k, v in per_size.items()} }; "
+          f"kernel vs plain attention path: argmax agreement "
+          f"{agree / total:.6f} (>= {PROTO_AGREE})")
+    check(agree / total >= PROTO_AGREE, "protocol kernel vs plain argmax")
+    del model, ev
+    torch.cuda.empty_cache()
+
+    # eval_cli --compat-stride-swap: the preset (no flip), seed-0 weights,
+    # on the 720x960 items, against an in-process evaluator with the flag.
+    big = [it for it in items if it["rgb"].shape[:2] != HW]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "nyu")
+        write_nyu_dataset(data, big)
+        S.sr_attention.launches = 0
+        res = eval_cli.main(["--config", "nyu", "--dataset_root", data,
+                             "--compat-stride-swap",
+                             "--val_log", os.path.join(tmp, "val.log")])
+        cli_launches = S.sr_attention.launches
+        ref = evaluator_lib.SegEvaluator(
+            preset, builder.build_model(preset, seed=0),
+            compat_stride_swap=True)
+        ref.evaluate(RGBXDataset(preset.dataset, "val", root=data),
+                     eval_batch=EVAL_BATCH)
+    cli_forwards = 3 * len(big)
+    (_, hist), = res.values()
+    print(f"eval_cli --config nyu --compat-stride-swap: {len(big)} images, "
+          f"K1 {cli_launches} launches (expected {32 * cli_forwards}), "
+          f"confusion matrix equal to the in-process evaluator's: "
+          f"{np.array_equal(hist, ref.last_hist)} ({int(hist.sum())} pixels)")
+    check(cli_launches == 32 * cli_forwards, "eval_cli compat launches")
+    check(np.array_equal(hist, ref.last_hist) and hist.sum() > 0,
+          "eval_cli --compat-stride-swap == in-process")
+    del ref
+    torch.cuda.empty_cache()
+    return {"launches": launches + cli_launches, "forwards": forwards,
+            "windows": windows, "img_per_s": len(items) / dt,
+            "s_per_image": per_size, "argmax_agreement": agree / total}
+
+
+def pst_cli_phase(S, cfg_lib, builder, evaluator_lib):
+    """The pst900 preset through the CLIs: train_cli for one short epoch on
+    a synthetic 5-class PNG dataset, then eval_cli -e last, whose confusion
+    matrix must be evaluate()'s on the checkpoint's weights; K1/K2 launches
+    counted over the CLI calls."""
+    import tempfile
+
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import eval_cli, train_cli
+    from rgbx_semantic_segmentation_tpu_torch.checkpoint import (
+        CheckpointManager)
+    from rgbx_semantic_segmentation_tpu_torch.data.dataset import RGBXDataset
+    from rgbx_semantic_segmentation_tpu_torch.data.synthetic import (
+        make_synthetic_dataset)
+
+    cfg = cfg_lib.pst900_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        make_synthetic_dataset(data, num_train=PST_CLI_TRAIN,
+                               num_val=PST_CLI_VAL, hw=HW,
+                               num_classes=cfg.dataset.num_classes, seed=1)
+        argv = ["--config", "pst900", "--dataset_root", data]
+        with contextlib.chdir(tmp):
+            S.sr_attention.launches = S.sr_attention_bwd.launches = 0
+            t0 = time.perf_counter()
+            rec = train_cli.main(argv + [
+                "--train_source", "train.txt", "--epochs", "1",
+                "--niters", str(PST_CLI_NITERS)])
+            train_s = time.perf_counter() - t0
+            train_launches = (S.sr_attention.launches,
+                              S.sr_attention_bwd.launches)
+            S.sr_attention.launches = 0
+            res = eval_cli.main(argv + ["-e", "last"])
+            eval_launches = S.sr_attention.launches
+        payload = CheckpointManager(os.path.join(
+            tmp, "logs", cfg.tag(), "checkpoint")).load(1)
+        model = builder.build_model(cfg, seed=None)
+        model.load_state_dict(payload["model"], strict=True)
+        ev = evaluator_lib.SegEvaluator(cfg, model)
+        ev.evaluate(RGBXDataset(cfg.dataset, "val", root=data),
+                    eval_batch=EVAL_BATCH)
+    (_, (scores, hist)), = res.items()
+    n_eval = -(-PST_CLI_VAL // EVAL_BATCH)
+    print(f"pst900 CLIs: train_cli 1 epoch of {PST_CLI_NITERS} steps "
+          f"({train_s:.1f} s with the model build; loss {rec[0]['loss']:.4f}, "
+          f"{rec[0]['img_per_s']:.2f} img/s), K1/K2 {train_launches} "
+          f"(expected {32 * PST_CLI_NITERS} each); eval_cli -e last K1 "
+          f"{eval_launches} (expected {32 * n_eval}), mIoU "
+          f"{scores.mean_iou:.4f}; confusion matrix equal to evaluate()'s: "
+          f"{np.array_equal(hist, ev.last_hist)} ({int(hist.sum())} pixels)")
+    check([r["epoch"] for r in rec] == [1] and np.isfinite(rec[0]["loss"]),
+          "pst900 train_cli epoch 1, finite loss")
+    check(all(k in payload["model"] for k in (
+        "backbone.aspp_modules.3.project.0.weight",
+        "decode_head.fpn_bottleneck.0.weight", "aux_head.conv.0.weight")),
+        "the checkpoint holds the ASPP, UPerHead and aux-head tensors")
+    check(train_launches == (32 * PST_CLI_NITERS,) * 2
+          and eval_launches == 32 * n_eval, "pst900 CLI launches")
+    check(np.array_equal(hist, ev.last_hist) and hist.sum() > 0,
+          "pst900 eval_cli's confusion matrix is evaluate()'s")
+    del model, ev, payload
+    torch.cuda.empty_cache()
+    return {"launches": {"fwd": train_launches[0] + eval_launches,
+                         "bwd": train_launches[1]},
+            "train_cli": rec, "mean_iou": scores.mean_iou}
+
+
 def main() -> int:
     import torch
 
@@ -2109,6 +2442,16 @@ def main() -> int:
                            grad_names=PP_GRAD_NAMES, fp32_batch=PP_FP32_BATCH,
                            vs_truth=True)
     cli = cli_phase(S, cfg_lib, train)
+    pst = cfg_lib.pst900_config()
+    check(pst.model.backbone == "mit_b2_w_aspp"
+          and pst.model.decoder == "UPernet", "pst900 preset")
+    pst_items = synthetic_items(N_IMAGES, HW, pst.dataset.num_classes, seed=2)
+    pst_eval = slice_phase(S, FA, pst, builder, evaluator_lib, dual_segformer,
+                           pst_items)
+    pst_train = train_phase(S, FA, pst, train_lib, dual_segformer, pst_items,
+                            grad_names=PST_GRAD_NAMES, vs_truth=True)
+    proto = protocol_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer)
+    pst_cli = pst_cli_phase(S, cfg_lib, builder, evaluator_lib)
     print(card)
 
     def kernel_entry(name, replaces, launches, err, rows, calls, source=None):
@@ -2156,11 +2499,14 @@ def main() -> int:
     entries = [
         ("sr_attention_fwd", "sr_attention.py:104",
          mit_eval["launches"] + train["fwd_launches"] + pp_eval["launches"]
-         + pp_train["fwd_launches"] + cli["launches"]["fwd"], fwd_err,
+         + pp_train["fwd_launches"] + cli["launches"]["fwd"]
+         + pst_eval["launches"] + pst_train["fwd_launches"]
+         + proto["launches"] + pst_cli["launches"]["fwd"], fwd_err,
          fwd_rows, CALLS_PER_FORWARD, None),
         ("sr_attention_bwd", "sr_attention.py:123",
          train["bwd_launches"] + pp_train["bwd_launches"]
-         + cli["launches"]["bwd"], bwd_err, bwd_rows, CALLS_PER_FORWARD,
+         + cli["launches"]["bwd"] + pst_train["bwd_launches"]
+         + pst_cli["launches"]["bwd"], bwd_err, bwd_rows, CALLS_PER_FORWARD,
          None),
         ("window_attention_fwd", "window_attention.py:179",
          swin_eval["launches"] + swin_train["fwd_launches"], wfwd_err,
@@ -2180,7 +2526,8 @@ def main() -> int:
         "eval_launches": mit_eval["launches"], "mit_eval": mit_eval,
         "train": train, "swin_eval": swin_eval, "swin_train": swin_train,
         "pp_eval": pp_eval, "pp_train": pp_train, "cli": cli,
-        "card": card}))
+        "pst_eval": pst_eval, "pst_train": pst_train, "protocol": proto,
+        "pst_cli": pst_cli, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -89,10 +89,11 @@ class ModelConfig:
     # params and no loss scaling when True, fp32 otherwise (see torch_dtype).
     use_mixed_precision: bool = True
     # Hand-written attention kernels (the name is the JAX package's, kept so
-    # configs carry over). Short-kv SR shapes (M <= 1024: every attention in
-    # this model family) go to ops/sr_attention.py: the CUDA kernels keep the
-    # fp32 logits and probs on chip and the backward recomputes the probs.
-    # Long-kv shapes have no kernel yet and raise on the card.
+    # configs carry over). Short-kv SR shapes (M <= 1024) go to
+    # ops/sr_attention.py, long-kv shapes (the IFFM cross-attention) to
+    # ops/flash_attention.py, Swin windows to ops/window_attention.py: the
+    # CUDA kernels keep the fp32 logits and probs on chip and the backward
+    # recomputes the probs (see ops/attention.multi_head_attention).
     use_pallas_kernels: bool = True
     # Activation checkpointing of transformer blocks: not ported yet (the
     # builder raises NotImplementedError when it is set).

@@ -12,7 +12,11 @@ module:
   - LayerNorm/BatchNorm scale       -> weight
   - batch_stats mean / var          -> running_mean / running_var, plus a
                                        zero num_batches_tracked
-  - a path segment `a_b_<digits>`   -> `a_b.<digits>`
+  - a path segment's trailing run of `_<digits>` groups -> `.`-indices
+                                       (`block1_0` -> `block1.0`,
+                                       `psp_modules_0_1` -> `psp_modules.0.1`:
+                                       the inverse of the JAX
+                                       convert.torch_key_to_path)
   - any other leaf (biases, the 0-d IFRM lambdas) as it is
 
 `flax_params_to_torch` applies the same transform to any tree shaped like
@@ -36,12 +40,12 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-_INDEX = re.compile(r"_(\d+)$")
+_INDEX = re.compile(r"(?:_\d+)+$")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _segment(name: str) -> str:
-    return _INDEX.sub(r".\1", name)
+    return _INDEX.sub(lambda m: m.group(0).replace("_", "."), name)
 
 
 def _leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()):

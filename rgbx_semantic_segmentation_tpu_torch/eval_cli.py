@@ -1,5 +1,5 @@
-"""Evaluation entry point of the port (counterpart of the root eval_cli.py,
-whole-image protocol only).
+"""Evaluation entry point of the port (counterpart of the root eval_cli.py):
+the preset's protocol (sliding window, scales, flip; SegEvaluator).
 
 Usage:
     python -m rgbx_semantic_segmentation_tpu_torch.eval_cli --config mfnet \\
@@ -12,17 +12,14 @@ checkpoint of the original repo (erf GELU is then forced, as the original
 trains with it; port checkpoints are named by epoch or directory).
 --weights is a port state dict saved with torch.save(model.state_dict()).
 With neither, the model is initialised from seed 0 (random weights: only the
-path is exercised, the mIoU means nothing). The sliding window,
-multi-scale, flip and the --compat-* options raise NotImplementedError
-(ROADMAP M6).
+path is exercised, the mIoU means nothing). --compat-stride-swap and
+--compat-double-normalize replicate the original repo's sliding grid and
+the original fork's double normalisation.
 """
 from __future__ import annotations
 
 import argparse
 import os
-
-_M6 = "ROADMAP M6 (sliding window, multi-scale, flip)"
-
 
 def main(argv=None):
     """Evaluate; prints each result table and returns {checkpoint label:
@@ -58,14 +55,16 @@ def main(argv=None):
     parser.add_argument("-v", "--verbose", action="store_true",
                         help="log the running metric after every image")
     parser.add_argument("--compat-stride-swap", action="store_true",
-                        help=f"not ported: {_M6}")
+                        help="the original repo's swapped h/w stride and "
+                             "crop-extent indices in the sliding grid (to "
+                             "score its checkpoints under the published "
+                             "protocol; a no-op for square crops)")
     parser.add_argument("--compat-double-normalize", action="store_true",
-                        help=f"not ported: {_M6}")
+                        help="normalise twice, as the original fork's eval "
+                             "did")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.compat_stride_swap or args.compat_double_normalize:
-        raise NotImplementedError(f"--compat-* options: {_M6}")
     if args.epochs and args.weights:
         parser.error("-e and --weights are exclusive")
 
@@ -119,6 +118,8 @@ def main(argv=None):
     return evaluate_weights(
         cfg, ValLoader(cfg, root=args.dataset_root).dataset, targets,
         val_log=val_log, logger=logger, device=device,
+        compat_double_normalize=args.compat_double_normalize,
+        compat_stride_swap=args.compat_stride_swap,
         eval_batch=args.eval_batch, save_path=args.save_path,
         show_image_dir=show_dir, verbose=args.verbose)
 

@@ -2,23 +2,31 @@
 rgbx_semantic_segmentation_tpu/models/builder.py).
 
 Built so far: the MiT family (mit_tiny, mit_b0..b5, with the config's
-FRM/FFM or IFRM/IFFM fusion, and the `mit_*pp` names that hardwire
-IFRM/IFFM) and the dual Swin family (swin_s, swin_b) with FRM/FFM, and the
-MLPDecoder head. Every other backbone or decoder name the JAX registry knows, and the Swin
-knobs `swin_ape` and `swin_frozen_stages`, raise NotImplementedError naming
-their ROADMAP item.
+FRM/FFM or IFRM/IFFM fusion; the `mit_*pp` names that hardwire IFRM/IFFM;
+the `mit_*_w_aspp` and `mit_*_w_ef_aspp` names with a per-stage ASPP or one
+eASPP) and the dual Swin family (swin_s, swin_b) with FRM/FFM; the heads
+MLPDecoder, UPernet and deeplabv3+ (both with the aux FCNHead on feature 2:
+the model then returns (logits, aux), as the JAX EncoderDecoder does in
+train and eval mode) and fcn / None (an FCNHead on feature 3). Every other
+backbone or decoder name the JAX registry knows, and the Swin knobs
+`swin_ape` and `swin_frozen_stages`, raise NotImplementedError naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from rgbx_semantic_segmentation_tpu_torch.config import Config, torch_dtype
 from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
+from rgbx_semantic_segmentation_tpu_torch.models.decoders.deeplabv3plus import (
+    DeepLabV3Plus)
+from rgbx_semantic_segmentation_tpu_torch.models.decoders.fcnhead import FCNHead
 from rgbx_semantic_segmentation_tpu_torch.models.decoders.mlp_decoder import (
     MLPDecoder)
+from rgbx_semantic_segmentation_tpu_torch.models.decoders.upernet import UPerHead
 from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
     dual_segformer, dual_swin)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import init_weights
@@ -31,20 +39,22 @@ MIT_FACTORIES = {
     "mit_b4": dual_segformer.mit_b4, "mit_b5": dual_segformer.mit_b5,
 }
 SWIN_FACTORIES = {"swin_s": dual_swin.swin_s, "swin_b": dual_swin.swin_b}
+# The encoder-side ASPP variants: name suffix -> RGBXTransformer `aspp`.
+ASPP_SUFFIXES = {"_w_aspp": "aspp", "_w_ef_aspp": "easpp"}
 # Names of the JAX registry (models/builder.py BACKBONES / build_decoder)
 # that this port does not build yet, with the ROADMAP item that ports them.
 _LATER_BACKBONES = {
-    "_w_aspp": "M10 item 1 (ASPP variants)",
-    "_w_ef_aspp": "M10 item 1 (ASPP variants)",
     "segnext": "M10 item 6 (SegNeXt)",
     "resnet": "M10 item 7 (ResNet)",
 }
 _LATER_DECODERS = {
-    "UPernet": "M10 item 1", "deeplabv3+": "M10 item 2",
     "MLPDecoderpp": "M10 item 2", "mask2former": "M10 item 3",
-    None: "M10 item 1 (FCNHead)", "None": "M10 item 1 (FCNHead)",
-    "fcn": "M10 item 1 (FCNHead)",
 }
+# Decoders that carry the aux FCNHead on feature AUX_INDEX; its loss
+# weighs AUX_RATE (the JAX builder's constants).
+AUX_DECODERS = {"UPernet", "deeplabv3+"}
+AUX_INDEX = 2
+AUX_RATE = 0.4
 
 
 def is_mit_pp(name: str) -> bool:
@@ -68,7 +78,10 @@ def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
     fusion = ({"frm": "IFRM", "ffm": "IFFM"} if pp else
               {"frm": cfg.model.feature_rectify_module,
                "ffm": cfg.model.feature_fusion_module})
-    base = name[:-2] if pp else name
+    base, aspp = (name[:-2] if pp else name), None
+    for suffix, kind in ASPP_SUFFIXES.items():
+        if name.endswith(suffix) and name[:-len(suffix)] in MIT_FACTORIES:
+            base, aspp = name[:-len(suffix)], kind
     if base not in MIT_FACTORIES:
         for key, item in _LATER_BACKBONES.items():
             if key in name:
@@ -77,7 +90,7 @@ def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
         raise KeyError(f"unknown backbone {name!r}; have "
                        f"{sorted(MIT_FACTORIES) + sorted(SWIN_FACTORIES)}")
     module = MIT_FACTORIES[base](
-        **fusion,
+        **fusion, aspp=aspp,
         drop_path_rate=cfg.model.drop_path_rate,
         use_pallas=cfg.model.use_pallas_kernels,
         gelu_approximate=cfg.model.gelu_approximate,
@@ -104,13 +117,20 @@ def _build_swin(cfg: Config) -> nn.Module:
 
 def build_decoder(cfg: Config, channels: Sequence[int]) -> nn.Module:
     name = cfg.model.decoder
+    num_classes = cfg.dataset.num_classes
+    bn = {"bn_momentum": cfg.model.bn_momentum, "bn_eps": cfg.model.bn_eps}
     if name == "MLPDecoder":
         drop_kw = ({} if cfg.model.decoder_dropout_ratio is None
                    else {"dropout_ratio": cfg.model.decoder_dropout_ratio})
-        return MLPDecoder(channels, cfg.dataset.num_classes,
-                          embed_dim=cfg.model.decoder_embed_dim,
-                          bn_momentum=cfg.model.bn_momentum,
-                          bn_eps=cfg.model.bn_eps, **drop_kw)
+        return MLPDecoder(channels, num_classes,
+                          embed_dim=cfg.model.decoder_embed_dim, **bn,
+                          **drop_kw)
+    if name == "UPernet":
+        return UPerHead(channels, num_classes, channels=512, **bn)
+    if name == "deeplabv3+":
+        return DeepLabV3Plus(channels, num_classes, **bn)
+    if name in (None, "None", "fcn"):
+        return FCNHead(channels[3], num_classes, in_index=3, **bn)
     if name in _LATER_DECODERS:
         raise NotImplementedError(f"decoder {name!r} is not ported yet: "
                                   f"ROADMAP {_LATER_DECODERS[name]}")
@@ -120,7 +140,8 @@ def build_decoder(cfg: Config, channels: Sequence[int]) -> nn.Module:
 class EncoderDecoder(nn.Module):
     """Dual-branch encoder + decode head. forward(rgb, modal_x) takes NHWC
     inputs and returns NHWC logits upsampled to the input resolution, like
-    the JAX EncoderDecoder.__call__.
+    the JAX EncoderDecoder.__call__; (logits, aux logits) when the decoder
+    carries the aux FCNHead (AUX_DECODERS), in train and eval mode alike.
 
     With cfg.model.use_mixed_precision the forward runs under bf16 autocast
     (fp32 params, bf16 compute: the JAX dtype policy)."""
@@ -131,16 +152,31 @@ class EncoderDecoder(nn.Module):
         self.compute_dtype = torch_dtype(cfg.model)
         self.backbone, channels = build_backbone(cfg)
         self.decode_head = build_decoder(cfg, channels)
+        self.aux_head = None
+        if cfg.model.decoder in AUX_DECODERS:
+            self.aux_head = FCNHead(
+                channels[AUX_INDEX], cfg.dataset.num_classes,
+                in_index=AUX_INDEX, channels=256,
+                bn_momentum=cfg.model.bn_momentum, bn_eps=cfg.model.bn_eps)
 
-    def forward(self, rgb: torch.Tensor, modal_x: torch.Tensor) -> torch.Tensor:
+    def forward(self, rgb: torch.Tensor, modal_x: torch.Tensor
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         size = rgb.shape[1:3]
         x = rgb.permute(0, 3, 1, 2)
         e = modal_x.permute(0, 3, 1, 2)
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
-            out = self.decode_head(self.backbone(x, e))
-            logits = resize_bilinear(out, size)
-        return logits.permute(0, 2, 3, 1)
+            feats = self.backbone(x, e)
+            logits = resize_bilinear(self.decode_head(feats), size)
+            if self.aux_head is None:
+                return logits.permute(0, 2, 3, 1)
+            aux = resize_bilinear(self.aux_head(feats), size)
+        return logits.permute(0, 2, 3, 1), aux.permute(0, 2, 3, 1)
+
+
+def main_logits(out) -> torch.Tensor:
+    """The logits of a model output: the first of an (logits, aux) pair."""
+    return out[0] if isinstance(out, tuple) else out
 
 
 def build_model(cfg: Config, device=None, seed: Optional[int] = 0

@@ -3,7 +3,9 @@
 Counterpart of rgbx_semantic_segmentation_tpu/models/encoders/
 dual_segformer.py: two parallel MiT towers (rgb + extra modality), 4 stages of
 OverlapPatchEmbed + spatial-reduction attention Blocks + Mix-FFN, with
-per-stage FRM rectification and FFM fusion. Attribute paths are the original
+per-stage FRM rectification and FFM fusion, and optionally an ASPP on each
+stage's fused map or one eASPP after stage 4 (the `mit_*_w_aspp` /
+`mit_*_w_ef_aspp` names; models/encoders/aspp.py). Attribute paths are the original
 torch repo's (`block1.0.attn.q`, `FRMs.0`, ...), which the JAX names mirror
 with `_` for `.`, so state dicts convert both ways with no key tables.
 
@@ -14,7 +16,7 @@ token order.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from rgbx_semantic_segmentation_tpu_torch.models import fusion
+from rgbx_semantic_segmentation_tpu_torch.models.encoders.aspp import (
+    ASPP, EASPP, STAGE_ASPP_RATES)
 from rgbx_semantic_segmentation_tpu_torch.ops.attention import (
     multi_head_attention)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
@@ -182,6 +186,7 @@ class RGBXTransformer(nn.Module):
                  qkv_bias: bool = False, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  frm: str = "FRM", ffm: str = "FFM",
+                 aspp: Optional[str] = None,
                  use_pallas: bool = False, gelu_approximate: bool = False,
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -216,6 +221,15 @@ class RGBXTransformer(nn.Module):
             ffm_cls(dim=d, reduction=1, num_heads=h, bn_momentum=bn_momentum,
                     bn_eps=bn_eps, **ffm_kw)
             for d, h in zip(embed_dims, num_heads)])
+        # None | "aspp" (an ASPP on each stage's fused map) | "easpp" (one
+        # eASPP after stage 4).
+        if aspp == "aspp":
+            self.aspp_modules = nn.ModuleList([
+                ASPP(d, d, rates, bn_momentum=bn_momentum)
+                for d, rates in zip(embed_dims, STAGE_ASPP_RATES)])
+        elif aspp == "easpp":
+            self.single_aspp = EASPP(embed_dims[3], bn_momentum=bn_momentum)
+        self.aspp = aspp
 
     def forward(self, x_rgb, x_e) -> List[torch.Tensor]:
         outs = []
@@ -231,7 +245,12 @@ class RGBXTransformer(nn.Module):
             x_e = getattr(self, f"extra_norm{n}")(x_e)
             m_rgb, m_e = self.FRMs[s](tokens_to_map(x_rgb, H, W),
                                       tokens_to_map(x_e, H, W))
-            outs.append(self.FFMs[s](m_rgb, m_e))
+            fused = self.FFMs[s](m_rgb, m_e)
+            if self.aspp == "aspp":
+                fused = self.aspp_modules[s](fused)
+            elif self.aspp == "easpp" and s == 3:
+                fused = self.single_aspp(fused)
+            outs.append(fused)
             x_rgb, x_e = m_rgb, m_e  # next stage embeds the rectified maps
         return outs
 

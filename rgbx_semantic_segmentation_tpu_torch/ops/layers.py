@@ -1,5 +1,5 @@
-"""Shared layer primitives: initializers, DropPath, Dropout, token/map
-reshapes.
+"""Shared layer primitives: initializers, DropPath, Dropout, the
+conv + BN + ReLU block of the convolutional heads, token/map reshapes.
 
 Counterpart of rgbx_semantic_segmentation_tpu/ops/layers.py. The layers
 themselves are torch's own: nn.Linear, nn.Conv2d with torch's symmetric
@@ -133,6 +133,20 @@ def set_generator(model: nn.Module,
     for m in model.modules():
         if isinstance(m, _Stochastic):
             m.generator = generator
+
+
+def conv_bn_relu(in_ch: int, out_ch: int, kernel: int, bias: bool = True,
+                 dilation: int = 1, bn_momentum: float = 0.1,
+                 bn_eps: float = 1e-5) -> nn.Sequential:
+    """Conv2d (symmetric padding dilation * (kernel // 2)) + BatchNorm2d +
+    ReLU as the original repo's Sequential: keys `0.*` and `1.*`. `bias`
+    follows the JAX module (its `L.conv` has one, its `nn.Conv` in the ASPP
+    branches none)."""
+    return nn.Sequential(
+        nn.Conv2d(in_ch, out_ch, kernel, padding=dilation * (kernel // 2),
+                  dilation=dilation, bias=bias),
+        nn.BatchNorm2d(out_ch, eps=bn_eps, momentum=bn_momentum),
+        nn.ReLU())
 
 
 def tokens_to_map(x: torch.Tensor, H: int, W: int) -> torch.Tensor:

@@ -1,12 +1,12 @@
 """Inference entry point of the port: segment unlabeled RGB-X image pairs
-(counterpart of the root predict_cli.py, whole-image protocol only).
+(counterpart of the root predict_cli.py).
 
 The eval path needs a label for every image; this CLI runs the same
-inference (the same BGR/normalisation pipeline, batched whole-image
-forwards of BATCH images, eval_cli's default) without labels, and writes raw
+inference (the same BGR/normalisation pipeline and the preset's protocol:
+sliding window, scales, flip; batched forwards of BATCH images where every
+scale fits one crop, eval_cli's default) without labels, and writes raw
 class-index PNGs plus palettised PNGs (and optional [image | prediction]
-composites). The sliding window, multi-scale and flip raise
-NotImplementedError (ROADMAP M6).
+composites).
 
 Inputs: either `--dataset_root` + `--source names.txt` (names resolved
 through the config's rgb/x folder layout, like training), or a single
@@ -126,9 +126,10 @@ def main(argv=None):
         for name in names[i:i + BATCH]:
             rgb, x = load(name)
             group.append({"fn": name, "rgb": rgb, "modal_x": x})
-        # One batched forward for a run of same-size images that fit the
-        # crop; anything else image by image (which raises beyond the crop).
-        if (len(group) > 1 and all(evaluator._one_shot(it) for it in group)
+        # Batched forwards for a run of same-size images that fit the crop
+        # at every scale; anything else image by image (the sliding grid).
+        if (len(group) > 1
+                and all(evaluator._one_shot_all_scales(it) for it in group)
                 and len({it["rgb"].shape for it in group}) == 1):
             preds = evaluator._batched_whole_image(group).cpu().numpy()
         else:

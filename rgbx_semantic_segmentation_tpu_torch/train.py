@@ -2,7 +2,8 @@
 (counterpart of rgbx_semantic_segmentation_tpu/train.py).
 
 One step = forward under bf16 autocast (fp32 params, no GradScaler: bf16
-needs no loss scaling), cross-entropy, backward (the SR attentions through
+needs no loss scaling), cross-entropy (plus 0.4 x the aux head's, for the
+decoders that carry one), backward (the SR attentions through
 the hand-written backward kernel on the card), AdamW at the scheduled lr.
 uint8 batches are normalised on the device; fp32 batches are taken as
 host-normalised. The drop-path / dropout masks of step `s` come from a
@@ -21,21 +22,24 @@ from rgbx_semantic_segmentation_tpu_torch import losses as losses_lib
 from rgbx_semantic_segmentation_tpu_torch import lr_schedules, optim
 from rgbx_semantic_segmentation_tpu_torch.config import Config
 from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
-from rgbx_semantic_segmentation_tpu_torch.models.builder import build_model
+from rgbx_semantic_segmentation_tpu_torch.models.builder import (
+    AUX_RATE, build_model)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import set_generator
 
 
 def make_loss_fn(cfg: Config) -> Callable:
-    """The criterion on the model's output. Plain logits only: the aux-head
-    tuple and the mask2former dict of the JAX make_loss_fn come with their
-    decoders (ROADMAP M10)."""
+    """The criterion on the model's output; on an (logits, aux) pair
+    criterion(logits) + AUX_RATE * criterion(aux), as the JAX make_loss_fn.
+    The mask2former dict comes with its decoder (ROADMAP M10 item 3)."""
     criterion = losses_lib.build_criterion(cfg)
 
     def loss_fn(outputs, labels):
-        if isinstance(outputs, (tuple, dict)):
+        if isinstance(outputs, dict):
             raise NotImplementedError(
-                "aux-head / mask2former outputs are not ported yet: "
-                "ROADMAP M10")
+                "mask2former outputs are not ported yet: ROADMAP M10 item 3")
+        if isinstance(outputs, tuple):
+            logits, aux = outputs
+            return criterion(logits, labels) + AUX_RATE * criterion(aux, labels)
         return criterion(outputs, labels)
 
     return loss_fn

@@ -206,12 +206,68 @@ def test_clis_default_to_the_card(runs, tmp_path, cli):
 
 
 def test_cli_unported_options_raise(runs, tmp_path):
+    """--mesh beyond dp still raises (ROADMAP M9). The --compat-* options
+    now run: at scale 1.5 under a 32x40 crop the 32x32 images take the
+    sliding grid (swapped with --compat-stride-swap), and eval_cli -e last
+    gives the confusion matrix of an in-process SegEvaluator with the same
+    flag."""
     data = runs["data"]
     with cli_env(runs["cfg"], tmp_path):
         with pytest.raises(NotImplementedError, match="M9"):
             train_cli.main(["--dataset_root", data, "--mesh", "tp:2,4",
                             "--device", "cpu"])
-        for flag in ("--compat-stride-swap", "--compat-double-normalize"):
-            with pytest.raises(NotImplementedError, match="M6"):
-                eval_cli.main(["--dataset_root", data, "--device", "cpu",
-                               flag])
+    cfg = runs["cfg"].replace(eval=tconfig.EvalConfig(
+        eval_scale_array=(1.5,), eval_crop_size=(32, 40)))
+    model = build_model(cfg, device="cpu", seed=None)
+    model.load_state_dict(
+        CheckpointManager(_ckpt_dir(runs, "A")).load(3)["model"])
+    dataset = RGBXDataset(cfg.dataset, "val", root=data)
+    for flag in ("--compat-stride-swap", "--compat-double-normalize"):
+        with cli_env(cfg, runs["root"] / "A"):
+            res = eval_cli.main(["--dataset_root", data, "-e", "last",
+                                 "--val_log", str(tmp_path / "val.log"),
+                                 "--device", "cpu", flag])
+        ev = SegEvaluator(cfg, model, device="cpu",
+                          **{flag[2:].replace("-", "_"): True})
+        ev.evaluate(dataset, eval_batch=8)
+        np.testing.assert_array_equal(res["epoch 3"][1], ev.last_hist)
+        assert ev.last_hist.sum() > 0
+
+
+def test_train_cli_pst900(tmp_path):
+    """train_cli --config pst900 (mit_*_w_aspp + UPernet with the aux
+    FCNHead; mit_tiny widths at 32x32 on a synthetic 5-class dataset) for
+    one epoch of 2 steps, then eval_cli -e last: the checkpoint carries the
+    ASPP, UPerHead and aux-head tensors, the loss is finite, and the eval's
+    confusion matrix is evaluate()'s on the checkpoint's weights."""
+    data = str(tmp_path / "data")
+    ds = make_synthetic_dataset(data, num_train=4, num_val=2, hw=(32, 32),
+                                num_classes=5, seed=4)
+    pst = tconfig.pst900_config()
+    cfg = pst.replace(
+        dataset=ds,
+        model=dataclasses.replace(pst.model, backbone="mit_tiny_w_aspp",
+                                  use_mixed_precision=False),
+        train=dataclasses.replace(pst.train, batch_size=2, num_workers=2),
+        eval=tconfig.EvalConfig(eval_scale_array=(1.0,),
+                                eval_crop_size=(32, 32)))
+    assert cfg.model.decoder == "UPernet"
+    with cli_env(cfg, tmp_path):
+        rec = train_cli.main(["--config", "pst900", "--dataset_root", data,
+                              "--epochs", "1", "--niters", "2",
+                              "--device", "cpu"])
+        res = eval_cli.main(["--config", "pst900", "--dataset_root", data,
+                             "-e", "last", "--device", "cpu"])
+    assert [r["epoch"] for r in rec] == [1] and np.isfinite(rec[0]["loss"])
+    sd = CheckpointManager(str(tmp_path / "logs" / cfg.tag() /
+                               "checkpoint")).load(1)["model"]
+    for key in ("backbone.aspp_modules.3.b4.gap.1.weight",
+                "decode_head.psp_modules.3.1.weight",
+                "decode_head.fpn_bottleneck.0.weight",
+                "aux_head.conv.0.weight", "aux_head.classifier.bias"):
+        assert key in sd, key
+    model = build_model(cfg, device="cpu", seed=None)
+    model.load_state_dict(sd, strict=True)
+    ev = SegEvaluator(cfg, model, device="cpu")
+    ev.evaluate(RGBXDataset(cfg.dataset, "val", root=data), eval_batch=8)
+    np.testing.assert_array_equal(res["epoch 1"][1], ev.last_hist)

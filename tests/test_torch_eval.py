@@ -126,10 +126,16 @@ def test_metrics_match_jax():
 
 
 def test_unported_protocols_raise(setup):
+    """The protocols that raised before this slice now run: several scales
+    (an evaluator at (0.75, 1.0) predicts at the image's size) and an image
+    larger than the crop (the sliding grid); tests/test_torch_eval_protocol.py
+    holds them against JAX."""
     cfg, dataset, _, _, tev = setup
-    with pytest.raises(NotImplementedError, match="M6"):
-        SegEvaluator(cfg.replace(eval=EvalConfig(eval_scale_array=(0.75, 1.0))),
-                     tev.model, device="cpu")
-    with pytest.raises(NotImplementedError, match="M6"):
-        big = np.zeros((96, 96, 3), np.uint8)
-        tev.sliding_eval_rgbx(big, big)
+    ms = SegEvaluator(cfg.replace(eval=EvalConfig(eval_scale_array=(0.75, 1.0),
+                                                  eval_crop_size=(64, 64))),
+                      tev.model, device="cpu")
+    item = dataset[0]
+    assert ms.sliding_eval_rgbx(item["rgb"], item["modal_x"]).shape == (64, 64)
+    big = np.random.RandomState(0).randint(0, 256, (96, 96, 3)).astype(np.uint8)
+    pred = tev.sliding_eval_rgbx(big, big)
+    assert pred.shape == (96, 96) and int(pred.max()) < cfg.dataset.num_classes

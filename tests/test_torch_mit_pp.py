@@ -248,7 +248,7 @@ def test_config_fusion_names_build_the_improved_modules():
 def test_only_mit_factory_names_plus_pp_are_mit_pp():
     """`is_mit_pp` holds for a MiT factory's name + "pp" and for no other
     name that ends in "pp": mit_b2pp builds IFRM/IFFM, the ASPP variants
-    still raise NotImplementedError naming their ROADMAP item."""
+    build FRM/FFM with their ASPPs."""
     for name in tbuilder.MIT_FACTORIES:
         assert tbuilder.is_mit_pp(name + "pp")
         assert not tbuilder.is_mit_pp(name)
@@ -259,9 +259,12 @@ def test_only_mit_factory_names_plus_pp_are_mit_pp():
         pp, _ = tbuilder.build_backbone(_cfg("mit_b2pp"))
     assert isinstance(pp.FRMs[0], tfusion.ImprovedFeatureRectifyModule)
     assert isinstance(pp.FFMs[3], tfusion.ImprovedFeatureFusionModule)
-    for name in ("mit_b2_w_aspp", "mit_b2_w_ef_aspp"):
-        with pytest.raises(NotImplementedError, match="M10 item 1"):
-            tbuilder.build_backbone(_cfg(name))
+    for name, kind in (("mit_b2_w_aspp", "aspp"),
+                       ("mit_b2_w_ef_aspp", "easpp")):
+        with torch.device("meta"):
+            bb, _ = tbuilder.build_backbone(_cfg(name))
+        assert bb.aspp == kind
+        assert isinstance(bb.FRMs[0], tfusion.FeatureRectifyModule)
 
 
 def test_init_reaches_the_new_parameters():

@@ -23,7 +23,8 @@ from rgbx_semantic_segmentation_tpu.config import (
 from rgbx_semantic_segmentation_tpu.models.builder import (
     EncoderDecoder as JaxEncoderDecoder)
 from rgbx_semantic_segmentation_tpu_torch.convert import flax_to_torch_state_dict
-from rgbx_semantic_segmentation_tpu_torch.models.builder import build_model
+from rgbx_semantic_segmentation_tpu_torch.models.builder import (
+    EncoderDecoder, build_model)
 from tests.test_torch_layers import random_variables
 
 torch.set_num_threads(2)
@@ -101,11 +102,21 @@ def test_flagship_parameter_count_matches_jax():
 
 
 def test_unported_names_raise():
-    for backbone in ("mit_b2_w_aspp", "mit_b2_w_ef_aspp", "segnext_tiny",
-                     "resnet50"):
+    """Names of the JAX registry the port does not build yet raise
+    NotImplementedError naming their ROADMAP item; the ASPP variants and
+    the UPernet head now build (tests/test_torch_heads.py)."""
+    for backbone in ("segnext_tiny", "resnet50"):
         cfg = mfnet_config().replace(model=ModelConfig(backbone=backbone))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, device="cpu", seed=None)
-    cfg = mfnet_config().replace(model=ModelConfig(decoder="UPernet"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu", seed=None)
+    for decoder in ("MLPDecoderpp", "mask2former"):
+        cfg = mfnet_config().replace(model=ModelConfig(decoder=decoder))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(cfg, device="cpu", seed=None)
+    with torch.device("meta"):
+        for backbone, decoder in (("mit_b2_w_aspp", "UPernet"),
+                                  ("mit_b2_w_ef_aspp", "MLPDecoder")):
+            cfg = mfnet_config().replace(
+                model=ModelConfig(backbone=backbone, decoder=decoder))
+            model = EncoderDecoder(cfg)
+            assert (model.aux_head is not None) == (decoder == "UPernet")

@@ -4,7 +4,9 @@ interpreter imports it, builds mit_tiny, runs one forward and one train
 step, imports the window-attention op and the Swin encoder and runs a small
 Swin tower forward and backward, builds mit_tinypp (IFRM/IFFM) and runs a
 train step through the flash-attention op, imports the bench tools, runs
-train_cli -> eval_cli -e last -> predict_cli on a synthetic dataset (the
+builds mit_tiny_w_aspp + UPernet (ASPPs, the aux head) and runs a train
+step and a multi-scale, flipped, stride-swapped sliding-window prediction,
+runs train_cli -> eval_cli -e last -> predict_cli on a synthetic dataset (the
 threaded loader on the native image ops, checkpoints, the engine), with
 none of them in sys.modules, and a
 static scan of the package sources (the CUDA and C++ sources too) and
@@ -75,6 +77,23 @@ loss = float(trainer.step(batch)["loss"])
 assert loss == loss, loss
 assert calls == [(2, 1, 1280, 32)] * 2, calls
 assert flash_attention.flash_attention.launches == 0
+cfg_pst = cfg.replace(
+    dataset=DatasetConfig(num_classes=5, image_height=32, image_width=32),
+    model=dataclasses.replace(cfg.model, backbone="mit_tiny_w_aspp",
+                              decoder="UPernet"),
+    eval=dataclasses.replace(cfg.eval, eval_scale_array=(0.75, 1.0, 1.25),
+                             eval_flip=True, eval_crop_size=(32, 32)))
+trainer = Trainer(cfg_pst, device="cpu", seed=0)
+batch = {"rgb": torch.zeros(2, 32, 32, 3, dtype=torch.uint8),
+         "modal_x": torch.zeros(2, 32, 32, 3, dtype=torch.uint8),
+         "label": torch.zeros(2, 32, 32, dtype=torch.uint8)}
+loss = float(trainer.step(batch)["loss"])
+assert loss == loss, loss
+import numpy as np
+pred = SegEvaluator(cfg_pst, trainer.model.eval(), device="cpu",
+                    compat_stride_swap=True).sliding_eval_rgbx(
+    np.zeros((40, 48, 3), np.uint8), np.zeros((40, 48), np.uint8))
+assert pred.shape == (40, 48), pred.shape
 import os
 import tempfile
 from rgbx_semantic_segmentation_tpu_torch import (
@@ -137,5 +156,8 @@ def test_no_jax_import_in_sources():
             "native/cv_ops.py", "data/loader.py", "data/preprocess.py",
             "data/transforms.py", "data/synthetic.py", "checkpoint.py",
             "engine.py", "train_cli.py", "eval_cli.py", "predict_cli.py",
-            "metrics_writer.py", "visualize.py", "utils/fs.py"} <= names
+            "metrics_writer.py", "visualize.py", "utils/fs.py",
+            "models/encoders/aspp.py", "models/decoders/fcnhead.py",
+            "models/decoders/upernet.py", "models/decoders/deeplabv3plus.py",
+            "ops/resize.py", "evaluator.py"} <= names
     assert len(sources) >= 10

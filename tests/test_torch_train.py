@@ -373,8 +373,9 @@ def test_trainer_default_device_and_unported_outputs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.Trainer(cfg)
-    with pytest.raises(NotImplementedError, match="M10"):
-        ttrain.make_loss_fn(cfg)((torch.zeros(1), torch.zeros(1)),
+    with pytest.raises(NotImplementedError, match="M10 item 3"):
+        ttrain.make_loss_fn(cfg)({"pred_logits": torch.zeros(1),
+                                  "pred_masks": torch.zeros(1)},
                                  torch.zeros(1))
     bad = cfg.replace(train=dataclasses.replace(cfg.train,
                                                 criterion="DiceLoss"))
