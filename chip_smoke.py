@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py      # from the repository root, one card
+    python3 chip_smoke.py            # from the repository root, one card
+    python3 chip_smoke.py --ddp 4    # the data-parallel part alone, 4 cards
 
 It builds the port's CUDA kernels from csrc/ with nvcc (one process per
 source, started together) and holds each against its plain PyTorch version
@@ -62,7 +63,27 @@ and nyu presets:
     eval_cli --compat-stride-swap against an in-process evaluator;
   * train_cli --config pst900 for one short epoch on a synthetic 5-class
     PNG dataset, then eval_cli -e last (its confusion matrix equal to
-    evaluate()'s).
+    evaluate()'s);
+  * data parallelism at world 1: Trainer through the launcher
+    (parallel/launch.py) as one NCCL rank, with the synced BatchNorm and
+    the summed gradient all-reduce, 3 steps of mit_b2 at global batch 8
+    against two plain one-process Trainers from the same seed (held to the
+    resume bound: the card's step is not bit-reproducible), K1 and K2
+    launching 32 times a step in the rank.
+
+`--ddp N` runs only the N-card part, and fails when fewer cards are
+visible: K1-K4 at the shapes a rank hands them (8 / N images) against their
+plain versions; train_cli over the N cards (one rank a card) at global
+batch 8 and 32 against one card at 8, drop rates 0 (steady img/s, each
+rank's peak memory, its K1/K2 launches; fp32 epochs too, whose loss is
+held within the spread of three one-card runs), eval_cli over the N cards
+(one image a forward) against one card (the same confusion matrix), the
+NCCL all-reduce's share of a mit_b2 step's device time on rank 0
+(torch.profiler), swin_s steps at attention
+dropout 0.3 (K3/K4 launches per rank, ranks 0 and 1 drawing different
+masks), and the first-step gradient over the N ranks against one card on a
+batch whose ranks ignore different counts of pixels (fp32; bounded by
+one-card readings, which DDP's default per-rank mean must miss).
 
 Any failed check raises and the exit code is non-zero. Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -309,49 +330,68 @@ def median_ms(fn, *args, warmup=3, iters=20, reps=1) -> float:
     return float(np.median(times))
 
 
+def sr_inputs(gen, shape, dtype, cotangent=False):
+    """q, k, v as the model hands them over: head-split views of the
+    (B, N, h*d) q tokens and of the (B, M, 2, h, d) kv projection; with
+    `cotangent` also the cotangent as autograd hands it back (a non-uniform
+    (B, N, h*d) tensor, head-split)."""
+    import torch
+
+    B, h, N, M, d = shape
+    x = torch.randn(B, N, h * d, device="cuda", generator=gen).to(dtype)
+    kv = torch.randn(B, M, 2, h, d, device="cuda", generator=gen).to(dtype)
+    out = [x.reshape(B, N, h, d).transpose(1, 2),
+           kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)]
+    if cotangent:
+        w = torch.randn(B, N, h * d, device="cuda", generator=gen).to(dtype)
+        out.append(w.reshape(B, N, h, d).transpose(1, 2))
+    return out
+
+
+def hold_sr_fwd(S, q, k, v, shape, dtype) -> float:
+    """K1 against its plain version on q, k, v (fp32: FP32_ATOL; bf16: 2
+    ulps, and p rounded where the plain version rounds it); returns the
+    largest error."""
+    import torch
+
+    d = shape[4]
+    ref = S.sr_attention_reference(q, k, v, d ** -0.5)
+    got = S.sr_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    tol = bf16_atol(ref) if dtype == torch.bfloat16 else FP32_ATOL
+    print(f"kernel {str(dtype)[6:]:8s} (B,h,N,M,d)={shape}: "
+          f"max_abs_err {err:.3e} (tol {tol:.3e})")
+    check(err <= tol and bool(torch.isfinite(got).all()),
+          f"kernel vs plain at {shape} {dtype}: {err} > {tol}")
+    if dtype == torch.bfloat16 and shape[3] > 1:  # M = 1: p is exactly 1
+        wrong = unrounded_reference(q, k, v, d ** -0.5)
+        right_frac = float((got != ref).float().mean())
+        wrong_frac = float((got != wrong).float().mean())
+        print(f"  outputs differing from plain {right_frac:.5f} "
+              f"(<= {BF16_MISMATCH_MAX}), from unrounded-p plain "
+              f"{wrong_frac:.5f}")
+        check(right_frac <= BF16_MISMATCH_MAX and right_frac < wrong_frac,
+              f"bf16 kernel at {shape} does not round p as the plain "
+              f"version does: {right_frac} vs {wrong_frac}")
+    return err
+
+
 def kernel_phase(S):
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(0)
-
-    def inputs(B, h, N, M, d, dtype):
-        """q, k, v as the model hands them over: head-split views of the
-        (B, N, h*d) q tokens and of the (B, M, 2, h, d) kv projection."""
-        x = torch.randn(B, N, h * d, device="cuda", generator=g).to(dtype)
-        kv = torch.randn(B, M, 2, h, d, device="cuda", generator=g).to(dtype)
-        return (x.reshape(B, N, h, d).transpose(1, 2),
-                kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2))
-
     flagship_err = 0.0
     cases = [(s, torch.bfloat16) for s in FLAGSHIP + RAGGED + LARGE_FRAME] + \
             [(s, torch.float32) for s in RAGGED]
-    for (B, h, N, M, d), dtype in cases:
-        q, k, v = inputs(B, h, N, M, d, dtype)
-        ref = S.sr_attention_reference(q, k, v, d ** -0.5)
-        got = S.sr_attention(q, k, v, d ** -0.5)
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        tol = bf16_atol(ref) if dtype == torch.bfloat16 else FP32_ATOL
-        print(f"kernel {str(dtype)[6:]:8s} (B,h,N,M,d)={(B, h, N, M, d)}: "
-              f"max_abs_err {err:.3e} (tol {tol:.3e})")
-        check(err <= tol and bool(torch.isfinite(got).all()),
-              f"kernel vs plain at {(B, h, N, M, d)} {dtype}: {err} > {tol}")
-        if dtype == torch.bfloat16 and M > 1:  # M = 1: p is exactly 1
-            wrong = unrounded_reference(q, k, v, d ** -0.5)
-            right_frac = float((got != ref).float().mean())
-            wrong_frac = float((got != wrong).float().mean())
-            print(f"  outputs differing from plain {right_frac:.5f} "
-                  f"(<= {BF16_MISMATCH_MAX}), from unrounded-p plain "
-                  f"{wrong_frac:.5f}")
-            check(right_frac <= BF16_MISMATCH_MAX and right_frac < wrong_frac,
-                  f"bf16 kernel at {(B, h, N, M, d)} does not round p as the "
-                  f"plain version does: {right_frac} vs {wrong_frac}")
-        if (B, h, N, M, d) in FLAGSHIP:
+    for shape, dtype in cases:
+        err = hold_sr_fwd(S, *sr_inputs(g, shape, dtype), shape, dtype)
+        if shape in FLAGSHIP:
             flagship_err = max(flagship_err, err)
 
     rows = []
     for (B, h, N, M, d) in FLAGSHIP:
-        q, k, v = inputs(B, h, N, M, d, torch.bfloat16)
+        q, k, v = sr_inputs(g, (B, h, N, M, d), torch.bfloat16)
         sc = d ** -0.5
         sdpa = torch.nn.functional.scaled_dot_product_attention
         # plain, kernel, kernel, plain: compare within one window. Device
@@ -411,55 +451,55 @@ def ms_text(ms):
     return "not read" if ms is None else f"{ms:.4f}"
 
 
+def hold_sr_bwd(S, q, k, v, w, shape, dtype) -> float:
+    """K2 against its plain version on q, k, v and the cotangent w (dq, dk,
+    dv; fp32 BWD_FP32_RTOL, bf16 BWD_BF16_ULPS), two runs bit-equal;
+    returns the largest error."""
+    import torch
+
+    d = shape[4]
+    ref = S.sr_attention_bwd_reference(q, k, v, w, d ** -0.5)
+    # The residual as autograd keeps it: the forward kernel's lse2 (None
+    # on the scalar route, whose backward recomputes its statistics).
+    lse = S._forward(q, k, v, d ** -0.5, with_lse=True)[1]
+    got = S.sr_attention_bwd(q, k, v, w, d ** -0.5, lse=lse)
+    again = S.sr_attention_bwd(q, k, v, w, d ** -0.5, lse=lse)
+    torch.cuda.synchronize()
+    check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+          f"backward kernel differs between two runs at {shape} {dtype}")
+    line, worst = [], 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        err = float((a.float() - b.float()).abs().max())
+        tol = (bf16_atol(b, BWD_BF16_ULPS) if dtype == torch.bfloat16
+               else BWD_FP32_RTOL * max(1.0, float(b.abs().max())))
+        line.append(f"{name} {err:.3e} (tol {tol:.3e})")
+        check(err <= tol and bool(torch.isfinite(a).all()),
+              f"backward kernel vs plain, {name} at {shape} {dtype}: "
+              f"{err} > {tol}")
+        worst = max(worst, err)
+    print(f"bwd kernel {str(dtype)[6:]:8s} (B,h,N,M,d)={shape}: "
+          "max_abs_err " + ", ".join(line) + "; two runs bit-equal")
+    return worst
+
+
 def bwd_kernel_phase(S):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-
-    def inputs(B, h, N, M, d, dtype):
-        """q, k, v as the model hands them over and the cotangent as
-        autograd hands it back: head-split views of (B, N, h*d) tensors and
-        of the (B, M, 2, h, d) kv projection; the cotangent is non-uniform."""
-        x = torch.randn(B, N, h * d, device="cuda", generator=gen).to(dtype)
-        kv = torch.randn(B, M, 2, h, d, device="cuda", generator=gen).to(dtype)
-        w = torch.randn(B, N, h * d, device="cuda", generator=gen).to(dtype)
-        return (x.reshape(B, N, h, d).transpose(1, 2),
-                kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2),
-                w.reshape(B, N, h, d).transpose(1, 2))
-
     flagship_err = 0.0
     cases = [(s, torch.bfloat16) for s in FLAGSHIP + RAGGED + LARGE_FRAME] + \
             [(s, torch.float32) for s in RAGGED]
-    for (B, h, N, M, d), dtype in cases:
-        q, k, v, w = inputs(B, h, N, M, d, dtype)
-        ref = S.sr_attention_bwd_reference(q, k, v, w, d ** -0.5)
-        # The residual as autograd keeps it: the forward kernel's lse2 (None
-        # on the scalar route, whose backward recomputes its statistics).
-        lse = S._forward(q, k, v, d ** -0.5, with_lse=True)[1]
-        got = S.sr_attention_bwd(q, k, v, w, d ** -0.5, lse=lse)
-        again = S.sr_attention_bwd(q, k, v, w, d ** -0.5, lse=lse)
-        torch.cuda.synchronize()
-        check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
-              f"backward kernel differs between two runs at "
-              f"{(B, h, N, M, d)} {dtype}")
-        line = []
-        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-            err = float((a.float() - b.float()).abs().max())
-            tol = (bf16_atol(b, BWD_BF16_ULPS) if dtype == torch.bfloat16
-                   else BWD_FP32_RTOL * max(1.0, float(b.abs().max())))
-            line.append(f"{name} {err:.3e} (tol {tol:.3e})")
-            check(err <= tol and bool(torch.isfinite(a).all()),
-                  f"backward kernel vs plain, {name} at {(B, h, N, M, d)} "
-                  f"{dtype}: {err} > {tol}")
-            if (B, h, N, M, d) in FLAGSHIP:
-                flagship_err = max(flagship_err, err)
-        print(f"bwd kernel {str(dtype)[6:]:8s} (B,h,N,M,d)={(B, h, N, M, d)}: "
-              "max_abs_err " + ", ".join(line) + "; two runs bit-equal")
+    for shape, dtype in cases:
+        err = hold_sr_bwd(S, *sr_inputs(gen, shape, dtype, cotangent=True),
+                          shape, dtype)
+        if shape in FLAGSHIP:
+            flagship_err = max(flagship_err, err)
 
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for (B, h, N, M, d) in FLAGSHIP:
-        q, k, v, w = inputs(B, h, N, M, d, torch.bfloat16)
+        q, k, v, w = sr_inputs(gen, (B, h, N, M, d), torch.bfloat16,
+                               cotangent=True)
         sc = d ** -0.5
         lse = S._forward(q, k, v, sc, with_lse=True)[1]
 
@@ -498,6 +538,56 @@ def window_cases(T):
             + [(s, torch.float32) for s in full[2:] + WINDOW_RAGGED])
 
 
+def hold_window_fwd(W, T, shape, dtype, shifted, gen) -> float:
+    """K3 against its plain version at one (B, Hp, Wp, h, d, ws), the bias
+    unshifted or masked (`shifted`), rate 0 and T.RATE (fp32 FP32_ATOL;
+    bf16 2 ulps, at most BF16_MISMATCH_MAX of the outputs differing, p
+    rounded where the plain version rounds it); returns the largest
+    error."""
+    import torch
+
+    d, ws = shape[4], shape[5]
+    qkv, bias, _, seed = T.window_inputs(
+        shape, dtype, "masked" if shifted else "unshifted", gen)
+    line, worst = [], 0.0
+    for rate in (0.0, T.RATE):
+        ref = W.window_attention_reference(qkv, bias, seed, d ** -0.5, rate,
+                                           ws)
+        got = W.window_attention(qkv, bias, seed, d ** -0.5, rate, ws)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        tol = bf16_atol(ref) if dtype == torch.bfloat16 else FP32_ATOL
+        frac = float((got != ref).float().mean())
+        line.append(f"rate {rate}: err {err:.3e} (tol {tol:.3e}), "
+                    f"differing {frac:.5f}")
+        check(err <= tol and bool(torch.isfinite(got).all()),
+              f"window kernel vs plain at {shape} {dtype} shifted="
+              f"{shifted} rate={rate}: {err} > {tol}")
+        # Rounding points and mask in one number: a kernel that fed
+        # unrounded p into p @ v, or drew another mask, differs in far more
+        # of its outputs.
+        if dtype == torch.bfloat16:
+            check(frac <= BF16_MISMATCH_MAX,
+                  f"bf16 window kernel at {shape} rate={rate}: {frac} of "
+                  "the outputs differ from plain")
+        worst = max(worst, err)
+    if dtype == torch.bfloat16 and shifted:
+        x = W._split_windows(qkv, ws, 3, shape[3])
+        _, _, v, pf, _ = W._probs(x, bias, None, d ** -0.5, 0.0)
+        wrong = W._merge_windows(
+            torch.matmul(pf, v).to(dtype)[:, :, None], ws, *shape[1:3])
+        got = W.window_attention(qkv, bias, None, d ** -0.5, 0.0, ws)
+        right_frac = float((got != W.window_attention_reference(
+            qkv, bias, None, d ** -0.5, 0.0, ws)).float().mean())
+        wrong_frac = float((got != wrong).float().mean())
+        line.append(f"differing from unrounded-p plain {wrong_frac:.5f}")
+        check(right_frac < wrong_frac, f"window kernel at {shape} does not "
+              "round p as the plain version does")
+    print(f"window fwd {str(dtype)[6:]:8s} (B,Hp,Wp,h,d,ws)={shape} "
+          f"shifted={shifted}: " + "; ".join(line))
+    return worst
+
+
 def window_kernel_phase(W, T):
     """K3 against its plain version: every swin_s stage and the ragged
     shapes, unshifted and masked bias, rate 0 and 0.3; then its times,
@@ -507,47 +597,10 @@ def window_kernel_phase(W, T):
     gen = torch.Generator(device="cuda").manual_seed(2)
     stage_err = 0.0
     for shape, dtype in window_cases(T):
-        d, ws = shape[4], shape[5]
         for shifted in (False, True):
-            qkv, bias, _, seed = T.window_inputs(
-                shape, dtype, "masked" if shifted else "unshifted", gen)
-            line = []
-            for rate in (0.0, T.RATE):
-                ref = W.window_attention_reference(qkv, bias, seed, d ** -0.5,
-                                                   rate, ws)
-                got = W.window_attention(qkv, bias, seed, d ** -0.5, rate, ws)
-                torch.cuda.synchronize()
-                err = float((got.float() - ref.float()).abs().max())
-                tol = bf16_atol(ref) if dtype == torch.bfloat16 else FP32_ATOL
-                frac = float((got != ref).float().mean())
-                line.append(f"rate {rate}: err {err:.3e} (tol {tol:.3e}), "
-                            f"differing {frac:.5f}")
-                check(err <= tol and bool(torch.isfinite(got).all()),
-                      f"window kernel vs plain at {shape} {dtype} shifted="
-                      f"{shifted} rate={rate}: {err} > {tol}")
-                # Rounding points and mask in one number: a kernel that fed
-                # unrounded p into p @ v, or drew another mask, differs in
-                # far more of its outputs.
-                if dtype == torch.bfloat16:
-                    check(frac <= BF16_MISMATCH_MAX,
-                          f"bf16 window kernel at {shape} rate={rate}: "
-                          f"{frac} of the outputs differ from plain")
-                if shape[:4] in T.STAGES and dtype == torch.bfloat16:
-                    stage_err = max(stage_err, err)
-            if dtype == torch.bfloat16 and shifted:
-                x = W._split_windows(qkv, ws, 3, shape[3])
-                _, _, v, pf, _ = W._probs(x, bias, None, d ** -0.5, 0.0)
-                wrong = W._merge_windows(
-                    torch.matmul(pf, v).to(dtype)[:, :, None], ws, *shape[1:3])
-                got = W.window_attention(qkv, bias, None, d ** -0.5, 0.0, ws)
-                right_frac = float((got != W.window_attention_reference(
-                    qkv, bias, None, d ** -0.5, 0.0, ws)).float().mean())
-                wrong_frac = float((got != wrong).float().mean())
-                line.append(f"differing from unrounded-p plain {wrong_frac:.5f}")
-                check(right_frac < wrong_frac, f"window kernel at {shape} "
-                      "does not round p as the plain version does")
-            print(f"window fwd {str(dtype)[6:]:8s} (B,Hp,Wp,h,d,ws)={shape} "
-                  f"shifted={shifted}: " + "; ".join(line))
+            err = hold_window_fwd(W, T, shape, dtype, shifted, gen)
+            if shape[:4] in T.STAGES and dtype == torch.bfloat16:
+                stage_err = max(stage_err, err)
     # The kernel's mask, read off its outputs, against the plain mask.
     for shape in [(*T.STAGES[2], T.D, T.WS), WINDOW_RAGGED[0],
                   WINDOW_RAGGED[3], WINDOW_RAGGED[4]]:
@@ -629,6 +682,48 @@ def window_kernel_phase(W, T):
     return stage_err, rows
 
 
+def hold_window_bwd(W, T, shape, dtype, shifted, gen) -> float:
+    """K4 against its plain version at one shape, as hold_window_fwd: dqkv
+    (fp32 BWD_FP32_RTOL, bf16 BWD_BF16_ULPS) and db (fp32 BWD_FP32_RTOL,
+    bf16 DB_BF16_RTOL), two runs bit-equal; returns dqkv's largest
+    error."""
+    import torch
+
+    d, ws = shape[4], shape[5]
+    qkv, bias, cot, seed = T.window_inputs(
+        shape, dtype, "masked" if shifted else "unshifted", gen)
+    line, worst = [], 0.0
+    for rate in (0.0, T.RATE):
+        args = (qkv, bias, seed, cot, d ** -0.5, rate, ws)
+        ref = W.window_attention_bwd_reference(*args)
+        got = W.window_attention_bwd(*args)
+        again = W.window_attention_bwd(*args)
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(("dqkv", "db"), got, ref, again):
+            err = float((a.float() - b.float()).abs().max())
+            mag = max(1.0, float(b.abs().max()))
+            if dtype == torch.float32:
+                tol = BWD_FP32_RTOL * mag
+            elif name == "dqkv":
+                tol = bf16_atol(b, BWD_BF16_ULPS)
+            else:
+                tol = DB_BF16_RTOL * float(b.abs().max())
+            line.append(f"rate {rate} {name} {err:.3e} (tol {tol:.3e})")
+            check(err <= tol and bool(torch.isfinite(a).all()),
+                  f"window backward kernel vs plain, {name} at {shape} "
+                  f"{dtype} shifted={shifted} rate={rate}: {err} > {tol}")
+            check(bool(torch.equal(a, c)),
+                  f"window backward {name} differs between two runs")
+            if name == "dqkv":
+                worst = max(worst, err)
+        if dtype == torch.bfloat16:
+            frac = float((got[0] != ref[0]).float().mean())
+            line.append(f"dqkv differing {frac:.4f}")
+    print(f"window bwd {str(dtype)[6:]:8s} (B,Hp,Wp,h,d,ws)={shape} "
+          f"shifted={shifted}: max_abs_err " + ", ".join(line))
+    return worst
+
+
 def window_bwd_kernel_phase(W, T):
     """K4 against its plain version (dqkv and db), same cases; two runs give
     the same bits; then its times, with the model's own shift mask."""
@@ -637,41 +732,10 @@ def window_bwd_kernel_phase(W, T):
     gen = torch.Generator(device="cuda").manual_seed(3)
     stage_err = 0.0
     for shape, dtype in window_cases(T):
-        d, ws = shape[4], shape[5]
         for shifted in (False, True):
-            qkv, bias, cot, seed = T.window_inputs(
-                shape, dtype, "masked" if shifted else "unshifted", gen)
-            line = []
-            for rate in (0.0, T.RATE):
-                args = (qkv, bias, seed, cot, d ** -0.5, rate, ws)
-                ref = W.window_attention_bwd_reference(*args)
-                got = W.window_attention_bwd(*args)
-                again = W.window_attention_bwd(*args)
-                torch.cuda.synchronize()
-                for name, a, b, c in zip(("dqkv", "db"), got, ref, again):
-                    err = float((a.float() - b.float()).abs().max())
-                    mag = max(1.0, float(b.abs().max()))
-                    if dtype == torch.float32:
-                        tol = BWD_FP32_RTOL * mag
-                    elif name == "dqkv":
-                        tol = bf16_atol(b, BWD_BF16_ULPS)
-                    else:
-                        tol = DB_BF16_RTOL * float(b.abs().max())
-                    line.append(f"rate {rate} {name} {err:.3e} (tol {tol:.3e})")
-                    check(err <= tol and bool(torch.isfinite(a).all()),
-                          f"window backward kernel vs plain, {name} at {shape} "
-                          f"{dtype} shifted={shifted} rate={rate}: {err} > "
-                          f"{tol}")
-                    check(bool(torch.equal(a, c)),
-                          f"window backward {name} differs between two runs")
-                    if (shape[:4] in T.STAGES and dtype == torch.bfloat16
-                            and name == "dqkv"):
-                        stage_err = max(stage_err, err)
-                if dtype == torch.bfloat16:
-                    frac = float((got[0] != ref[0]).float().mean())
-                    line.append(f"dqkv differing {frac:.4f}")
-            print(f"window bwd {str(dtype)[6:]:8s} (B,Hp,Wp,h,d,ws)={shape} "
-                  f"shifted={shifted}: max_abs_err " + ", ".join(line))
+            err = hold_window_bwd(W, T, shape, dtype, shifted, gen)
+            if shape[:4] in T.STAGES and dtype == torch.bfloat16:
+                stage_err = max(stage_err, err)
 
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2344,9 +2408,627 @@ def pst_cli_phase(S, cfg_lib, builder, evaluator_lib):
             "train_cli": rec, "mean_iou": scores.mean_iou}
 
 
-def main() -> int:
+# Data parallelism (parallel/): DDP_STEPS steps of Trainer at world 1 over
+# NCCL (mit_b2, 480x640, global batch 8, bf16, the synced BatchNorm and the
+# summed comm hook) against the plain one-process Trainer from the same
+# seed, held to the resume bound (RESUME_FACTOR x the distance between two
+# plain runs, + RESUME_FLOOR, per group of tensors). `--ddp N` runs the
+# N-card part alone (K1-K4 at a rank's shapes, DDP_NITERS-step train_cli
+# epochs at global batch 8 and 32 against one card at 8, eval_cli over N
+# cards against one card, swin_s DDP_SWIN_STEPS steps at rate 0.3, the NCCL
+# all-reduce's share of a step's device time, the first-step gradient). Its
+# fp32 epoch loss at global batch 8 is held to one card's within
+# DDP_LOSS_FACTOR x the largest spread of three one-card fp32 runs; the
+# bf16 one is read beside two one-card runs, not held: each rank rounds its
+# partial weight gradients to bf16, which no one-card run does (4-card
+# gaps of 2.5x and 4.3x the one-card spread in two calls).
+DDP_STEPS, DDP_NITERS, DDP_SWIN_STEPS = 3, 12, 2
+DDP_LOSS_FACTOR = 4.0
+# The first-step gradient on N ranks against one card: mit_b2 at global
+# batch 8 and drop rates 0, on a batch whose row b ignores ~b/10 of its
+# pixels (the ranks hold different valid counts), the relative L2 distance
+# over all the gradients. In fp32 with TF32 off: in bf16 each rank rounds
+# its own partial weight gradients, and under TF32 cuDNN picks other
+# convolution algorithms for a rank's 2 images than for 8 (a 4-rank
+# gradient 1.9e-3 from one card's against one-card readings of 3-4e-5), a
+# noise that no one-card run shows. Bound:
+# DDP_GRAD_FACTOR x the largest of three one-card readings: the same batch
+# again (the card's run-to-run noise), its rows reversed (summation order
+# alone: the loss and its gradient do not depend on the rows' order, which
+# is what a split over ranks changes), and the launcher's world of one
+# (the synced BatchNorm's E[x^2] - E[x]^2). DDP's default, each rank's own
+# mean with the gradients averaged, must lie beyond the bound.
+DDP_GRAD_FACTOR = 4.0
+
+
+def rank_kernel_phase(S, W, T, per_rank):
+    """K1-K4 at the shapes one rank of the `--ddp` run hands them
+    (`per_rank` images), against their plain versions with the default
+    run's bounds (hold_*): the mit_b2 stages (K1, K2) and the swin_s stages
+    (K3, K4, bias unshifted and masked, rate 0 and T.RATE), bf16 as the
+    models run them. Returns each kernel's largest error."""
     import torch
 
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
+    err = dict.fromkeys(("sr_attention_fwd", "sr_attention_bwd",
+                         "window_attention_fwd", "window_attention_bwd"),
+                        0.0)
+    for stage in FLAGSHIP:
+        shape = (per_rank, *stage[1:])
+        q, k, v, w = sr_inputs(gen, shape, bf16, cotangent=True)
+        err["sr_attention_fwd"] = max(err["sr_attention_fwd"], hold_sr_fwd(
+            S, q, k, v, shape, bf16))
+        err["sr_attention_bwd"] = max(err["sr_attention_bwd"], hold_sr_bwd(
+            S, q, k, v, w, shape, bf16))
+    for stage in T.STAGES:
+        shape = (per_rank, *stage[1:], T.D, T.WS)
+        for shifted in (False, True):
+            err["window_attention_fwd"] = max(
+                err["window_attention_fwd"],
+                hold_window_fwd(W, T, shape, bf16, shifted, gen))
+            err["window_attention_bwd"] = max(
+                err["window_attention_bwd"],
+                hold_window_bwd(W, T, shape, bf16, shifted, gen))
+    return err
+
+
+def _to_cpu(obj):
+    """A state dict (nested dicts and lists of tensors) on the CPU."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def _trainer_payload(trainer):
+    return _to_cpu({"model": trainer.model.state_dict(),
+                    "optimizer": trainer.optimizer.state_dict()})
+
+
+def _ddp_cfg(cfg_lib, batch=8):
+    """The mfnet preset (mit_b2) at global batch `batch`, no warm-up (the
+    few steps move the weights at the preset's lr)."""
+    cfg = cfg_lib.mfnet_config()
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, batch_size=batch, warm_up_epoch=0))
+
+
+def _ddp_world1_rank(world, cfg, steps):
+    """The rank of the world-1 DDP phase: `steps` Trainer steps on the
+    synthetic batches, with the K1/K2 launches and the step time (events
+    after the first step)."""
+    import torch
+    import torch.distributed as dist
+
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+    from rgbx_semantic_segmentation_tpu_torch.parallel.sync_bn import (
+        SyncBatchNorm2d)
+
+    backend = dist.get_backend()
+    check(backend == "nccl", f"DDP phase: process group on {backend}")
+    batches = uint8_batches(synthetic_items(N_IMAGES, HW,
+                                            cfg.dataset.num_classes), 8)
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    check(trainer.device == world.device and any(
+        isinstance(m, SyncBatchNorm2d) for m in trainer.model.modules()),
+        "DDP phase: the rank's card, synced BatchNorms")
+    S.sr_attention.launches = S.sr_attention_bwd.launches = 0
+    losses, t0 = [], None
+    for i in range(steps):
+        losses.append(trainer.step(batches[i % len(batches)])["loss"])
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    return {"backend": backend, "device": str(world.device),
+            "launches": (S.sr_attention.launches,
+                         S.sr_attention_bwd.launches),
+            "losses": [float(v) for v in losses], "step_ms": step_ms,
+            "payload": _trainer_payload(trainer)}
+
+
+def ddp_world1_phase(S, cfg_lib, train_lib):
+    """Trainer through the launcher at world 1 over NCCL against two plain
+    one-process Trainers from the same seed (see DDP_STEPS)."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.parallel import launch
+
+    cfg = _ddp_cfg(cfg_lib)
+    batches = uint8_batches(synthetic_items(N_IMAGES, HW,
+                                            cfg.dataset.num_classes), 8)
+    plain, plain_ms = [], []
+    for _ in range(2):
+        trainer = train_lib.Trainer(cfg, seed=0)
+        for i in range(DDP_STEPS):
+            trainer.step(batches[i % len(batches)])
+            if i == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3 / (DDP_STEPS - 1))
+        plain.append(_state_groups(_trainer_payload(trainer)))
+        del trainer
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rank = launch.spawn(_ddp_world1_rank, [torch.cuda.current_device()],
+                        "cuda", (cfg, DDP_STEPS))[0]
+    wall = time.perf_counter() - t0
+    check(rank["backend"] == "nccl", "DDP phase: NCCL")
+    want = (32 * DDP_STEPS, 32 * DDP_STEPS)
+    print(f"DDP world 1 ({rank['device']}, NCCL, {wall:.1f} s with the "
+          f"process start): losses {rank['losses']}, K1 {rank['launches'][0]}"
+          f", K2 {rank['launches'][1]} launches (expected {want}); step "
+          f"{rank['step_ms']:.1f} ms against the plain Trainer's "
+          f"{plain_ms[0]:.1f}, {plain_ms[1]:.1f} ms")
+    check(tuple(rank["launches"]) == want, f"DDP launches {rank['launches']}")
+    check(all(np.isfinite(rank["losses"])), "DDP losses finite")
+    got = _state_groups(rank["payload"])
+    dist = {}
+    for name in got:
+        norm = float(plain[0][name].norm())
+        d_ddp = float((got[name] - plain[0][name]).norm()) / norm
+        d_two = float((plain[1][name] - plain[0][name]).norm()) / norm
+        dist[name] = {"ddp": d_ddp, "two_runs": d_two}
+        print(f"  DDP {name}: rel L2 from a plain run {d_ddp:.3e}, between "
+              f"two plain runs {d_two:.3e} (bound {RESUME_FACTOR:g}x + "
+              f"{RESUME_FLOOR:g})")
+        check(d_ddp <= RESUME_FACTOR * d_two + RESUME_FLOOR,
+              f"DDP {name}: {d_ddp} vs {d_two}")
+    return {"launches": {"fwd": rank["launches"][0],
+                         "bwd": rank["launches"][1]},
+            "losses": rank["losses"], "step_ms": rank["step_ms"],
+            "plain_step_ms": plain_ms, "rel_l2": dist, "seconds": wall}
+
+
+def _grad_cfg(cfg_lib):
+    """The gradient check's configuration: the mfnet preset (mit_b2) at
+    global batch 8, fp32, drop rates 0."""
+    cfg = _ddp_cfg(cfg_lib)
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, use_mixed_precision=False, drop_path_rate=0.0,
+        decoder_dropout_ratio=0.0))
+
+
+def ragged_ignore(batch, seed=5):
+    """The batch with row b ignoring ~b/10 of its pixels (label 255) on
+    top of the synthetic 2%: split over ranks, the rows hold different
+    valid counts, so the mean over the global batch and the mean of the
+    ranks' means differ."""
+    rng = np.random.RandomState(seed)
+    label = batch["label"].copy()
+    for b in range(len(label)):
+        label[b][rng.rand(*label.shape[1:]) < 0.1 * b] = 255
+    return {**batch, "label": label}
+
+
+def normalised(cfg, batch, device):
+    """A uint8 batch as Trainer's step hands it to the model: (x / 255 -
+    mean) / std on the device, the labels as int64."""
+    import torch
+
+    mean = torch.tensor(cfg.dataset.norm_mean, device=device)
+    std = torch.tensor(cfg.dataset.norm_std, device=device)
+    rgb, mx = (torch.from_numpy(batch[k]).to(device).float() / 255.0
+               for k in ("rgb", "modal_x"))
+    return ((rgb - mean) / std, (mx - mean) / std,
+            torch.from_numpy(batch["label"]).to(device).long())
+
+
+def _flat_grads(model):
+    import torch
+
+    return torch.cat([p.grad.detach().float().flatten()
+                      for p in model.parameters()]).cpu()
+
+
+def _ddp_grad_rank(world, cfg, batch):
+    """One rank of the gradient check: Trainer.step on the rank's rows of
+    `batch` (the global-mean loss, the summed buckets, the synced
+    BatchNorm); then DDP's default on the same weights and rows (each
+    rank's own mean, the gradients averaged). Rank 0 returns the losses and
+    both gradients."""
+    import torch
+    from torch.nn.parallel import DistributedDataParallel
+
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.models.builder import (
+        build_model)
+    from rgbx_semantic_segmentation_tpu_torch.parallel.multihost import (
+        process_batch_slice)
+    from rgbx_semantic_segmentation_tpu_torch.parallel.sync_bn import (
+        convert_sync_batchnorm)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # see DDP_GRAD_FACTOR
+    torch.backends.cudnn.allow_tf32 = False
+    rows = process_batch_slice(len(batch["label"]), world.rank, world.size)
+    local = {k: v[rows] for k, v in batch.items()}
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    out = {"loss": float(trainer.step(local)["loss"])}
+    if world.is_main():
+        out["grad"] = _flat_grads(trainer.model)
+    del trainer
+    torch.cuda.empty_cache()
+    model = convert_sync_batchnorm(build_model(cfg, device=world.device,
+                                               seed=0)).train()
+    net = DistributedDataParallel(model, device_ids=[world.device.index])
+    rgb, mx, label = normalised(cfg, local, world.device)
+    loss = train_lib.make_loss_fn(cfg)(net(rgb, mx), label)
+    loss.backward()
+    out["rank_mean_loss"] = float(world.all_reduce(
+        loss.detach().clone())) / world.size
+    if world.is_main():
+        out["rank_mean_grad"] = _flat_grads(model)
+    return out
+
+
+def grad_phase(train_lib, cfg_lib, devices):
+    """The first-step gradient over the ranks against one card (see
+    DDP_GRAD_FACTOR). The control's check is returned, for the caller to
+    make last: it needs two ranks."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.parallel import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = _grad_cfg(cfg_lib)
+    batch = ragged_ignore(uint8_batches(
+        synthetic_items(8, HW, cfg.dataset.num_classes), 8)[0])
+    valid = (batch["label"] != 255).reshape(len(devices), -1).sum(1)
+
+    def one_card(b):
+        t0 = time.perf_counter()
+        trainer = train_lib.Trainer(cfg, seed=0)
+        loss = float(trainer.step(b)["loss"])
+        grad = _flat_grads(trainer.model)
+        del trainer
+        torch.cuda.empty_cache()
+        print(f"  one card, fp32 step: {time.perf_counter() - t0:.1f} s with "
+              "the model build", flush=True)
+        return loss, grad
+
+    ref_loss, ref = one_card(batch)
+    runs = {"again": one_card(batch),
+            "rows reversed": one_card({k: v[::-1].copy()
+                                       for k, v in batch.items()})}
+    world1 = launch.spawn(_ddp_grad_rank, devices[:1], "cuda", (cfg, batch))
+    runs["world of 1"] = (world1[0]["loss"], world1[0]["grad"])
+    ranks = launch.spawn(_ddp_grad_rank, devices, "cuda", (cfg, batch))
+    r0 = ranks[0]
+
+    def rel(g):
+        return float((g - ref).norm() / ref.norm())
+
+    readings = {k: rel(g) for k, (_, g) in runs.items()}
+    bound = DDP_GRAD_FACTOR * max(readings.values())
+    got, miss = rel(r0["grad"]), rel(r0["rank_mean_grad"])
+    n = len(devices)
+    print(f"first-step gradient, mit_b2 fp32, global batch 8 (valid pixels "
+          f"per rank {valid.tolist()}): one card loss {ref_loss:.6f}; "
+          "one-card readings (rel L2 from it) " + ", ".join(
+              f"{k} {v:.3e} (loss {runs[k][0]:.6f})"
+              for k, v in readings.items())
+          + f"; {n} ranks {got:.3e} (loss {r0['loss']:.6f}), bound "
+          f"{bound:.3e} ({DDP_GRAD_FACTOR:g}x); each rank's own mean "
+          f"(DDP's default) {miss:.3e} (loss {r0['rank_mean_loss']:.6f})")
+    check(all(r["loss"] == r0["loss"] for r in ranks),
+          "gradient check: every rank reports the global loss")
+    check(got <= bound, f"{n}-rank gradient {got} from one card's, bound "
+          f"{bound}")
+    out = {"readings": readings, "bound": bound, "ranks": got,
+           "rank_mean": miss, "losses": {
+               "one card": ref_loss, **{k: v[0] for k, v in runs.items()},
+               "ranks": r0["loss"], "rank_mean": r0["rank_mean_loss"]}}
+    return out, (miss > bound, f"DDP's default (each rank's mean) at "
+                               f"{miss} does not miss the bound {bound}")
+
+
+def _cli_rank(world, argv, fp32=False):
+    """One rank of train_cli (train_cli.train, as its launcher runs it; the
+    one process as World.solo), the preset at drop rates 0 (and with
+    `fp32` without its bf16 autocast), with the K1/K2 launches, the peak
+    memory, the steps' host stamps and losses read around it."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import train_cli
+    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+    from rgbx_semantic_segmentation_tpu_torch.train import Trainer
+
+    args = train_cli.parse_args(argv)
+    # Drop rates 0: the ranks draw their own masks (the rank folds into the
+    # mask seed), so only then is the N-card loss one card's.
+    cfg = train_cli.build_config(args)
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, drop_path_rate=0.0, decoder_dropout_ratio=0.0,
+        use_mixed_precision=cfg.model.use_mixed_precision and not fp32))
+    stamps, losses = [], []
+    step, fit_epoch = Trainer.step, Trainer.fit_epoch
+
+    def timed_step(self, batch):
+        stamps.append(time.perf_counter())
+        out = step(self, batch)
+        losses.append(out["loss"])
+        return out
+
+    def timed_fit_epoch(self, *a, **kw):
+        result = fit_epoch(self, *a, **kw)
+        stamps.append(time.perf_counter())
+        return result
+
+    S.sr_attention.launches = S.sr_attention_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    Trainer.step, Trainer.fit_epoch = timed_step, timed_fit_epoch
+    try:
+        records = train_cli.train(world, args, cfg)
+    finally:
+        Trainer.step, Trainer.fit_epoch = step, fit_epoch
+    n, bs = len(stamps) - 1, cfg.train.batch_size
+    return {"rank": world.rank,
+            "records": records, "losses": [float(v) for v in losses],
+            "steady_img_per_s": (n - 1) * bs / (stamps[-1] - stamps[1]),
+            "steps": n,
+            "launches": (S.sr_attention.launches, S.sr_attention_bwd.launches),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _nccl_share(prof, steps):
+    """Device ms a step in a finished torch.profiler run: the NCCL kernels,
+    K1 (sr_fwd_*, sr_attention_fwd*), K2 (sr_bwd_*, sr_attention_bwd*) and
+    the device's busy time."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.engine import device_busy_ms
+
+    def ms(pattern):
+        return sum(e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and re.search(pattern, e.name)) / (1e3 * steps)
+
+    busy = device_busy_ms(prof)
+    return {"nccl_ms": ms(r"(?i)nccl"),
+            "k1_ms": ms(r"\bsr_(attention_)?fwd"),
+            "k2_ms": ms(r"\bsr_(attention_)?bwd"),
+            "busy_ms": None if busy is None else busy / steps}
+
+
+def _ddp_inmem_rank(world, swin_steps):
+    """One rank of the in-memory part: mit_b2 at global batch 32 (8 a
+    rank), 2 steps under torch.profiler on rank 0 after 2 untimed (the
+    NCCL all-reduce's device time against the step's); then swin_s at
+    global batch 8, `swin_steps` steps at its attention dropout 0.3 with
+    the K3/K4 launches and the first window attention's kernel seed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.ops import window_attention as W
+    from rgbx_semantic_segmentation_tpu_torch.parallel.multihost import (
+        process_batch_slice)
+
+    out = {"rank": world.rank}
+
+    def local(cfg, batch):
+        rows = process_batch_slice(cfg.train.batch_size, world.rank,
+                                   world.size)
+        return {k: v[rows] for k, v in batch.items()}
+
+    cfg = _ddp_cfg(cfg_lib, batch=32)
+    items = synthetic_items(N_IMAGES, HW, cfg.dataset.num_classes)
+    batch = local(cfg, uint8_batches(items + items, 32)[0])
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    for _ in range(2):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if world.is_main() else contextlib.nullcontext()) as prof:
+        for _ in range(2):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+    if world.is_main():
+        out.update(_nccl_share(prof, 2))
+    del trainer
+    torch.cuda.empty_cache()
+
+    cfg = swin_cfg(cfg_lib)
+    batch = local(cfg, uint8_batches(items, 8)[0])
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    seeds, rank_seed = [], W.rank_seed
+
+    def spy(seed, rate, rank):
+        seeds.append(rank_seed(seed, rate, rank))
+        return seeds[-1]
+
+    W.window_attention.launches = W.window_attention_bwd.launches = 0
+    W.rank_seed = spy
+    try:
+        for _ in range(swin_steps):
+            loss = trainer.step(batch)["loss"]
+    finally:
+        W.rank_seed = rank_seed
+    out["swin"] = {"launches": (W.window_attention.launches,
+                                W.window_attention_bwd.launches),
+                   "seed": int(seeds[0].item()), "loss": float(loss)}
+    return out
+
+
+def ddp_main(n: int, card: str) -> int:
+    """The N-card part (`--ddp N`): see DDP_STEPS."""
+    import tempfile
+
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
+    from rgbx_semantic_segmentation_tpu_torch import eval_cli
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.data.synthetic import (
+        make_synthetic_dataset)
+    from rgbx_semantic_segmentation_tpu_torch.native import build
+    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+    from rgbx_semantic_segmentation_tpu_torch.ops import window_attention as W
+    from rgbx_semantic_segmentation_tpu_torch.parallel import launch
+    from rgbx_semantic_segmentation_tpu_torch.parallel.dist import World
+    from rgbx_semantic_segmentation_tpu_torch.tools import (
+        bench_window_attention as T)
+
+    have = torch.cuda.device_count()
+    if have < n:
+        print(f"chip_smoke --ddp {n}: {have} card(s) visible", file=sys.stderr)
+        return 1
+    devices = list(range(n))
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    # K1-K4 at a rank's shapes: global batch 8 (mit_b2 and swin_s below)
+    # over the n cards; 32 over 4 gives the default run's 8.
+    out = {"cards": n, "rank_kernel_err": rank_kernel_phase(S, W, T, 8 // n)}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        make_synthetic_dataset(data, num_train=16, num_val=8, hw=HW,
+                               num_classes=9, seed=0)
+        argv = ["--config", "mfnet", "--dataset_root", data,
+                "--train_source", "train.txt", "--epochs", "1", "--niters",
+                str(DDP_NITERS)]
+        runs = {}
+        one_card = ["-d", "0"]
+        for tag, extra, devs, fp32 in (
+                ("1 card, batch 8", one_card, None, False),
+                ("1 card, batch 8 (again)", one_card, None, False),
+                (f"{n} cards, batch 8", [], devices, False),
+                (f"{n} cards, batch 32", ["--batch_size", "32"], devices,
+                 False),
+                ("1 card, batch 8, fp32", one_card, None, True),
+                ("1 card, batch 8, fp32 (again)", one_card, None, True),
+                ("1 card, batch 8, fp32 (third)", one_card, None, True),
+                (f"{n} cards, batch 8, fp32", [], devices, True)):
+            cwd = os.path.join(tmp, f"run{len(runs)}")
+            os.makedirs(cwd)
+            t1 = time.perf_counter()
+            with contextlib.chdir(cwd):
+                if devs is None:
+                    torch.cuda.set_device(0)
+                    ranks = [_cli_rank(World.solo("cuda:0"), argv + extra,
+                                       fp32)]
+                else:
+                    ranks = launch.spawn(_cli_rank, devs, "cuda",
+                                         (argv + extra, fp32))
+            torch.cuda.empty_cache()
+            r0 = ranks[0]
+            runs[tag] = {
+                "img_per_s": r0["steady_img_per_s"], "loss":
+                r0["records"][0]["loss"], "losses": r0["losses"],
+                "peak_gib": [r["peak_gib"] for r in ranks],
+                "launches": [r["launches"] for r in ranks],
+                "seconds": time.perf_counter() - t1, "cwd": cwd}
+            print(f"train_cli, {tag}: steady over steps 2..{r0['steps']} "
+                  f"{r0['steady_img_per_s']:.1f} img/s, epoch loss "
+                  f"{r0['records'][0]['loss']:.5f}, peak GiB per rank "
+                  f"{[round(r['peak_gib'], 2) for r in ranks]}, K1/K2 "
+                  f"launches per rank {[r['launches'] for r in ranks]} "
+                  f"({runs[tag]['seconds']:.1f} s)")
+            want = (32 * DDP_NITERS, 32 * DDP_NITERS)
+            check(all(tuple(r["launches"]) == want for r in ranks)
+                  and len(ranks) == (1 if devs is None else n),
+                  f"{tag}: 32 K1 and K2 launches a step on every rank")
+            check(all(r["losses"] == r0["losses"] for r in ranks),
+                  f"{tag}: every rank reports the global loss")
+        # bf16 (read, not held: each rank rounds its partial weight
+        # gradients to bf16, a perturbation that no one-card run has) and
+        # fp32 (held: DDP_LOSS_FACTOR x the largest spread of three one-card
+        # runs, whose perturbations are summation orders, as the split's).
+        many = runs[f"{n} cards, batch 8"]
+        for kind, tags in (("bf16", ("", " (again)")),
+                           ("fp32", (", fp32", ", fp32 (again)",
+                                     ", fp32 (third)"))):
+            ones = [runs[f"1 card, batch 8{t}"]["loss"] for t in tags]
+            got = runs[f"{n} cards, batch 8{tags[0]}"]["loss"]
+            spread = max(abs(a - b) for a in ones for b in ones)
+            gap = max(abs(got - a) for a in ones)
+            print(f"epoch loss, {kind}: {n} cards {got:.6f}, one card "
+                  f"{', '.join(f'{v:.6f}' for v in ones)}: largest gap "
+                  f"{gap:.3e}, largest one-card spread {spread:.3e} "
+                  f"(bound {DDP_LOSS_FACTOR:g}x in fp32)")
+        check(gap <= DDP_LOSS_FACTOR * spread,
+              f"fp32 {n}-card loss {got} vs one card's {ones}")
+        out["train_cli"] = {k: {kk: vv for kk, vv in v.items() if kk != "cwd"}
+                            for k, v in runs.items()}
+
+        # eval_cli over the N cards against one card, one image a forward,
+        # on the N-card run's checkpoint
+        with contextlib.chdir(many["cwd"]):
+            ev = {}
+            for tag, extra in (("1 card", ["-d", "0"]),
+                               (f"{n} cards", ["-d", ",".join(
+                                   map(str, devices))])):
+                t1 = time.perf_counter()
+                res = eval_cli.main(["--config", "mfnet", "--dataset_root",
+                                     data, "-e", "last", "--eval_batch", "1"]
+                                    + extra)
+                ev[tag] = (res["epoch 1"][1], time.perf_counter() - t1)
+        same = bool(np.array_equal(ev["1 card"][0], ev[f"{n} cards"][0]))
+        print(f"eval_cli --eval_batch 1: confusion matrix over {n} cards "
+              f"equal to one card's: {same} (sum {int(ev['1 card'][0].sum())}"
+              f"; {ev['1 card'][1]:.1f} s and {ev[f'{n} cards'][1]:.1f} s)")
+        check(same and ev["1 card"][0].sum() > 0, "eval_cli over the cards")
+        out["eval_cli"] = {"equal": same, "seconds": {
+            k: v[1] for k, v in ev.items()}}
+
+    ranks = launch.spawn(_ddp_inmem_rank, devices, "cuda", (DDP_SWIN_STEPS,))
+    r0 = ranks[0]
+    share = r0["nccl_ms"] / r0["busy_ms"]
+    print(f"mit_b2, {n} cards, global batch 32: NCCL kernels "
+          f"{r0['nccl_ms']:.2f} ms of {r0['busy_ms']:.2f} ms device time a "
+          f"step on rank 0 ({share:.1%}); K1 {r0['k1_ms']:.3f} ms, K2 "
+          f"{r0['k2_ms']:.3f} ms a step (device, 8 images a rank)")
+    swin = [r["swin"] for r in ranks]
+    want = (48 * DDP_SWIN_STEPS, 48 * DDP_SWIN_STEPS)
+    print(f"swin_s, {n} cards, {DDP_SWIN_STEPS} steps at rate 0.3: K3/K4 "
+          f"launches per rank {[s['launches'] for s in swin]} (expected "
+          f"{want}), first kernel seeds {[s['seed'] for s in swin]}, losses "
+          f"{[s['loss'] for s in swin]}")
+    check(all(tuple(s["launches"]) == want for s in swin),
+          "swin_s: 48 K3 and K4 launches a step on every rank")
+    check(len({s["loss"] for s in swin}) == 1, "swin_s: one global loss")
+    out["gradient"], control = grad_phase(train_lib, cfg_lib, devices)
+    # Last, the two checks that need two ranks (`--ddp 1` fails them).
+    # (the first call: stage 1, its first window attention; rate 0.3)
+    masks = [W.keep_mask(torch.tensor([s["seed"]]), 1, 4, 3, 49, 0.3)
+             for s in swin[:2]]
+    check(len(masks) == 2 and not torch.equal(masks[0], masks[-1]),
+          "swin_s: ranks 0 and 1 draw different masks")
+    check(*control)
+    out["profile_rank0"] = {**{k: r0[k] for k in ("nccl_ms", "k1_ms",
+                                                   "k2_ms", "busy_ms")},
+                            "nccl_share": share}
+    out["swin"] = swin
+    print(card)
+    print(json.dumps({"ddp": out, "card": card}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--ddp", type=int, default=0, metavar="N",
+                        help="run only the data-parallel part on N cards "
+                             "(fails when fewer are visible)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port is not run on the CPU",
               file=sys.stderr)
@@ -2376,6 +3058,8 @@ def main() -> int:
     print(card)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    if args.ddp:
+        return ddp_main(args.ddp, " | ".join(smi.stdout.strip().splitlines()))
 
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -2452,6 +3136,8 @@ def main() -> int:
                             grad_names=PST_GRAD_NAMES, vs_truth=True)
     proto = protocol_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer)
     pst_cli = pst_cli_phase(S, cfg_lib, builder, evaluator_lib)
+    torch.cuda.empty_cache()
+    ddp = ddp_world1_phase(S, cfg_lib, train_lib)
     print(card)
 
     def kernel_entry(name, replaces, launches, err, rows, calls, source=None):
@@ -2501,13 +3187,14 @@ def main() -> int:
          mit_eval["launches"] + train["fwd_launches"] + pp_eval["launches"]
          + pp_train["fwd_launches"] + cli["launches"]["fwd"]
          + pst_eval["launches"] + pst_train["fwd_launches"]
-         + proto["launches"] + pst_cli["launches"]["fwd"], fwd_err,
-         fwd_rows, CALLS_PER_FORWARD, None),
+         + proto["launches"] + pst_cli["launches"]["fwd"]
+         + ddp["launches"]["fwd"], fwd_err, fwd_rows, CALLS_PER_FORWARD,
+         None),
         ("sr_attention_bwd", "sr_attention.py:123",
          train["bwd_launches"] + pp_train["bwd_launches"]
          + cli["launches"]["bwd"] + pst_train["bwd_launches"]
-         + pst_cli["launches"]["bwd"], bwd_err, bwd_rows, CALLS_PER_FORWARD,
-         None),
+         + pst_cli["launches"]["bwd"] + ddp["launches"]["bwd"], bwd_err,
+         bwd_rows, CALLS_PER_FORWARD, None),
         ("window_attention_fwd", "window_attention.py:179",
          swin_eval["launches"] + swin_train["fwd_launches"], wfwd_err,
          wfwd_rows, SWIN_CALLS, None),
@@ -2527,7 +3214,7 @@ def main() -> int:
         "train": train, "swin_eval": swin_eval, "swin_train": swin_train,
         "pp_eval": pp_eval, "pp_train": pp_train, "cli": cli,
         "pst_eval": pst_eval, "pst_train": pst_train, "protocol": proto,
-        "pst_cli": pst_cli, "card": card}))
+        "pst_cli": pst_cli, "ddp_world1": ddp, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

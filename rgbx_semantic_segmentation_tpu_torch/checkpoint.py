@@ -48,19 +48,25 @@ class CheckpointManager:
     def save(self, epoch: int, trainer) -> str:
         """Write the trainer's model, optimizer and step at `epoch` and point
         epoch-last.pth at it; returns the file's path. Blocks until the file
-        is in place (torch.save copies device tensors to the host)."""
-        payload = {"model": trainer.model.state_dict(),
-                   "optimizer": trainer.optimizer.state_dict(),
-                   "epoch": int(epoch), "iteration": int(trainer.global_step)}
+        is in place (torch.save copies device tensors to the host). Rank 0
+        of the trainer's world writes (the bare model: no DDP prefix; the
+        ranks' states are equal) and every rank waits for it."""
         path = self.path(epoch)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        try:
-            torch.save(payload, tmp)
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        link_file(os.path.basename(path), os.path.join(self.directory, LAST))
+        if trainer.world.is_main():
+            payload = {"model": trainer.model.state_dict(),
+                       "optimizer": trainer.optimizer.state_dict(),
+                       "epoch": int(epoch),
+                       "iteration": int(trainer.global_step)}
+            tmp = f"{path}.{os.getpid()}.tmp"
+            try:
+                torch.save(payload, tmp)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            link_file(os.path.basename(path),
+                      os.path.join(self.directory, LAST))
+        trainer.world.barrier()
         return path
 
     def all_epochs(self) -> List[int]:
@@ -92,7 +98,9 @@ class CheckpointManager:
         The payload is read to the CPU; load_state_dict copies the weights
         into the model's tensors on its device and moves the optimizer's
         moments to their parameters' device, while AdamW's step counters
-        stay fp32 scalars on the CPU, as AdamW keeps them."""
+        stay fp32 scalars on the CPU, as AdamW keeps them. Every rank of a
+        data-parallel run restores the same file onto its own device; the
+        file does not record the world size it was written by."""
         payload = self.load(epoch)
         trainer.model.load_state_dict(payload["model"], strict=True)
         trainer.optimizer.load_state_dict(payload["optimizer"])

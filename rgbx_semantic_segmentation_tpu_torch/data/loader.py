@@ -18,6 +18,10 @@ the workers, and a worker's exception is raised in the consumer. Batches
 are uint8 torch tensors (normalised on the device by the train step), in
 pinned memory when a card is present, so that the step's non_blocking copy
 to the card is asynchronous.
+
+In a data-parallel run (`rank`, `world`) each rank loads only its rows of
+the same global batches (parallel/multihost.process_batch_slice): the
+ranks' batches, concatenated in rank order, are the one-process batch.
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ from rgbx_semantic_segmentation_tpu_torch.data.dataset import RGBXDataset
 from rgbx_semantic_segmentation_tpu_torch.data.preprocess import (
     TrainPre, ValPre)
 from rgbx_semantic_segmentation_tpu_torch.native import cv_ops as native_ops
+from rgbx_semantic_segmentation_tpu_torch.parallel.multihost import (
+    process_batch_slice)
 
 _KEYS = ("rgb", "modal_x", "label")
 
@@ -54,7 +60,8 @@ def _collate(samples, pin_memory: bool = False) -> Dict[str, torch.Tensor]:
 
 
 class TrainLoader:
-    """Shuffled, drop-last batch iterator with threaded prefetch.
+    """Shuffled, drop-last batch iterator with threaded prefetch; with
+    `rank` and `world`, rank `rank`'s rows of each global batch.
 
     `ops` are the augmentation's image ops: the native library by default
     (built here, at construction: a failed build raises with the compiler's
@@ -65,8 +72,11 @@ class TrainLoader:
     def __init__(self, cfg: Config, root: Optional[str] = None,
                  num_workers: Optional[int] = None, seed: Optional[int] = None,
                  prefetch: int = 4, ops=native_ops,
-                 pin_memory: Optional[bool] = None):
+                 pin_memory: Optional[bool] = None, rank: int = 0,
+                 world: int = 1):
         self.cfg = cfg
+        # This rank's rows of every global batch (raises unless it divides).
+        self.rows = process_batch_slice(cfg.train.batch_size, rank, world)
         seed = cfg.train.seed if seed is None else seed
         self.seed = seed
         if ops is native_ops:
@@ -104,7 +114,7 @@ class TrainLoader:
             len(self.dataset))
         n_batches = self.niters
         idx_batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
-                       for i in range(n_batches)]
+                       [self.rows] for i in range(n_batches)]
 
         if self.num_workers <= 0:
             for idxs in idx_batches:

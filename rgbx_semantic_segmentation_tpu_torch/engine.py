@@ -3,9 +3,13 @@ preemption save, profiling hooks (the port's counterpart of
 rgbx_semantic_segmentation_tpu/engine.py).
 
 Parity target: reference `engine/engine.py:29-163` (Engine context manager,
-State, checkpoint save/restore). One device: `-d` takes one index; more
-devices, or a mesh other than `dp`, are data parallelism (ROADMAP M9).
-Profiling uses torch.profiler where the JAX engine uses jax.profiler.
+State, checkpoint save/restore). An Engine runs on one device, or as one
+rank of a data-parallel world (parallel/dist.py; the CLIs start the ranks
+through parallel/launch.py): the logger speaks and the profiler traces on
+rank 0, checkpoints are written by rank 0, every rank handles the stop
+signals and the ranks agree on a stop. `--mesh` takes 'dp' and 'dp:N'; the
+2-D meshes raise (ROADMAP Queue 1 item 5). Profiling uses torch.profiler
+where the JAX engine uses jax.profiler.
 """
 from __future__ import annotations
 
@@ -22,8 +26,9 @@ from rgbx_semantic_segmentation_tpu_torch.checkpoint import CheckpointManager
 from rgbx_semantic_segmentation_tpu_torch.config import Config
 from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
 from rgbx_semantic_segmentation_tpu_torch.logger import get_logger
+from rgbx_semantic_segmentation_tpu_torch.parallel.dist import (
+    World, make_world_from_spec)
 
-_M9 = "ROADMAP M9 (data parallelism)"
 _STOP_SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
 
@@ -38,8 +43,10 @@ def should_checkpoint(cfg: Config, epoch: int) -> bool:
 
 
 def select_device(device: str = "cuda", devices: str = "") -> torch.device:
-    """The one device of a run: `device` ("cuda" or "cpu"), and for cuda the
-    index `devices` names (default 0). More than one index raises (M9)."""
+    """The device of a one-process run: `device` ("cuda" or "cpu"), and for
+    cuda the index `devices` names (default: the current card). Several
+    indices are a data-parallel run, which parallel/launch.py starts: here
+    they raise ValueError."""
     if device != "cuda" or not devices:
         return resolve_device(None if device == "cuda" else device)
     from rgbx_semantic_segmentation_tpu_torch.utils.fs import parse_devices
@@ -47,8 +54,8 @@ def select_device(device: str = "cuda", devices: str = "") -> torch.device:
     resolve_device(None)   # raises without a CUDA device
     idx = parse_devices(devices)
     if len(idx) != 1:
-        raise NotImplementedError(
-            f"devices {idx}: one device per run; more is {_M9}")
+        raise ValueError(f"devices {idx}: one process runs on one device "
+                         "(parallel/launch.py starts one per device)")
     torch.cuda.set_device(idx[0])   # the kernels launch on the current one
     return torch.device("cuda", idx[0])
 
@@ -61,16 +68,23 @@ class Engine:
             ...
 
     `args` may carry `device` ("cuda" default, or "cpu"), `devices` (one
-    CUDA index), `mesh` (only "dp") and `profile_dir`."""
+    CUDA index), `mesh` ("dp", "dp:N") and `profile_dir`. With a `world`
+    (parallel/launch.run gives every CLI one) the engine is that rank's, on
+    the world's device: the launcher has applied `devices` and `mesh`.
+    Without, it is one process's on the device `args` name."""
 
-    def __init__(self, cfg: Config, args: Optional[argparse.Namespace] = None):
+    def __init__(self, cfg: Config, args: Optional[argparse.Namespace] = None,
+                 world: Optional[World] = None):
         self.cfg = cfg
         self.logger = get_logger()
-        mesh = getattr(args, "mesh", "") or "dp"
-        if mesh != "dp":
-            raise NotImplementedError(f"--mesh {mesh}: {_M9}")
-        self.device = select_device(getattr(args, "device", None) or "cuda",
-                                    getattr(args, "devices", "") or "")
+        if world is None:
+            make_world_from_spec(getattr(args, "mesh", "") or "dp",
+                                 cfg.train.batch_size, [0])
+            world = World.solo(select_device(
+                getattr(args, "device", None) or "cuda",
+                getattr(args, "devices", "") or ""))
+        self.world = world
+        self.device = world.device
         ckpt_dir = os.path.join(cfg.log_dir, cfg.tag(), "checkpoint")
         self.checkpoints = CheckpointManager(ckpt_dir)
         self._profile_dir = getattr(args, "profile_dir", None)
@@ -80,7 +94,8 @@ class Engine:
 
     # -- lifecycle ---------------------------------------------------------
     def __enter__(self):
-        self.logger.info("Engine start: device %s", self.device)
+        self.logger.info("Engine start: device %s, rank 0 of %d",
+                         self.device, self.world.size)
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -138,8 +153,10 @@ class Engine:
         """If a stop signal arrived, checkpoint the trainer at `epoch` and (by
         default) re-raise the signal with its default disposition so the
         process exits with the conventional status. Returns True when a
-        preemption was handled."""
-        signum = self._preempt_signum
+        preemption was handled. In a world the ranks agree first: a signal
+        to any rank stops every rank (rank 0 writes the one checkpoint and
+        each re-raises the signal)."""
+        signum = self.world.host_max(self._preempt_signum or 0) or None
         if signum is None:
             return False
         self.logger.warning(
@@ -157,8 +174,8 @@ class Engine:
         """torch.profiler over the block when the engine has a profile_dir:
         a Chrome trace `<profile_dir>/<name>.json` and, in `last_profile`,
         the device's busy time (the union of its kernels and copies) and
-        idle share over the block's wall time."""
-        if not self._profile_dir:
+        idle share over the block's wall time. In a world, rank 0's."""
+        if not self._profile_dir or not self.world.is_main():
             yield
             return
         from torch.profiler import ProfilerActivity, profile

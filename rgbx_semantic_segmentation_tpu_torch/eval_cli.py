@@ -14,7 +14,10 @@ trains with it; port checkpoints are named by epoch or directory).
 With neither, the model is initialised from seed 0 (random weights: only the
 path is exercised, the mIoU means nothing). --compat-stride-swap and
 --compat-double-normalize replicate the original repo's sliding grid and
-the original fork's double normalisation.
+the original fork's double normalisation. `-d 0,1,2,3` evaluates on one
+process per card (parallel/launch.py): rank r takes items r, r + N, ...,
+writes its own PNGs, and the confusion matrices are summed once at the end,
+so the scores are one process's (with --eval_batch 1, element for element).
 """
 from __future__ import annotations
 
@@ -50,8 +53,9 @@ def main(argv=None):
                         help="append the tables here (default with -e: "
                              "<log_dir>/<tag>/val_last.log)")
     parser.add_argument("-d", "--devices", default="",
-                        help="the CUDA device index (one device; more is "
-                             "ROADMAP M9)")
+                        help="device indices, e.g. '1' or '0,1,2,3' (one "
+                             "process per device, each on its share of the "
+                             "items)")
     parser.add_argument("-v", "--verbose", action="store_true",
                         help="log the running metric after every image")
     parser.add_argument("--compat-stride-swap", action="store_true",
@@ -70,16 +74,8 @@ def main(argv=None):
 
     import dataclasses
 
-    import torch
-
     from rgbx_semantic_segmentation_tpu_torch import config as config_lib
-    from rgbx_semantic_segmentation_tpu_torch.checkpoint import (
-        resolve_weights)
-    from rgbx_semantic_segmentation_tpu_torch.data.loader import ValLoader
-    from rgbx_semantic_segmentation_tpu_torch.engine import select_device
-    from rgbx_semantic_segmentation_tpu_torch.evaluator import (
-        evaluate_weights)
-    from rgbx_semantic_segmentation_tpu_torch.logger import get_logger
+    from rgbx_semantic_segmentation_tpu_torch.parallel import launch
 
     try:
         cfg = config_lib.get_config(args.config)
@@ -93,8 +89,26 @@ def main(argv=None):
                                   ("decoder", args.decoder)) if v}
     if model_kw:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model_kw))
+    return launch.run(evaluate, args.device,
+                      launch.cli_devices(args.device, args.devices),
+                      (args, cfg))
+
+
+def evaluate(world, args, cfg):
+    """The evaluation of one rank of `world` (parallel/dist.World; one
+    process is World.solo); returns main()'s results (the same on every
+    rank)."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.checkpoint import (
+        resolve_weights)
+    from rgbx_semantic_segmentation_tpu_torch.data.loader import ValLoader
+    from rgbx_semantic_segmentation_tpu_torch.evaluator import (
+        evaluate_weights)
+    from rgbx_semantic_segmentation_tpu_torch.logger import get_logger
+
     logger = get_logger()
-    device = select_device(args.device, args.devices)
+    device = world.device
 
     # What to evaluate: [(label, load(model))].
     if args.epochs:
@@ -121,7 +135,7 @@ def main(argv=None):
         compat_double_normalize=args.compat_double_normalize,
         compat_stride_swap=args.compat_stride_swap,
         eval_batch=args.eval_batch, save_path=args.save_path,
-        show_image_dir=show_dir, verbose=args.verbose)
+        show_image_dir=show_dir, verbose=args.verbose, world=world)
 
 
 if __name__ == "__main__":

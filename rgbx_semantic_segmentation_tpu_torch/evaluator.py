@@ -19,7 +19,10 @@ host-side resize runs on the device, the confusion matrix too
 `evaluate` batches consecutive same-size images whose every scale fits one
 crop: one forward of `eval_batch` images a scale (at exact fit and one
 scale the argmax of the forward, the MFNet case); any other image goes
-through `sliding_eval_rgbx` alone.
+through `sliding_eval_rgbx` alone. Over a data-parallel world (where the
+JAX evaluator shards its window and image batches on the mesh, JAX
+evaluator.py:103-119) rank r takes items r, r + N, ... and the confusion
+matrices are summed over the ranks once, at the end.
 
 The output side: palettised and raw prediction PNGs (`save_path`),
 [image | prediction | gt] composites (`show_image_dir`), the running
@@ -44,6 +47,7 @@ from rgbx_semantic_segmentation_tpu_torch.config import Config
 from rgbx_semantic_segmentation_tpu_torch.data import cv_ops
 from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
 from rgbx_semantic_segmentation_tpu_torch.models.builder import main_logits
+from rgbx_semantic_segmentation_tpu_torch.parallel.dist import World
 
 
 def _window_grid(pad_h: int, pad_w: int, crop: Tuple[int, int],
@@ -284,8 +288,8 @@ class SegEvaluator:
 
     def evaluate(self, dataset, logger=None, eval_batch: int = 1,
                  save_path: Optional[str] = None,
-                 show_image_dir: Optional[str] = None, verbose: bool = False
-                 ) -> Tuple[metrics_lib.Scores, str]:
+                 show_image_dir: Optional[str] = None, verbose: bool = False,
+                 world=None) -> Tuple[metrics_lib.Scores, str]:
         """Evaluate a dataset (a sequence of {rgb, modal_x, label, fn}
         dicts); returns (scores, formatted result line) and keeps the
         confusion matrix in `last_hist` (reference eval.py:23-83).
@@ -293,13 +297,18 @@ class SegEvaluator:
         save_path: raw and palettised prediction PNGs there (and in
         `<save_path>_color`); show_image_dir: [image | prediction | gt]
         composites there (the reference's interactive `-s` view as files);
-        verbose: log the running mIoU after every image (reference -v)."""
+        verbose: log the running mIoU after every image (reference -v);
+        world: this rank's share of the items (parallel/dist.World; None:
+        one process's, all of them), the scores those of the whole dataset
+        (the running metric and the PNGs are the rank's own)."""
         n_cl = self.num_classes
         hist = torch.zeros((n_cl, n_cl), dtype=torch.long, device=self.device)
         labeled = torch.zeros((), dtype=torch.long, device=self.device)
         correct = torch.zeros((), dtype=torch.long, device=self.device)
         t0 = time.time()
-        n = len(dataset)
+        world = world or World.solo(self.device)
+        indices = range(world.rank, len(dataset), world.size)
+        n = len(indices)
         done = last_log = 0
 
         def account(preds: torch.Tensor, items: List[dict]):
@@ -343,7 +352,7 @@ class SegEvaluator:
                 account(self._batched_whole_image(buf), buf)
                 buf = []
 
-        for i in range(n):
+        for i in indices:
             item = dataset[i]
             if eval_batch > 1 and self._one_shot_all_scales(item):
                 if buf and buf[0]["rgb"].shape != item["rgb"].shape:
@@ -359,6 +368,8 @@ class SegEvaluator:
         if logger is not None:
             logger.info("eval %d/%d done (%.2f img/s)", done, n,
                         done / max(time.time() - t0, 1e-9))
+        for t in (hist, labeled, correct):
+            world.all_reduce(t)
         self.last_hist = hist.cpu().numpy()
         scores = metrics_lib.compute_score(self.last_hist, correct.item(),
                                            labeled.item())
@@ -408,7 +419,7 @@ class SegEvaluator:
 def evaluate_weights(cfg: Config, dataset, targets, val_log: Optional[str] = None,
                      logger=None, device=None,
                      compat_double_normalize: bool = False,
-                     compat_stride_swap: bool = False, **eval_kw
+                     compat_stride_swap: bool = False, world=None, **eval_kw
                      ) -> Dict[str, Tuple[metrics_lib.Scores, np.ndarray]]:
     """The sweep (reference evaluator.py:42-98): one model on `device`; for
     each (label, load) of `targets` load(model) puts the weights in (a None
@@ -416,10 +427,12 @@ def evaluate_weights(cfg: Config, dataset, targets, val_log: Optional[str] = Non
     (SegEvaluator.evaluate's eval_batch, save_path, show_image_dir,
     verbose) by a SegEvaluator with the compat flags, and the table is
     printed and appended to `val_log`. Returns {label: (scores, confusion
-    matrix)}."""
+    matrix)}. Over a `world` every rank evaluates its share and returns the
+    whole dataset's results; rank 0 prints and writes the tables."""
     from rgbx_semantic_segmentation_tpu_torch.models.builder import build_model
 
     device = resolve_device(device)
+    world = world or World.solo(device)
     results = {}
     if not targets:
         return results
@@ -431,8 +444,11 @@ def evaluate_weights(cfg: Config, dataset, targets, val_log: Optional[str] = Non
     for label, load in targets:
         if load is not None:
             load(model)
-        scores, line = evaluator.evaluate(dataset, logger=logger, **eval_kw)
+        scores, line = evaluator.evaluate(dataset, logger=logger,
+                                          world=world, **eval_kw)
         results[label] = (scores, evaluator.last_hist)
+        if not world.is_main():
+            continue
         text = f"======= {label} =======\n{line}"
         print(text)
         if val_log:

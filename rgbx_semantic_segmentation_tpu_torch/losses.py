@@ -22,7 +22,10 @@ _LATER_CRITERIA = ("SigmoidFocalLoss", "FocalLoss", "DiceLoss", "DiceCELoss",
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_index: int = 255,
                        weight: Optional[torch.Tensor] = None,
-                       reduction: str = "mean") -> torch.Tensor:
+                       reduction: str = "mean",
+                       denom_reduce: Optional[Callable[[torch.Tensor],
+                                                       torch.Tensor]] = None
+                       ) -> torch.Tensor:
     """Softmax cross-entropy with ignore_index: fp32 log-softmax over the
     trailing class axis; matches nn.CrossEntropyLoss(ignore_index=...).
 
@@ -30,6 +33,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     kept targets (torch's rule). When every pixel is ignored the mean is 0,
     where F.cross_entropy gives NaN. Out-of-range labels are clamped, as in
     the JAX version. reduction: "mean" | "sum" | anything else = per-pixel.
+    `denom_reduce` maps the mean's normaliser (the kept targets' count or
+    summed weights) to the one it divides by: a data-parallel rank passes
+    the sum over the ranks, so that the ranks' losses add up to the mean
+    over the global batch (see train.make_loss_fn).
     """
     logits = logits.float()
     num_classes = logits.shape[-1]
@@ -44,6 +51,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         denom = (w * valid).sum()
     else:
         denom = valid.sum()
+    if denom_reduce is not None:
+        denom = denom_reduce(denom)
     nll = nll * valid
     if reduction == "mean":
         # Guard only the empty case: the weighted mean divides by

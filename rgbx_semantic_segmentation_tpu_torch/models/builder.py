@@ -158,6 +158,13 @@ class EncoderDecoder(nn.Module):
                 channels[AUX_INDEX], cfg.dataset.num_classes,
                 in_index=AUX_INDEX, channels=256,
                 bn_momentum=cfg.model.bn_momentum, bn_eps=cfg.model.bn_eps)
+        # A stage that no head reads leaves its fusion module out of the
+        # loss, without a gradient (data parallelism must then look for
+        # such parameters: Trainer).
+        read = set(self.decode_head.in_stages)
+        if self.aux_head is not None:
+            read |= set(self.aux_head.in_stages)
+        self.every_param_in_loss = read == set(range(len(channels)))
 
     def forward(self, rgb: torch.Tensor, modal_x: torch.Tensor
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:

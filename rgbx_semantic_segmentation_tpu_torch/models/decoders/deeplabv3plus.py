@@ -25,6 +25,8 @@ RATES = (12, 24, 36)
 
 
 class DeepLabV3Plus(nn.Module):
+    in_stages = (0, 3)   # the encoder stages forward reads (c1, c4)
+
     def __init__(self, in_channels: Sequence[int], num_classes: int,
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5):
         super().__init__()

@@ -23,6 +23,7 @@ class FCNHead(nn.Module):
         super().__init__()
         mid = channels or in_channels // 4
         self.in_index = in_index
+        self.in_stages = (in_index,)   # the encoder stages forward reads
         self.conv = conv_bn_relu(in_channels, mid, 3, bn_momentum=bn_momentum,
                                  bn_eps=bn_eps)
         self.classifier = nn.Conv2d(mid, num_classes, 1)

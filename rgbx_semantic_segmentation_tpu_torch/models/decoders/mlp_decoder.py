@@ -50,6 +50,8 @@ def sliced_fuse(conv: nn.Conv2d, embeds: Sequence[torch.Tensor],
 class MLPDecoder(nn.Module):
     """Input: 4 NCHW maps [1/4, 1/8, 1/16, 1/32]; output logits at 1/4."""
 
+    in_stages = (0, 1, 2, 3)   # the encoder stages forward reads
+
     def __init__(self, in_channels: Sequence[int], num_classes: int,
                  embed_dim: int = 768, dropout_ratio: float = 0.1,
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5):

@@ -20,6 +20,8 @@ from rgbx_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
 
 
 class UPerHead(nn.Module):
+    in_stages = (0, 1, 2, 3)   # the encoder stages forward reads
+
     def __init__(self, in_channels: Sequence[int], num_classes: int,
                  channels: int = 512, pool_scales: Sequence[int] = (1, 2, 3, 6),
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5):

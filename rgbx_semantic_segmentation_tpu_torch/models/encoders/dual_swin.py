@@ -167,7 +167,9 @@ class WindowAttention(nn.Module):
             else:
                 comb = bias[None].expand(nW, -1, -1, -1)
             rate = self.attn_drop.rate if self.training else 0.0
-            seed = self._seed(x.device) if rate > 0.0 else None
+            seed = (WA.rank_seed(self._seed(x.device), rate,
+                                 self.attn_drop.rank)
+                    if rate > 0.0 else None)
             out = WA.window_attention(qkv, comb, seed, scale, rate,
                                       self.window_size)
             return self.proj_drop(self.proj(out))

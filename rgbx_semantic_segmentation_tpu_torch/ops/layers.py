@@ -18,7 +18,7 @@ torch.Generator.
 Randomness in training is explicit too: DropPath and Dropout draw their
 masks from the torch.Generator in their `generator` attribute, which
 `set_generator` hands to every such module of a model (the trainer reseeds
-it from (seed, step) before each step). With no generator set they draw
+it from (seed, step, rank) before each step). With no generator set they draw
 from torch's global one on their input's device.
 """
 from __future__ import annotations
@@ -88,6 +88,9 @@ class _Stochastic(nn.Module):
             raise ValueError(f"drop rate {rate} outside [0, 1)")
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        # The data-parallel rank: a kernel that draws its own mask from a
+        # seed (the window attention) offsets the seed by it.
+        self.rank = 0
 
     def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         raise NotImplementedError
@@ -127,12 +130,14 @@ class Dropout2d(_Stochastic):
         return tuple(x.shape[:2]) + (1, 1)
 
 
-def set_generator(model: nn.Module,
-                  generator: Optional[torch.Generator]) -> None:
-    """Hand `generator` to every DropPath / Dropout / Dropout2d of `model`."""
+def set_generator(model: nn.Module, generator: Optional[torch.Generator],
+                  rank: int = 0) -> None:
+    """Hand `generator` and the data-parallel `rank` to every DropPath /
+    Dropout / Dropout2d of `model`."""
     for m in model.modules():
         if isinstance(m, _Stochastic):
             m.generator = generator
+            m.rank = rank
 
 
 def conv_bn_relu(in_ch: int, out_ch: int, kernel: int, bias: bool = True,

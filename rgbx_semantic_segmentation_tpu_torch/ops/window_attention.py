@@ -33,7 +33,12 @@ Dropout: the keep mask is a pure function of (seed, image, window, head,
 row, column) through Philox4x32-10, written out twice: inside the kernels
 (csrc/attention_common.cuh) and here in PyTorch integer ops (`keep_mask`),
 so the plain versions draw the identical mask, bit for bit. The seed is an
-int64 device tensor that the kernels read from device memory.
+int64 device tensor that the kernels read from device memory. The mask
+folds in only the image's index within the call, so a data-parallel rank
+offsets the seed (`rank_seed`), as the JAX window_attention_sharded does
+per shard (JAX :389-393): the ranks' images draw different masks. The bias
+gradient db is summed over the rank's images; the JAX psum over the data
+axis (:416) is DDP's sum over the ranks (train.py).
 
 Device rule: a CPU tensor takes the plain versions
 (`window_attention_reference`, `window_attention_bwd_reference`); a CUDA
@@ -93,6 +98,17 @@ def philox4x32(counter, key, rounds: int = 10):
         k0 = (k0 + _PHILOX_W0) & _MASK32
         k1 = (k1 + _PHILOX_W1) & _MASK32
     return c0, c1, c2, c3
+
+
+RANK_SEED_STRIDE = 1000003
+
+
+def rank_seed(seed: torch.Tensor, rate: float, rank: int) -> torch.Tensor:
+    """The kernels' dropout seed on data-parallel rank `rank`: seed + rank x
+    1000003 when rate > 0 (JAX `_local_seed`), the seed itself at rate 0."""
+    if rate > 0.0 and rank:
+        return seed + rank * RANK_SEED_STRIDE
+    return seed
 
 
 def keep_mask(seed: torch.Tensor, B: int, nW: int, h: int, N: int,

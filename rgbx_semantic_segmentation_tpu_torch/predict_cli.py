@@ -10,7 +10,8 @@ composites).
 
 Inputs: either `--dataset_root` + `--source names.txt` (names resolved
 through the config's rgb/x folder layout, like training), or a single
-`--rgb img.png --x modal.png` pair.
+`--rgb img.png --x modal.png` pair. `-d 0,1,2,3` predicts on one process
+per card (parallel/launch.py), rank r taking files r, r + N, ...
 
 Usage:
     python -m rgbx_semantic_segmentation_tpu_torch.predict_cli --config mfnet \\
@@ -54,8 +55,9 @@ def main(argv=None):
                         help="also save [image | prediction] composites in "
                              "<save_path>_compare")
     parser.add_argument("-d", "--devices", default="",
-                        help="the CUDA device index (one device; more is "
-                             "ROADMAP M9)")
+                        help="device indices, e.g. '1' or '0,1,2,3' (one "
+                             "process per device, each on its share of the "
+                             "files)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
@@ -64,17 +66,8 @@ def main(argv=None):
 
     import dataclasses
 
-    import numpy as np
-
     from rgbx_semantic_segmentation_tpu_torch import config as config_lib
-    from rgbx_semantic_segmentation_tpu_torch.checkpoint import (
-        resolve_weights)
-    from rgbx_semantic_segmentation_tpu_torch.data.dataset import (
-        RGBXDataset, _imread, load_modal_image, load_rgbx_pair)
-    from rgbx_semantic_segmentation_tpu_torch.engine import select_device
-    from rgbx_semantic_segmentation_tpu_torch.evaluator import SegEvaluator
-    from rgbx_semantic_segmentation_tpu_torch.logger import get_logger
-    from rgbx_semantic_segmentation_tpu_torch.models.builder import build_model
+    from rgbx_semantic_segmentation_tpu_torch.parallel import launch
 
     try:
         cfg = config_lib.get_config(args.config)
@@ -84,8 +77,27 @@ def main(argv=None):
                                   ("decoder", args.decoder)) if v}
     if model_kw:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model_kw))
+    return launch.run(predict, args.device,
+                      launch.cli_devices(args.device, args.devices),
+                      (args, cfg))
+
+
+def predict(world, args, cfg):
+    """The predictions of one rank of `world` (parallel/dist.World; one
+    process is World.solo), on its share of the files; returns the names
+    written (by every rank)."""
+    import numpy as np
+
+    from rgbx_semantic_segmentation_tpu_torch.checkpoint import (
+        resolve_weights)
+    from rgbx_semantic_segmentation_tpu_torch.data.dataset import (
+        RGBXDataset, _imread, load_modal_image, load_rgbx_pair)
+    from rgbx_semantic_segmentation_tpu_torch.evaluator import SegEvaluator
+    from rgbx_semantic_segmentation_tpu_torch.logger import get_logger
+    from rgbx_semantic_segmentation_tpu_torch.models.builder import build_model
+
     logger = get_logger()
-    device = select_device(args.device, args.devices)
+    device = world.device
 
     cfg, targets = resolve_weights(cfg, args.epochs, args.checkpoint_dir,
                                    logger)
@@ -113,6 +125,8 @@ def main(argv=None):
 
         def load(name):
             return load_rgbx_pair(cfg.dataset, root, name)
+    every = names
+    names = names[world.rank::world.size]
 
     save_path = args.save_path or os.path.join(cfg.log_dir, cfg.tag(),
                                                "predict")
@@ -155,7 +169,8 @@ def main(argv=None):
         done = min(i + BATCH, len(names))
         logger.info("predict %d/%d (%.2f img/s)", done, len(names),
                     done / max(time.time() - t0, 1e-9))
-    return names
+    world.barrier()   # every rank's files are written
+    return every
 
 
 if __name__ == "__main__":

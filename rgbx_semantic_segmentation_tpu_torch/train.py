@@ -1,4 +1,4 @@
-"""Training runtime: loss function, train step, single-device trainer
+"""Training runtime: loss function, train step, trainer
 (counterpart of rgbx_semantic_segmentation_tpu/train.py).
 
 One step = forward under bf16 autocast (fp32 params, no GradScaler: bf16
@@ -7,16 +7,31 @@ decoders that carry one), backward (the SR attentions through
 the hand-written backward kernel on the card), AdamW at the scheduled lr.
 uint8 batches are normalised on the device; fp32 batches are taken as
 host-normalised. The drop-path / dropout masks of step `s` come from a
-generator seeded from (seed, s), so a resumed run draws the same masks.
-No mesh here: one device (data parallelism is ROADMAP M9).
+generator seeded from (seed, s, rank), so a resumed run draws the same masks.
+
+Data parallelism (`world`, parallel/dist.py): one process per device, the
+model in DistributedDataParallel, with the JAX data mesh's semantics, where
+one jitted step shards the global batch (JAX train.py:209-245): a step on N
+ranks computes what one process computes on the global batch. So the
+loss is the mean over the GLOBAL batch's valid pixels (each rank divides
+its sum by the all-reduced count, and a comm hook SUMS the gradient buckets
+where DDP's default averages per-rank means, which differ once the ranks
+hold different counts of ignored pixels); the BatchNorms are
+parallel/sync_bn's (global statistics); every rank builds the same weights
+from the seed and runs the same AdamW update on the same gradients. Masks
+differ per rank: the rank folds into the mask generator's seed, and the
+window attention offsets its kernels' seed by the rank.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from rgbx_semantic_segmentation_tpu_torch import losses as losses_lib
 from rgbx_semantic_segmentation_tpu_torch import lr_schedules, optim
@@ -25,13 +40,26 @@ from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
 from rgbx_semantic_segmentation_tpu_torch.models.builder import (
     AUX_RATE, build_model)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import set_generator
+from rgbx_semantic_segmentation_tpu_torch.parallel.dist import World
+from rgbx_semantic_segmentation_tpu_torch.parallel.sync_bn import (
+    convert_sync_batchnorm)
 
-
-def make_loss_fn(cfg: Config) -> Callable:
+def make_loss_fn(cfg: Config, world: Optional[World] = None) -> Callable:
     """The criterion on the model's output; on an (logits, aux) pair
     criterion(logits) + AUX_RATE * criterion(aux), as the JAX make_loss_fn.
-    The mask2former dict comes with its decoder (ROADMAP M10 item 3)."""
+    The mask2former dict comes with its decoder (ROADMAP M10 item 3).
+
+    Each criterion divides this rank's sum by the valid count summed over
+    the `world`'s ranks (no gradient flows through it): the ranks' losses
+    then add up to the mean over the global batch. Without a world, one
+    process's: the mean over its batch."""
     criterion = losses_lib.build_criterion(cfg)
+    world = world or World.solo()
+
+    def global_sum(t: torch.Tensor) -> torch.Tensor:
+        return world.all_reduce(t.detach().clone())
+
+    criterion = functools.partial(criterion, denom_reduce=global_sum)
 
     def loss_fn(outputs, labels):
         if isinstance(outputs, dict):
@@ -45,24 +73,49 @@ def make_loss_fn(cfg: Config) -> Callable:
     return loss_fn
 
 
-def step_seed(seed: int, step: int) -> int:
-    """Generator seed of one step's drop-path / dropout masks: a fixed
-    mixing of (seed, step), so step s of any run with this seed, resumed or
-    not, draws the same masks."""
-    return (seed * 1000003 + step * 7919 + 12345) % (2 ** 63)
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """Generator seed of one step's drop-path / dropout masks on `rank`: a
+    fixed mixing of (seed, step, rank), so step s of any run with this seed,
+    resumed or not, draws the same masks, and ranks draw different ones
+    (rank 0 draws what a single process draws)."""
+    return (seed * 1000003 + step * 7919 + rank * 2147483647
+            + 12345) % (2 ** 63)
+
+
+def _sum_hook(group, bucket):
+    """DDP comm hook: SUM a gradient bucket over the ranks (DDP's default
+    divides by the world size). With the global-count loss of make_loss_fn
+    the sum is the gradient of the global mean."""
+    fut = dist.all_reduce(bucket.buffer(), group=group,
+                          async_op=True).get_future()
+    return fut.then(lambda f: f.value()[0])
 
 
 def make_train_step(cfg: Config, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
-                    seed: Optional[int] = None) -> Callable:
+                    seed: Optional[int] = None,
+                    world: Optional[World] = None) -> Callable:
     """Build `train_step(step, batch) -> loss` (a 0-d tensor on the device;
-    no host sync). `seed` overrides cfg.train.seed for the mask stream."""
-    loss_fn = make_loss_fn(cfg)
+    no host sync). `seed` overrides cfg.train.seed for the mask stream.
+    In a `world` with a process group the step runs `model` (its BatchNorms
+    converted) in DistributedDataParallel; the step returns the global
+    batch's loss."""
+    device = next(model.parameters()).device
+    world = world or World.solo(device)
+    loss_fn = make_loss_fn(cfg, world)
     schedule = lr_schedules.build_schedule(cfg.train.lr_policy, cfg.train)
     base_seed = cfg.train.seed if seed is None else seed
-    device = next(model.parameters()).device
     generator = torch.Generator(device=device)
-    set_generator(model, generator)
+    set_generator(model, generator, world.rank)
+    net = model
+    if world.distributed:
+        # Every rank built the same weights from the seed, so the
+        # construction's broadcast from rank 0 changes nothing (nor do the
+        # buffer broadcasts: the BN running statistics are global).
+        net = DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda" else None,
+            find_unused_parameters=not model.every_param_in_loss)
+        net.register_comm_hook(None, _sum_hook)
     mean = torch.tensor(cfg.dataset.norm_mean, dtype=torch.float32,
                         device=device)
     std = torch.tensor(cfg.dataset.norm_std, dtype=torch.float32,
@@ -84,36 +137,47 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
 
     def train_step(step: int, batch: Dict) -> torch.Tensor:
         rgb, mx, label = prep(batch)
-        generator.manual_seed(step_seed(base_seed, step))
+        generator.manual_seed(step_seed(base_seed, step, world.rank))
         optim.set_lr(optimizer, schedule(step))
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(rgb, mx), label)
+        loss = loss_fn(net(rgb, mx), label)
         loss.backward()
         optimizer.step()
-        return loss.detach()
+        return world.all_reduce(loss.detach().clone())
 
     return train_step
 
 
 class Trainer:
-    """Single-device trainer (the JAX Trainer without its mesh): model,
-    AdamW, schedule and step counter on `device` (None: the card; see
-    device.resolve_device)."""
+    """The JAX Trainer: model, AdamW, schedule and step counter on `device`
+    (None: the card; see device.resolve_device), or, with a `world`, one
+    rank of a data-parallel run on the world's device (the JAX Trainer on a
+    1-D data mesh; see the module docstring; the synced BatchNorms and DDP
+    only where a process group joins the ranks). `model` is the bare module
+    (no DDP wrapper): its state dict is the checkpoint's."""
 
     def __init__(self, cfg: Config, device=None, seed: Optional[int] = None,
-                 init_values: bool = True):
+                 init_values: bool = True, world: Optional[World] = None):
         """`seed` (default cfg.train.seed) seeds both the weight init and
         the mask stream. init_values=False leaves the weights unset, for a
         state dict to be loaded."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if world is None:
+            world = World.solo(resolve_device(device))
+        elif device is not None and torch.device(device) != world.device:
+            raise ValueError(f"device {device} is not the rank's "
+                             f"{world.device}")
+        self.world = world
+        self.device = world.device
         seed = cfg.train.seed if seed is None else seed
         self.model = build_model(cfg, device=self.device,
                                  seed=seed if init_values else None)
+        if world.distributed:
+            convert_sync_batchnorm(self.model)
         self.optimizer = optim.build_optimizer(cfg, self.model)
         self.train_step = make_train_step(cfg, self.model, self.optimizer,
-                                          seed=seed)
+                                          seed=seed, world=world)
         self.global_step = 0
         self.epoch = 0
 
@@ -125,14 +189,17 @@ class Trainer:
     def fit_epoch(self, data_iter, niters: int, log_every: int = 50,
                   logger=None, should_stop: Optional[Callable[[], bool]] = None
                   ) -> float:
-        """One epoch; returns the mean loss. Losses stay on the device until
-        a log point or the end of the epoch: a host sync every step would
-        serialise dispatch against the device. `should_stop` is polled each
-        iteration and breaks out early."""
+        """One epoch; returns the mean loss (of the global batches). Losses
+        stay on the device until a log point or the end of the epoch: a host
+        sync every step would serialise dispatch against the device.
+        `should_stop` is polled each iteration and breaks out early; in a
+        world the ranks agree on it (a stop on one rank stops all at the
+        same step), so every rank must pass one or none."""
         t0 = time.time()
         losses = []
         for it in range(niters):
-            if should_stop is not None and should_stop():
+            if (should_stop is not None
+                    and self.world.host_max(should_stop()) > 0):
                 break
             metrics = self.step(next(data_iter))
             losses.append(metrics["loss"])

@@ -2,12 +2,17 @@
 
 Config-driven model and criterion, WarmUpPolyLR + AdamW, an epoch loop over
 the threaded TrainLoader with per-epoch loss logging, checkpoints at the
-config's cadence and resume with -c, on one device: the card unless
-`--device cpu`.
+config's cadence and resume with -c, on the card unless `--device cpu`.
+`-d 0,1,2,3` trains data-parallel, one process per card (parallel/
+launch.py; `--mesh dp` takes the largest count of them that divides the
+global batch, `dp:N` exactly N), with the JAX data mesh's semantics: the
+global batch of --batch_size is split over the ranks and a step computes
+what one process computes on it. On the CPU `--device cpu -d 0,1` runs two
+gloo ranks. Under torchrun the command runs as the rank it is given.
 
 Usage:
     python -m rgbx_semantic_segmentation_tpu_torch.train_cli --config mfnet \\
-        --dataset_root /path/to/MFNet [--niters N --epochs E] [-c]
+        --dataset_root /path/to/MFNet [--niters N --epochs E] [-c] [-d 0,1]
 
 Checkpoints go to <log_dir>/<tag>/checkpoint/epoch-N.pth (the original
 repo's format: {"model", "optimizer", "epoch", "iteration"}, with an
@@ -42,11 +47,14 @@ def parse_args(argv=None):
     parser.add_argument("--pretrained", default=None,
                         help=".pth single-tower backbone checkpoint")
     parser.add_argument("-d", "--devices", default="",
-                        help="the CUDA device index, e.g. '1' (one device; "
-                             "more is ROADMAP M9)")
+                        help="device indices, e.g. '1' or '0,1,2,3' / '0-3' "
+                             "(one process per device; with --device cpu, "
+                             "'0,1' = two CPU ranks)")
     parser.add_argument("--mesh", default="dp",
-                        help="only 'dp' on one device (other layouts: "
-                             "ROADMAP M9)")
+                        help="dp (the largest count of the -d devices that "
+                             "divides the batch) | dp:N (exactly N); the 2-D "
+                             "meshes 2d:D,S and tp:D,M are ROADMAP Queue 1 "
+                             "item 5")
     parser.add_argument("-c", "--continue", dest="resume", action="store_true")
     parser.add_argument("-p", "--profile_dir", default=None,
                         help="write a torch.profiler trace of the last "
@@ -87,9 +95,19 @@ def build_config(args):
 def main(argv=None):
     """Train; returns one record per epoch run: {"epoch", "loss", "lr",
     "seconds", "img_per_s"}, and on the last the profile summary when
-    `-p` was given."""
-    args = parse_args(argv)
+    `-p` was given (rank 0's records in a data-parallel run)."""
+    from rgbx_semantic_segmentation_tpu_torch.parallel import launch
 
+    args = parse_args(argv)
+    cfg = build_config(args)
+    devices = launch.cli_devices(args.device, args.devices, args.mesh,
+                                 cfg.train.batch_size)
+    return launch.run(train, args.device, devices, (args, cfg))
+
+
+def train(world, args, cfg):
+    """The training run of one rank of `world` (parallel/dist.World; one
+    process is World.solo); returns main()'s records."""
     import os
 
     from rgbx_semantic_segmentation_tpu_torch import convert, optim
@@ -100,14 +118,13 @@ def main(argv=None):
         MetricsWriter)
     from rgbx_semantic_segmentation_tpu_torch.train import Trainer
 
-    cfg = build_config(args)
     logger = get_logger()
     records = []
-    with Engine(cfg, args) as engine:
+    with Engine(cfg, args, world) as engine:
         # Resume without a pretrained load restores every tensor from the
         # checkpoint: skip the init (the weights are left unset).
         trainer = Trainer(
-            cfg, device=engine.device,
+            cfg, device=engine.device, world=world,
             init_values=not (args.resume and not cfg.model.pretrained_model))
         if cfg.model.pretrained_model:
             convert.load_dualpath_pretrained(
@@ -118,10 +135,12 @@ def main(argv=None):
         start_epoch = 1
         if args.resume:
             start_epoch = engine.restore_checkpoint(trainer)
-        loader = TrainLoader(cfg, root=args.dataset_root)
+        loader = TrainLoader(cfg, root=args.dataset_root, rank=world.rank,
+                             world=world.size)
         # Scalar logging (lr + epoch loss, matching reference train.py:226-229,
-        # 306-307): JSONL always, TensorBoard mirror when available.
-        writer = MetricsWriter(os.path.join(cfg.log_dir, cfg.tag()))
+        # 306-307): JSONL always, TensorBoard mirror when available; rank 0.
+        writer = (MetricsWriter(os.path.join(cfg.log_dir, cfg.tag()))
+                  if world.is_main() else None)
         engine.install_preemption_handler()
         logger.info("training %s: %d epochs x %d iters, batch %d on %s",
                     cfg.tag(), cfg.train.nepochs, loader.niters,
@@ -140,11 +159,12 @@ def main(argv=None):
                         should_stop=lambda: engine.preempted)
                 seconds = time.time() - t0
                 engine.drain_preemption(epoch, trainer)
-                writer.scalar("train/epoch_loss", avg_loss, epoch)
                 # The lr of the last update, read from the optimizer itself.
                 lr_now = optim.applied_lr(trainer.optimizer)
-                writer.scalar("train/learning_rate", lr_now,
-                              trainer.global_step)
+                if writer is not None:
+                    writer.scalar("train/epoch_loss", avg_loss, epoch)
+                    writer.scalar("train/learning_rate", lr_now,
+                                  trainer.global_step)
                 img_per_s = loader.niters * cfg.train.batch_size / seconds
                 logger.info("epoch %d/%d loss %.4f (%.1fs, %.2f img/s)",
                             epoch, cfg.train.nepochs, avg_loss, seconds,
@@ -154,7 +174,8 @@ def main(argv=None):
                                 "img_per_s": img_per_s})
                 engine.save_checkpoint_if_due(epoch, trainer)
         finally:
-            writer.close()
+            if writer is not None:
+                writer.close()
         if records and engine.last_profile is not None:
             records[-1]["profile"] = engine.last_profile
     return records

@@ -206,14 +206,14 @@ def test_clis_default_to_the_card(runs, tmp_path, cli):
 
 
 def test_cli_unported_options_raise(runs, tmp_path):
-    """--mesh beyond dp still raises (ROADMAP M9). The --compat-* options
-    now run: at scale 1.5 under a 32x40 crop the 32x32 images take the
-    sliding grid (swapped with --compat-stride-swap), and eval_cli -e last
-    gives the confusion matrix of an in-process SegEvaluator with the same
-    flag."""
+    """The 2-D meshes still raise (ROADMAP Queue 1 item 5). The
+    --compat-* options now run: at scale 1.5 under a 32x40 crop the 32x32
+    images take the sliding grid (swapped with --compat-stride-swap), and
+    eval_cli -e last gives the confusion matrix of an in-process
+    SegEvaluator with the same flag."""
     data = runs["data"]
     with cli_env(runs["cfg"], tmp_path):
-        with pytest.raises(NotImplementedError, match="M9"):
+        with pytest.raises(NotImplementedError, match="2-D"):
             train_cli.main(["--dataset_root", data, "--mesh", "tp:2,4",
                             "--device", "cpu"])
     cfg = runs["cfg"].replace(eval=tconfig.EvalConfig(

@@ -7,8 +7,9 @@ train step through the flash-attention op, imports the bench tools, runs
 builds mit_tiny_w_aspp + UPernet (ASPPs, the aux head) and runs a train
 step and a multi-scale, flipped, stride-swapped sliding-window prediction,
 runs train_cli -> eval_cli -e last -> predict_cli on a synthetic dataset (the
-threaded loader on the native image ops, checkpoints, the engine), with
-none of them in sys.modules, and a
+threaded loader on the native image ops, checkpoints, the engine) and
+train_cli -c and eval_cli over two CPU ranks (parallel/: the launcher, the
+process group, the synced BatchNorm), with none of them in sys.modules, and a
 static scan of the package sources (the CUDA and C++ sources too) and
 chip_smoke.py finds no such import."""
 import os
@@ -115,6 +116,12 @@ with tempfile.TemporaryDirectory() as tmp:
     assert list(res) == ["epoch 1"], res
     assert predict_cli.main(root + ["-p", os.path.join(tmp, "p")]) == [
         "val_0000"]
+    # parallel/: two gloo ranks (the launcher, the process group, the
+    # synced BatchNorm, the summed comm hook) through train_cli and eval_cli
+    rec = train_cli.main(root + ["--epochs", "2", "-c", "-d", "0,1"])
+    assert rec[0]["epoch"] == 2, rec
+    res2 = eval_cli.main(root + ["-e", "last", "-d", "0,1"])
+    assert list(res2) == ["epoch 2"], res2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "rgbx_semantic_segmentation_tpu"))
@@ -159,5 +166,7 @@ def test_no_jax_import_in_sources():
             "metrics_writer.py", "visualize.py", "utils/fs.py",
             "models/encoders/aspp.py", "models/decoders/fcnhead.py",
             "models/decoders/upernet.py", "models/decoders/deeplabv3plus.py",
-            "ops/resize.py", "evaluator.py"} <= names
+            "ops/resize.py", "evaluator.py", "parallel/dist.py",
+            "parallel/launch.py", "parallel/sync_bn.py",
+            "parallel/multihost.py"} <= names
     assert len(sources) >= 10

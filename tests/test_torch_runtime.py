@@ -251,7 +251,7 @@ def test_engine_checkpoint_cadence(tmp_path):
 
 def test_engine_device_and_mesh():
     cfg = tiny_cfg()
-    with pytest.raises(NotImplementedError, match="M9"):
+    with pytest.raises(NotImplementedError, match="2-D"):
         tengine.Engine(cfg, types.SimpleNamespace(device="cpu", mesh="tp:2,4"))
     assert tengine.select_device("cpu", "") == torch.device("cpu")
     if not torch.cuda.is_available():
