@@ -36,15 +36,15 @@ and nyu presets:
     written to a temporary directory (16 train and 8 val PNG triples at
     480x640): the TrainLoader alone (native and numpy image ops, pinned
     batches or not) and feeding Trainer.fit_epoch (against the same trainer
-    on batches held in memory), over epochs of 32 batches, each rate read
-    steady over batches 2..32 and over the whole epoch; a checkpoint's
+    on batches held in memory), over epochs of 16 batches, each rate read
+    steady over batches 2..16 and over the whole epoch; a checkpoint's
     write and restore (the optimizer's moments on the card, its step
     counters fp32 CPU scalars), train_cli for 2 epochs of 3 steps then -c
     to 3 with the last epoch under torch.profiler (the device's idle
     share), two uninterrupted 3-epoch runs (the resumed run must lie as
     close to one as the two lie to each other: the step is not
-    bit-reproducible on the card), one train_cli epoch of 32 steps (its
-    steady rate over steps 2..32 and the device's idle share estimated
+    bit-reproducible on the card), one train_cli epoch of 16 steps (its
+    steady rate over steps 2..16 and the device's idle share estimated
     from it), eval_cli -e last (its confusion matrix equal to evaluate()'s on
     the same weights) and predict_cli -e last (its PNGs equal to the
     eval's argmax), counting the forward and backward kernels' launches
@@ -64,6 +64,20 @@ and nyu presets:
   * train_cli --config pst900 for one short epoch on a synthetic 5-class
     PNG dataset, then eval_cli -e last (its confusion matrix equal to
     evaluate()'s);
+  * the preset's mit_b2 with the mask2former head (100 queries, the FPN
+    pixel decoder, 9 decoder layers; its own loss on the query dict in
+    training, its semantic inference's fp32 log-scores in evaluation): the
+    eval and train checks above, the bf16 kernel path held to the fp32
+    plain path (its loss assigns pixels to queries by an argmax), the
+    head's share of the forward's device time, then train_cli --decoder
+    mask2former for one short epoch and eval_cli (its confusion matrix
+    equal to evaluate()'s); with the MLPDecoderpp head: the eval and train
+    checks (2 counted steps);
+  * every criterion name of build_criterion and the Mask2Former loss on
+    (8, 480, 640, 9) logits (masks (8, 100, 480, 640)) against the same
+    function on the CPU: loss and gradient, OHEM and the Mask2Former loss
+    twice bit-equal, their device time forward + backward, the component
+    count's rounds;
   * data parallelism at world 1: Trainer through the launcher
     (parallel/launch.py) as one NCCL rank, with the synced BatchNorm and
     the summed gradient all-reduce, 3 steps of mit_b2 at global batch 8
@@ -287,6 +301,34 @@ PP_FP32_BATCH = 2
 # cotangents, by the kernel phase's bounds.
 PP_TRUTH_FACTOR, PP_TRUTH_FLOOR, PP_ARGMAX_SLACK = 1.5, 0.01, 0.02
 PP_PATHS_FACTOR = 2.0
+# The last two heads on the preset's mit_b2. Mask2Former's eval
+# output is fp32 log-scores (its semantic inference), its train output the
+# query dict, whose loss assigns each pixel to a query by an argmax: two
+# bf16 attention paths can flip assignments, so its bf16 kernel path is
+# held to the fp32 plain path (PP_TRUTH_FACTOR), as mit_b2pp's and
+# pst900's are; fp32 keeps the mit_b2 bounds. Its mask temperature is not
+# among the named gradients: at its init 20 the sigmoid is exactly 1 in fp32
+# and bf16, so its gradient is exactly 0 (in the JAX package too).
+# MLPDecoder++ keeps the mit_b2 bounds throughout, over MLPPP_TRAIN_STEPS
+# counted steps.
+M2F_GRAD_NAMES = ["backbone.patch_embed1.proj.weight",
+                  "backbone.block1.0.attn.q.weight",
+                  "backbone.block4.2.mlp.fc2.weight",
+                  "decode_head.pixel_decoder.mask_features.0.weight",
+                  "decode_head.layers.0.cross_attn.q_proj.weight",
+                  "decode_head.layers.8.ffn.3.weight",
+                  "decode_head.query_embed",
+                  "decode_head.class_embed.weight"]
+MLPPP_GRAD_NAMES = ["backbone.patch_embed1.proj.weight",
+                    "backbone.block1.0.attn.q.weight",
+                    "backbone.block4.2.mlp.fc2.weight",
+                    "decode_head.linear_c1.weight",
+                    "decode_head.linear_fuse.0.weight",
+                    "decode_head.attention.1.weight",
+                    "decode_head.attention.3.weight",
+                    "decode_head.linear_pred.weight"]
+MLPPP_TRAIN_STEPS = 2
+NEW_HEADS = ("mask2former", "MLPDecoderpp")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1081,6 +1123,12 @@ def stage_outputs(model, rgb_t, mx_t):
     return outs
 
 
+def phase_tag(cfg) -> str:
+    """The backbone, and the head where it is one of NEW_HEADS."""
+    m = cfg.model
+    return m.backbone + (f" + {m.decoder}" if m.decoder in NEW_HEADS else "")
+
+
 def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
                 sr_calls=32, flash_calls=0, fp32_batch=EVAL_BATCH,
                 vs_truth=False):
@@ -1092,7 +1140,7 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
     the bf16 plain path (see PP_TRUTH_FACTOR), not to the bf16 plain path."""
     import torch
 
-    tag = cfg.model.backbone
+    tag = phase_tag(cfg)
     check(cfg.model.use_mixed_precision and cfg.model.use_pallas_kernels,
           "the preset runs bf16 on the kernels")
     model = builder.build_model(cfg, seed=0)   # device=None: the card
@@ -1133,8 +1181,11 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
         logits = logits_of(model(rgb_t, mx_t))
         with dual_segformer.plain_attention(model):
             plain_bf16 = logits_of(model(rgb_t, mx_t))
+    # mask2former: the fp32 log-scores of its semantic inference.
+    out_dtype = (torch.float32 if cfg.model.decoder == "mask2former"
+                 else torch.bfloat16)
     check(logits.shape == (EVAL_BATCH, *HW, cfg.dataset.num_classes)
-          and logits.dtype == torch.bfloat16, f"logits {logits.shape}")
+          and logits.dtype == out_dtype, f"logits {logits.shape}")
     check(bool(torch.isfinite(logits).all()), "bf16 logits are finite")
     agree_bf16 = float((logits.argmax(-1) == plain_bf16.argmax(-1))
                        .float().mean())
@@ -1166,7 +1217,9 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
           f"({EVAL_BATCH * 1e3 / plain_fwd_ms:.2f} img/s)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"peak device memory {peak:.2f} GiB (eval and both forward paths)")
-    heads = head_share(model, rgb_t, mx_t) if model.aux_head is not None else {}
+    heads = (head_share(model, rgb_t, mx_t)
+             if model.aux_head is not None or cfg.model.decoder in NEW_HEADS
+             else {})
     if flash_calls:
         in_model = flash_in_model_phase(FA, model, rgb_t, mx_t)
         print(f"{tag}: K5 on the model's activations and cotangents, "
@@ -1288,30 +1341,36 @@ def conv_flops(module, *args):
 
 def head_share(model, rgb_t, mx_t):
     """Device time of the eval forward, of its decode head and of its aux
-    head (each run alone on the backbone's features), with the heads' conv
-    operations: the UPerHead's share of the forward."""
+    head, if any (each run alone on the backbone's features), with the
+    heads' conv operations: the heads' share of the forward."""
     import torch
 
     x, e = rgb_t.permute(0, 3, 1, 2), mx_t.permute(0, 3, 1, 2)
     bound_ms = lambda ops: ops / PEAK_BF16_FLOPS * 1e3
+    aux_head = model.aux_head
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
         feats = model.backbone(x, e)
         head_ops = conv_flops(model.decode_head, feats)
-        aux_ops = conv_flops(model.aux_head, feats)
         whole = device_ms(lambda: model(rgb_t, mx_t), bound_ms(head_ops))
         head = device_ms(lambda: model.decode_head(feats), bound_ms(head_ops))
-        aux = device_ms(lambda: model.aux_head(feats), bound_ms(aux_ops))
-    ok = None not in (whole, head, aux)
-    print(f"{model.cfg.model.decoder} eval forward, batch {x.shape[0]}, device "
-          f"time (torch.profiler): whole {whole} ms, decode head alone {head} "
-          f"ms ({head_ops / 1e12:.3f} TFLOP of convs"
-          + (f", {100 * head / whole:.1f}% of the forward, "
-             f"{head_ops / head / 1e9:.0f} TFLOP/s" if ok else "")
-          + f"), aux head alone {aux} ms ({aux_ops / 1e12:.4f} TFLOP"
-          + (f", {100 * aux / whole:.1f}%" if ok else "") + ")")
-    return {"forward_device_ms": whole, "head_device_ms": head,
-            "aux_device_ms": aux, "head_tflop": head_ops / 1e12,
-            "aux_tflop": aux_ops / 1e12}
+        if aux_head is not None:
+            aux_ops = conv_flops(aux_head, feats)
+            aux = device_ms(lambda: aux_head(feats), bound_ms(aux_ops))
+    ok = None not in (whole, head)
+    text = (f"{model.cfg.model.decoder} eval forward, batch {x.shape[0]}, "
+            f"device time (torch.profiler): whole {whole} ms, decode head "
+            f"alone {head} ms ({head_ops / 1e12:.3f} TFLOP of convs"
+            + (f", {100 * head / whole:.1f}% of the forward, "
+               f"{head_ops / head / 1e9:.0f} TFLOP/s" if ok else "") + ")")
+    out = {"forward_device_ms": whole, "head_device_ms": head,
+           "head_share": head / whole if ok else None,
+           "head_tflop": head_ops / 1e12}
+    if aux_head is not None:
+        text += (f", aux head alone {aux} ms ({aux_ops / 1e12:.4f} TFLOP"
+                 + (f", {100 * aux / whole:.1f}%" if ok and aux else "") + ")")
+        out.update(aux_device_ms=aux, aux_tflop=aux_ops / 1e12)
+    print(text)
+    return out
 
 
 def uint8_batches(items, batch):
@@ -1464,8 +1523,8 @@ def compare_step_to_truth(tag, kernel, plain, truth, names):
 
 def train_phase(S, FA, cfg, train_lib, dual_segformer, items, sr_calls=32,
                 flash_calls=0, grad_names=None, fp32_batch=None,
-                vs_truth=False):
-    """Trainer.fit_epoch on a MiT-family model: a few counted steps with the
+                vs_truth=False, steps=TRAIN_STEPS):
+    """Trainer.fit_epoch on a MiT-family model: `steps` counted steps with the
     launches of K1, K2 (`sr_calls` per step each) and of K5's three kernels
     (`flash_calls` each), the loss and the parameters moving; then one step
     with drop rates 0 on the kernel path against the plain attention path,
@@ -1474,8 +1533,9 @@ def train_phase(S, FA, cfg, train_lib, dual_segformer, items, sr_calls=32,
     PP_TRUTH_FACTOR)."""
     import torch
 
-    tag = cfg.model.backbone
+    tag = phase_tag(cfg)
     grad_names = grad_names or GRAD_NAMES
+    check(steps % 2 == 0, "an even number of counted steps")
     # No warm-up: WarmUpPolyLR is 0 at step 0, and these few steps should
     # move the weights at the preset's lr.
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, warm_up_epoch=0))
@@ -1502,35 +1562,35 @@ def train_phase(S, FA, cfg, train_lib, dual_segformer, items, sr_calls=32,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     a.record()
-    mean_loss = trainer.fit_epoch(data, TRAIN_STEPS)
+    mean_loss = trainer.fit_epoch(data, steps)
     b.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k: fn.launches for k, fn in counters.items()}
     fwd_launches, bwd_launches = counts["fwd"], counts["bwd"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ev_ms = a.elapsed_time(b) / TRAIN_STEPS
+    ev_ms = a.elapsed_time(b) / steps
     bs = cfg.train.batch_size
-    print(f"{tag} train: {TRAIN_STEPS} steps of batch {bs} at {HW}, bf16: "
-          f"{ev_ms:.2f} ms/step (CUDA events), {wall * 1e3 / TRAIN_STEPS:.2f} "
-          f"ms/step (wall), {bs * TRAIN_STEPS / wall:.2f} img/s, mean loss "
+    print(f"{tag} train: {steps} steps of batch {bs} at {HW}, bf16: "
+          f"{ev_ms:.2f} ms/step (CUDA events), {wall * 1e3 / steps:.2f} "
+          f"ms/step (wall), {bs * steps / wall:.2f} img/s, mean loss "
           f"{mean_loss:.4f}, peak memory {peak:.2f} GiB; SR kernel launches "
           f"forward {fwd_launches}, backward {bwd_launches} "
-          f"(expected {sr_calls * TRAIN_STEPS} each); flash launches forward "
+          f"(expected {sr_calls * steps} each); flash launches forward "
           f"{counts['flash_fwd']}, dk/dv {counts['flash_dkv']}, dq "
-          f"{counts['flash_dq']} (expected {flash_calls * TRAIN_STEPS} each)")
-    check(fwd_launches == sr_calls * TRAIN_STEPS
-          and bwd_launches == sr_calls * TRAIN_STEPS
-          and all(counts[k] == flash_calls * TRAIN_STEPS
+          f"{counts['flash_dq']} (expected {flash_calls * steps} each)")
+    check(fwd_launches == sr_calls * steps
+          and bwd_launches == sr_calls * steps
+          and all(counts[k] == flash_calls * steps
                   for k in ("flash_fwd", "flash_dkv", "flash_dq")),
-          f"launches {counts} != ({sr_calls}, {flash_calls}) x {TRAIN_STEPS}")
+          f"launches {counts} != ({sr_calls}, {flash_calls}) x {steps}")
     check(np.isfinite(mean_loss), "mean loss is finite")
     print(f"{tag} train: 2 more steps")
     trainer.fit_epoch(data, 2, log_every=1, logger=log)
     check(all(np.isfinite(x) for x in log.losses), "every loss is finite")
-    # Steps 0 and 8 both see batch 0.
+    # Steps 0 and steps + 2 both see batch 0 (steps is even).
     print(f"{tag} train: loss on batch 0 at step 0 {log.losses[0]:.4f}, at step "
-          f"{TRAIN_STEPS + 2} {log.losses[2]:.4f}")
+          f"{steps + 2} {log.losses[2]:.4f}")
     check(log.losses[2] < log.losses[0], "the loss fell on the repeated batch")
     after = model.state_dict()
     moved = [k for k, v in after.items() if v.is_floating_point()
@@ -1836,7 +1896,7 @@ def swin_train_phase(S, W, T, cfg_lib, train_lib, dual_swin, items):
 # alone, the loader feeding Trainer.fit_epoch and one more train_cli run:
 # their steady rates are read over batches (steps) 2..N, without the
 # workers' start-up.
-CLI_TRAIN, CLI_VAL, CLI_NITERS, CLI_STEADY_NITERS = 16, 8, 3, 32
+CLI_TRAIN, CLI_VAL, CLI_NITERS, CLI_STEADY_NITERS = 16, 8, 3, 16
 # Resume on the card: the step is not bit-reproducible (atomics in cuDNN's
 # weight gradients, the bilinear resize backward and the loss), so the
 # resumed run is held to the spread of two uninterrupted runs: its distance
@@ -2340,11 +2400,13 @@ def protocol_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer):
             "s_per_image": per_size, "argmax_agreement": agree / total}
 
 
-def pst_cli_phase(S, cfg_lib, builder, evaluator_lib):
-    """The pst900 preset through the CLIs: train_cli for one short epoch on
-    a synthetic 5-class PNG dataset, then eval_cli -e last, whose confusion
-    matrix must be evaluate()'s on the checkpoint's weights; K1/K2 launches
-    counted over the CLI calls."""
+def preset_cli_phase(S, cfg_lib, builder, evaluator_lib, preset,
+                     decoder=None, held_keys=()):
+    """A preset (with `decoder` in place of its own, through --decoder)
+    through the CLIs: train_cli for one short epoch on a synthetic PNG
+    dataset of its classes, then eval_cli -e last, whose confusion matrix
+    must be evaluate()'s on the checkpoint's weights; the checkpoint must
+    hold `held_keys`; K1/K2 launches counted over the CLI calls."""
     import tempfile
 
     import torch
@@ -2356,13 +2418,19 @@ def pst_cli_phase(S, cfg_lib, builder, evaluator_lib):
     from rgbx_semantic_segmentation_tpu_torch.data.synthetic import (
         make_synthetic_dataset)
 
-    cfg = cfg_lib.pst900_config()
+    cfg = cfg_lib.get_config(preset)
+    argv = ["--config", preset]
+    if decoder is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    decoder=decoder))
+        argv += ["--decoder", decoder]
+    tag = " ".join(argv[1:])
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         make_synthetic_dataset(data, num_train=PST_CLI_TRAIN,
                                num_val=PST_CLI_VAL, hw=HW,
                                num_classes=cfg.dataset.num_classes, seed=1)
-        argv = ["--config", "pst900", "--dataset_root", data]
+        argv += ["--dataset_root", data]
         with contextlib.chdir(tmp):
             S.sr_attention.launches = S.sr_attention_bwd.launches = 0
             t0 = time.perf_counter()
@@ -2384,7 +2452,7 @@ def pst_cli_phase(S, cfg_lib, builder, evaluator_lib):
                     eval_batch=EVAL_BATCH)
     (_, (scores, hist)), = res.items()
     n_eval = -(-PST_CLI_VAL // EVAL_BATCH)
-    print(f"pst900 CLIs: train_cli 1 epoch of {PST_CLI_NITERS} steps "
+    print(f"{tag} CLIs: train_cli 1 epoch of {PST_CLI_NITERS} steps "
           f"({train_s:.1f} s with the model build; loss {rec[0]['loss']:.4f}, "
           f"{rec[0]['img_per_s']:.2f} img/s), K1/K2 {train_launches} "
           f"(expected {32 * PST_CLI_NITERS} each); eval_cli -e last K1 "
@@ -2392,20 +2460,165 @@ def pst_cli_phase(S, cfg_lib, builder, evaluator_lib):
           f"{scores.mean_iou:.4f}; confusion matrix equal to evaluate()'s: "
           f"{np.array_equal(hist, ev.last_hist)} ({int(hist.sum())} pixels)")
     check([r["epoch"] for r in rec] == [1] and np.isfinite(rec[0]["loss"]),
-          "pst900 train_cli epoch 1, finite loss")
-    check(all(k in payload["model"] for k in (
-        "backbone.aspp_modules.3.project.0.weight",
-        "decode_head.fpn_bottleneck.0.weight", "aux_head.conv.0.weight")),
-        "the checkpoint holds the ASPP, UPerHead and aux-head tensors")
+          f"{tag} train_cli epoch 1, finite loss")
+    check(all(k in payload["model"] for k in held_keys),
+          f"the checkpoint holds {held_keys}")
     check(train_launches == (32 * PST_CLI_NITERS,) * 2
-          and eval_launches == 32 * n_eval, "pst900 CLI launches")
+          and eval_launches == 32 * n_eval, f"{tag} CLI launches")
     check(np.array_equal(hist, ev.last_hist) and hist.sum() > 0,
-          "pst900 eval_cli's confusion matrix is evaluate()'s")
+          f"{tag} eval_cli's confusion matrix is evaluate()'s")
     del model, ev, payload
     torch.cuda.empty_cache()
     return {"launches": {"fwd": train_launches[0] + eval_launches,
                          "bwd": train_launches[1]},
             "train_cli": rec, "mean_iou": scores.mean_iou}
+
+
+# Every criterion name of build_criterion and the Mask2Former loss on the
+# card against the same function on the CPU (fp32 both, TF32 off), on the
+# preset's shapes: (8, 480, 640, 9) logits (noise + 2 x the one-hot of
+# synthetic band labels with 2% ignored pixels), and for mask2former (8,
+# 100, 10) class logits with (8, 100, 480, 640) mask logits upsampled from
+# (8, 100, 120, 160) as the model does. Loss: CRIT_LOSS_RTOL relative;
+# gradient w.r.t. the logits (the masks): CRIT_GRAD_RTOL of its largest
+# magnitude (summation order and the ulps of exp / log between the two
+# devices). The topology loss counts components of softmax > 0.5: a pixel
+# within CRIT_NEAR_HALF of 0.5 may land on either side on the two devices
+# and change a count by at most 4 (it joins or splits up to 4 components),
+# which moves the loss by 0.2 x 0.1 x 4 / (B x C); that slack is added per
+# such pixel. OHEM's k-th smallest probability and mask2former's assignment
+# are read twice on the card and must give the same bits.
+CRITERIA = ("CrossEntropyLoss", "FocalLoss", "SigmoidFocalLoss", "DiceLoss",
+            "DiceCELoss", "RCELoss", "BalanceLoss", "FocalLoss2d",
+            "OhemCrossEntropy", "berHuLoss", "CE_Focal", "TopologyAwareLoss",
+            "TopologyAwareCE")
+CRIT_LOSS_RTOL, CRIT_GRAD_RTOL, CRIT_NEAR_HALF = 1e-5, 1e-4, 1e-6
+CRIT_BIT_EQUAL = ("OhemCrossEntropy", "mask2former")
+# Names that build_criterion maps to the same function: the CPU reference
+# is computed once for both.
+CRIT_ALIASES = {"SigmoidFocalLoss": "FocalLoss",
+                "TopologyAwareCE": "TopologyAwareLoss"}
+
+
+def criteria_phase(cfg_lib, train_tf32):
+    """`train_tf32`: (matmul, cuDNN) allow_tf32 as the process started,
+    the settings a training step runs the criteria under."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import losses
+    from rgbx_semantic_segmentation_tpu_torch.ops.resize import (
+        resize_bilinear)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_lib.mfnet_config()
+    C, B = cfg.dataset.num_classes, cfg.train.batch_size
+    items = synthetic_items(B, HW, C, seed=3)
+    labels = torch.from_numpy(np.stack([it["label"] for it in items])).long()
+    rng = np.random.RandomState(4)
+    logits = (torch.from_numpy(rng.randn(B, *HW, C).astype(np.float32))
+              + 2.0 * losses._one_hot_safe(labels.clamp(max=C - 1), C))
+    q_logits = torch.from_numpy(rng.randn(B, 100, C + 1).astype(np.float32))
+    with torch.no_grad():
+        masks = resize_bilinear(torch.from_numpy(
+            4 * rng.randn(B, 100, HW[0] // 4, HW[1] // 4).astype(np.float32)
+            ).cuda(), HW)
+    dev = {"logits": logits.cuda(), "labels": labels.cuda(),
+           "q_logits": q_logits.cuda(), "masks": masks}
+    cpu = {k: v.cpu() for k, v in dev.items()}
+
+    def run(fn, x, y, extra=None):
+        """(loss, gradient w.r.t. x) of fn(x, y) (or fn(extra, x, y))."""
+        x = x.detach().requires_grad_()
+        loss = fn(x, y) if extra is None else fn(extra, x, y)
+        loss.backward()
+        return loss.detach(), x.grad
+
+    cases = [(name, losses.build_criterion(cfg.replace(
+        train=dataclasses.replace(cfg.train, criterion=name))), "logits",
+        None) for name in CRITERIA]
+    cases.append(("mask2former", lambda ql, m, y: losses.mask2former_loss(
+        ql, m, y, C, cfg.dataset.background), "masks", "q_logits"))
+    near = int(((torch.softmax(dev["logits"], -1) - 0.5).abs()
+                < CRIT_NEAR_HALF).sum())
+    out = {}
+    print(f"criteria, fp32 (TF32 off), logits {tuple(logits.shape)}, masks "
+          f"{tuple(masks.shape)}: card vs CPU, forward + backward device ms "
+          f"(CUDA events, median of 5); {near} softmax values within "
+          f"{CRIT_NEAR_HALF} of 0.5")
+    refs = {}
+    for name, fn, x, extra in cases:
+        on = lambda d: run(fn, d[x], d["labels"],
+                           None if extra is None else d[extra])
+        loss, grad = on(dev)
+        ref = CRIT_ALIASES.get(name, name)
+        if ref not in refs:
+            refs[ref] = on(cpu)
+        ref_loss, ref_grad = refs[ref]
+        rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        err = float((grad.cpu() - ref_grad).abs().max()
+                    / ref_grad.abs().max())
+        bound = CRIT_LOSS_RTOL
+        if name.startswith("Topology"):
+            bound += 0.2 * 0.1 * 4 * near / (B * C) / abs(float(ref_loss))
+        same = None
+        if name in CRIT_BIT_EQUAL:
+            again, grad2 = on(dev)
+            same = bool(torch.equal(again, loss) and torch.equal(grad2, grad))
+        ms = median_ms(lambda: on(dev), warmup=1, iters=5)
+        out[name] = {"loss": float(loss), "loss_rel": rel, "grad_rel": err,
+                     "ms": ms, "bit_equal": same}
+        print(f"  {name}: loss {float(loss):.6f} (CPU {float(ref_loss):.6f}, "
+              f"rel {rel:.2e}, bound {bound:.1e}), gradient {err:.2e} of its "
+              f"largest (bound {CRIT_GRAD_RTOL:.0e}), {ms:.3f} ms"
+              + ("" if same is None else f", twice bit-equal: {same}"))
+        check(np.isfinite(float(loss)) and rel <= bound
+              and err <= CRIT_GRAD_RTOL, f"criterion {name} card vs CPU")
+        check(same in (None, True), f"criterion {name} twice bit-equal")
+    # The port sets no TF32 flag, so a training step keeps PyTorch's own:
+    # cuDNN may run the topology loss's Laplacian conv in TF32, and a
+    # boundary pixel near the 0.1 threshold may then fall the other way.
+    # Read there, not held: that term carries no gradient, so only the
+    # reported loss can move.
+    off = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = train_tf32
+    try:
+        topo = dict((c[0], c[1]) for c in cases)["TopologyAwareLoss"]
+        loss, grad = run(topo, dev["logits"], dev["labels"])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = off
+    ref_loss, ref_grad = refs["TopologyAwareLoss"]
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    err = float((grad.cpu() - ref_grad).abs().max() / ref_grad.abs().max())
+    out["TopologyAwareLoss_train_tf32"] = {
+        "matmul_tf32": train_tf32[0], "cudnn_tf32": train_tf32[1],
+        "loss": float(loss), "loss_rel": rel, "grad_rel": err}
+    print(f"  TopologyAwareLoss under the training step's TF32 settings "
+          f"(matmul {train_tf32[0]}, cuDNN {train_tf32[1]}), read not held: "
+          f"loss {float(loss):.6f} (CPU {float(ref_loss):.6f}, rel "
+          f"{rel:.2e}), gradient {err:.2e} of its largest")
+    check(np.isfinite(float(loss)), "TopologyAwareLoss finite under TF32")
+    soft = torch.softmax(dev["logits"], -1)
+    valid = (dev["labels"] != cfg.dataset.background).float()[..., None]
+    oh = losses._one_hot_safe(dev["labels"].clamp(max=C - 1), C) * valid
+    rounds = {}
+    for tag, m in (("prediction", (soft > 0.5).float() * valid), ("target", oh)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts, rounds[tag] = losses.count_components(
+            m.permute(0, 3, 1, 2), return_rounds=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"  components of the {tag} masks: {int(counts.sum())} in "
+              f"{rounds[tag]} rounds (cap {losses.max_component_rounds(*HW)}"
+              f"), {dt * 1e3:.1f} ms")
+    out["component_rounds"] = rounds
+    del dev, cpu, refs, masks, soft, oh
+    torch.cuda.empty_cache()
+    return out
 
 
 # Data parallelism (parallel/): DDP_STEPS steps of Trainer at world 1 over
@@ -3033,6 +3246,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port is not run on the CPU",
               file=sys.stderr)
         return 1
+    # PyTorch's TF32 settings before any phase turns TF32 off: the ones a
+    # training step of the port runs under.
+    train_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32)
     root = os.path.dirname(os.path.abspath(__file__))
     if root not in sys.path:
         sys.path.insert(0, root)
@@ -3135,7 +3352,28 @@ def main() -> int:
     pst_train = train_phase(S, FA, pst, train_lib, dual_segformer, pst_items,
                             grad_names=PST_GRAD_NAMES, vs_truth=True)
     proto = protocol_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer)
-    pst_cli = pst_cli_phase(S, cfg_lib, builder, evaluator_lib)
+    pst_cli = preset_cli_phase(
+        S, cfg_lib, builder, evaluator_lib, "pst900", held_keys=(
+            "backbone.aspp_modules.3.project.0.weight",
+            "decode_head.fpn_bottleneck.0.weight", "aux_head.conv.0.weight"))
+    m2f = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                decoder="mask2former"))
+    m2f_eval = slice_phase(S, FA, m2f, builder, evaluator_lib,
+                           dual_segformer, items, vs_truth=True)
+    m2f_train = train_phase(S, FA, m2f, train_lib, dual_segformer, items,
+                            grad_names=M2F_GRAD_NAMES, vs_truth=True)
+    m2f_cli = preset_cli_phase(
+        S, cfg_lib, builder, evaluator_lib, "mfnet", decoder="mask2former",
+        held_keys=("decode_head.query_embed", "decode_head.scale",
+                   "decode_head.layers.8.ffn.3.weight"))
+    mlppp = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  decoder="MLPDecoderpp"))
+    mlppp_eval = slice_phase(S, FA, mlppp, builder, evaluator_lib,
+                             dual_segformer, items)
+    mlppp_train = train_phase(S, FA, mlppp, train_lib, dual_segformer, items,
+                              grad_names=MLPPP_GRAD_NAMES,
+                              steps=MLPPP_TRAIN_STEPS)
+    criteria = criteria_phase(cfg_lib, train_tf32)
     torch.cuda.empty_cache()
     ddp = ddp_world1_phase(S, cfg_lib, train_lib)
     print(card)
@@ -3188,13 +3426,17 @@ def main() -> int:
          + pp_train["fwd_launches"] + cli["launches"]["fwd"]
          + pst_eval["launches"] + pst_train["fwd_launches"]
          + proto["launches"] + pst_cli["launches"]["fwd"]
-         + ddp["launches"]["fwd"], fwd_err, fwd_rows, CALLS_PER_FORWARD,
-         None),
+         + m2f_eval["launches"] + m2f_train["fwd_launches"]
+         + m2f_cli["launches"]["fwd"] + mlppp_eval["launches"]
+         + mlppp_train["fwd_launches"] + ddp["launches"]["fwd"], fwd_err,
+         fwd_rows, CALLS_PER_FORWARD, None),
         ("sr_attention_bwd", "sr_attention.py:123",
          train["bwd_launches"] + pp_train["bwd_launches"]
          + cli["launches"]["bwd"] + pst_train["bwd_launches"]
-         + pst_cli["launches"]["bwd"] + ddp["launches"]["bwd"], bwd_err,
-         bwd_rows, CALLS_PER_FORWARD, None),
+         + pst_cli["launches"]["bwd"] + m2f_train["bwd_launches"]
+         + m2f_cli["launches"]["bwd"] + mlppp_train["bwd_launches"]
+         + ddp["launches"]["bwd"], bwd_err, bwd_rows, CALLS_PER_FORWARD,
+         None),
         ("window_attention_fwd", "window_attention.py:179",
          swin_eval["launches"] + swin_train["fwd_launches"], wfwd_err,
          wfwd_rows, SWIN_CALLS, None),
@@ -3214,7 +3456,10 @@ def main() -> int:
         "train": train, "swin_eval": swin_eval, "swin_train": swin_train,
         "pp_eval": pp_eval, "pp_train": pp_train, "cli": cli,
         "pst_eval": pst_eval, "pst_train": pst_train, "protocol": proto,
-        "pst_cli": pst_cli, "ddp_world1": ddp, "card": card}))
+        "pst_cli": pst_cli, "m2f_eval": m2f_eval, "m2f_train": m2f_train,
+        "m2f_cli": m2f_cli, "mlppp_eval": mlppp_eval,
+        "mlppp_train": mlppp_train, "criteria": criteria,
+        "ddp_world1": ddp, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

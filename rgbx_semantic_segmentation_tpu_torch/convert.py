@@ -9,7 +9,11 @@ module:
   - Dense kernel (in, out)          -> weight (out, in)
   - Conv kernel HWIO                -> weight OIHW (depthwise (3, 3, 1, C)
                                        -> (C, 1, 3, 3))
-  - LayerNorm/BatchNorm scale       -> weight
+  - LayerNorm/BatchNorm scale       -> weight (a `scale` leaf beside a
+                                       `bias`; any other `scale`, such
+                                       as Mask2Former's temperature, stays
+                                       a bare `scale`, as the JAX
+                                       convert maps it back)
   - batch_stats mean / var          -> running_mean / running_var, plus a
                                        zero num_batches_tracked
   - a path segment's trailing run of `_<digits>` groups -> `.`-indices
@@ -17,7 +21,8 @@ module:
                                        `psp_modules_0_1` -> `psp_modules.0.1`:
                                        the inverse of the JAX
                                        convert.torch_key_to_path)
-  - any other leaf (biases, the 0-d IFRM lambdas) as it is
+  - any other leaf (biases, the 0-d IFRM lambdas, Mask2Former's
+    query_embed) as it is
 
 `flax_params_to_torch` applies the same transform to any tree shaped like
 `params` (gradients, updated parameters). BatchNorm running statistics
@@ -49,21 +54,23 @@ def _segment(name: str) -> str:
 
 
 def _leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()):
+    """(path, value, the leaf's siblings) of every leaf."""
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _leaves(v, path + (k,))
         else:
-            yield path + (k,), v
+            yield path + (k,), v, tree
 
 
-def _param(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+def _param(name: str, value: np.ndarray,
+           siblings: Mapping[str, Any]) -> Tuple[str, np.ndarray]:
     if name == "kernel":
         if value.ndim == 4:   # conv HWIO -> OIHW
             return "weight", value.transpose(3, 2, 0, 1)
         if value.ndim == 2:   # dense (in, out) -> (out, in)
             return "weight", value.T
         raise ValueError(f"unhandled kernel ndim {value.ndim}")
-    if name == "scale":
+    if name == "scale" and "bias" in siblings:   # a norm's scale
         return "weight", value
     return name, value
 
@@ -76,10 +83,10 @@ def flax_to_torch_state_dict(variables: Mapping[str, Any]
     for coll, tree in variables.items():
         if coll not in ("params", "batch_stats"):
             raise KeyError(f"unexpected variable collection {coll!r}")
-        for path, value in _leaves(tree):
+        for path, value, siblings in _leaves(tree):
             arr = np.asarray(value)
             if coll == "params":
-                name, arr = _param(path[-1], arr)
+                name, arr = _param(path[-1], arr, siblings)
             else:
                 name = _STATS[path[-1]]
             prefix = ".".join(_segment(p) for p in path[:-1])

@@ -14,7 +14,7 @@ ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -24,8 +24,12 @@ from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
 from rgbx_semantic_segmentation_tpu_torch.models.decoders.deeplabv3plus import (
     DeepLabV3Plus)
 from rgbx_semantic_segmentation_tpu_torch.models.decoders.fcnhead import FCNHead
+from rgbx_semantic_segmentation_tpu_torch.models.decoders.mask2former import (
+    Mask2Former, semantic_inference)
 from rgbx_semantic_segmentation_tpu_torch.models.decoders.mlp_decoder import (
     MLPDecoder)
+from rgbx_semantic_segmentation_tpu_torch.models.decoders.mlp_decoderpp import (
+    MLPDecoderpp)
 from rgbx_semantic_segmentation_tpu_torch.models.decoders.upernet import UPerHead
 from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
     dual_segformer, dual_swin)
@@ -41,14 +45,11 @@ MIT_FACTORIES = {
 SWIN_FACTORIES = {"swin_s": dual_swin.swin_s, "swin_b": dual_swin.swin_b}
 # The encoder-side ASPP variants: name suffix -> RGBXTransformer `aspp`.
 ASPP_SUFFIXES = {"_w_aspp": "aspp", "_w_ef_aspp": "easpp"}
-# Names of the JAX registry (models/builder.py BACKBONES / build_decoder)
-# that this port does not build yet, with the ROADMAP item that ports them.
+# Backbone names of the JAX registry (models/builder.py BACKBONES) that
+# this port does not build yet, with the ROADMAP item that ports them.
 _LATER_BACKBONES = {
     "segnext": "M10 item 6 (SegNeXt)",
     "resnet": "M10 item 7 (ResNet)",
-}
-_LATER_DECODERS = {
-    "MLPDecoderpp": "M10 item 2", "mask2former": "M10 item 3",
 }
 # Decoders that carry the aux FCNHead on feature AUX_INDEX; its loss
 # weighs AUX_RATE (the JAX builder's constants).
@@ -119,21 +120,26 @@ def build_decoder(cfg: Config, channels: Sequence[int]) -> nn.Module:
     name = cfg.model.decoder
     num_classes = cfg.dataset.num_classes
     bn = {"bn_momentum": cfg.model.bn_momentum, "bn_eps": cfg.model.bn_eps}
+    drop_kw = ({} if cfg.model.decoder_dropout_ratio is None
+               else {"dropout_ratio": cfg.model.decoder_dropout_ratio})
     if name == "MLPDecoder":
-        drop_kw = ({} if cfg.model.decoder_dropout_ratio is None
-                   else {"dropout_ratio": cfg.model.decoder_dropout_ratio})
         return MLPDecoder(channels, num_classes,
                           embed_dim=cfg.model.decoder_embed_dim, **bn,
                           **drop_kw)
+    if name == "MLPDecoderpp":
+        return MLPDecoderpp(channels, num_classes,
+                            embed_dim=cfg.model.decoder_embed_dim, **bn,
+                            **drop_kw)
+    if name == "mask2former":
+        # The JAX builder passes neither the config's BatchNorm settings nor
+        # its decoder dropout to this head.
+        return Mask2Former(channels, num_classes)
     if name == "UPernet":
         return UPerHead(channels, num_classes, channels=512, **bn)
     if name == "deeplabv3+":
         return DeepLabV3Plus(channels, num_classes, **bn)
     if name in (None, "None", "fcn"):
         return FCNHead(channels[3], num_classes, in_index=3, **bn)
-    if name in _LATER_DECODERS:
-        raise NotImplementedError(f"decoder {name!r} is not ported yet: "
-                                  f"ROADMAP {_LATER_DECODERS[name]}")
     raise KeyError(f"unknown decoder {name!r}")
 
 
@@ -142,6 +148,10 @@ class EncoderDecoder(nn.Module):
     inputs and returns NHWC logits upsampled to the input resolution, like
     the JAX EncoderDecoder.__call__; (logits, aux logits) when the decoder
     carries the aux FCNHead (AUX_DECODERS), in train and eval mode alike.
+    mask2former: in train mode (`self.training`) the dict {"pred_logits",
+    "pred_masks"} with the masks (NCHW, fp32 logits) resized to the input
+    resolution, for losses.mask2former_loss; in eval mode the fp32
+    log-scores of its `semantic_inference`, resized.
 
     With cfg.model.use_mixed_precision the forward runs under bf16 autocast
     (fp32 params, bf16 compute: the JAX dtype policy)."""
@@ -167,14 +177,25 @@ class EncoderDecoder(nn.Module):
         self.every_param_in_loss = read == set(range(len(channels)))
 
     def forward(self, rgb: torch.Tensor, modal_x: torch.Tensor
-                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
+                           Dict[str, torch.Tensor]]:
         size = rgb.shape[1:3]
         x = rgb.permute(0, 3, 1, 2)
         e = modal_x.permute(0, 3, 1, 2)
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
             feats = self.backbone(x, e)
-            logits = resize_bilinear(self.decode_head(feats), size)
+            out = self.decode_head(feats)
+            if isinstance(out, dict):
+                if self.training:
+                    return {"pred_logits": out["pred_logits"],
+                            "pred_masks": resize_bilinear(out["pred_masks"],
+                                                          size)}
+                sem = semantic_inference(out["pred_logits"],
+                                         out["pred_masks"])
+                return resize_bilinear(sem.permute(0, 3, 1, 2),
+                                       size).permute(0, 2, 3, 1)
+            logits = resize_bilinear(out, size)
             if self.aux_head is None:
                 return logits.permute(0, 2, 3, 1)
             aux = resize_bilinear(self.aux_head(feats), size)

@@ -11,7 +11,8 @@ nn.BatchNorm2d, whose eval mode normalises with the running statistics
 Initialization follows the JAX package (which follows the original repo's
 `_init_weights`): Linear and the Swin relative-position bias tables =
 truncated normal (std 0.02), Linear bias zero; Conv2d = normal(0, sqrt(2 / fan_out)), fan_out = kh * kw * out / groups,
-with zero bias; norms = ones / zeros; the IFRM lambdas = 0.5.
+with zero bias; norms = ones / zeros; the IFRM lambdas = 0.5; the
+Mask2Former queries = normal(0.02) and its mask temperature = 20.
 `init_weights` applies it to a whole model from an explicit
 torch.Generator.
 
@@ -55,14 +56,20 @@ def conv_kaiming_normal_(w: torch.Tensor, groups: int,
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every Linear, Conv2d, LayerNorm, BatchNorm2d,
-    `relative_position_bias_table` and IFRM lambda parameter of `model` in
-    place (see module docstring); BatchNorm running stats are reset."""
+    `relative_position_bias_table`, IFRM lambda and Mask2Former
+    `query_embed` / `scale` parameter of `model` in place (see module
+    docstring); BatchNorm running stats are reset."""
     for name, p in model.named_parameters():
-        # Bare nn.Parameters (Swin WindowAttention, IFRM), not modules.
+        # Bare nn.Parameters (Swin WindowAttention, IFRM, Mask2Former), not
+        # modules.
         if name.endswith("relative_position_bias_table"):
             trunc_normal_(p, 0.02, generator)
         elif name.endswith(("lambda_channel", "lambda_spatial")):
             p.fill_(0.5)
+        elif name.endswith("query_embed"):
+            p.normal_(0.0, 0.02, generator=generator)
+        elif name == "scale" or name.endswith(".scale"):
+            p.fill_(20.0)
     for m in model.modules():
         if isinstance(m, nn.Linear):
             trunc_normal_(m.weight, 0.02, generator)

@@ -14,10 +14,12 @@ the failed rank's traceback is raised in the launching process.
 """
 from __future__ import annotations
 
+import glob
 import logging
 import os
 import tempfile
 import time
+import traceback
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -44,11 +46,39 @@ def _rank_main(rank: int, fn: Callable, devices: List[int], device_type: str,
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))
     with dist_lib.process_group(rank, len(devices), device,
                                 init_method) as world:
-        result = fn(_as_rank(world), *args)
+        try:
+            result = fn(_as_rank(world), *args)
+        except BaseException:
+            # Written before the group closes: a rank that then fails in a
+            # collective ("connection closed by peer") fails later.
+            with open(os.path.join(workdir, f"rank{rank}.error"), "w") as f:
+                f.write(f"{time.time()!r}\n{traceback.format_exc()}")
+            raise
     torch.save(result, os.path.join(workdir, f"rank{rank}.pt"))
 
 
-def _join(ctx, timeout: Optional[float]) -> None:
+def _first_failure(workdir: str, error: mp.ProcessRaisedException,
+                   processes) -> mp.ProcessRaisedException:
+    """The error of the rank that failed first. torch reports the lowest
+    rank among those that had ended when it looked, which may be a rank
+    that failed only because another one did."""
+    failed = []
+    for path in glob.glob(os.path.join(workdir, "rank*.error")):
+        with open(path) as f:
+            when, trace = f.read().split("\n", 1)
+        rank = int(os.path.basename(path)[len("rank"):-len(".error")])
+        failed.append((float(when), rank, trace))
+    if not failed:
+        return error
+    _, rank, trace = min(failed)
+    if rank == error.error_index:
+        return error
+    return mp.ProcessRaisedException(
+        f"\n\n-- Process {rank} terminated with the following error:\n"
+        f"{trace}", rank, processes[rank].pid)
+
+
+def _join(ctx, timeout: Optional[float], workdir: str) -> None:
     deadline = None if timeout is None else time.monotonic() + timeout
     try:
         while True:
@@ -56,8 +86,14 @@ def _join(ctx, timeout: Optional[float]) -> None:
             if left is not None and left <= 0:
                 raise TimeoutError(f"a world of {len(ctx.processes)} ranks "
                                    f"did not end within {timeout} s")
-            if ctx.join(timeout=left, grace_period=GRACE_S):
-                return
+            try:
+                if ctx.join(timeout=left, grace_period=GRACE_S):
+                    return
+            except mp.ProcessRaisedException as e:
+                first = _first_failure(workdir, e, ctx.processes)
+                if first is e:
+                    raise
+                raise first from e
     except KeyboardInterrupt:
         for p in ctx.processes:
             p.join(PREEMPT_GRACE_S)
@@ -96,7 +132,7 @@ def spawn(fn: Callable, devices: Sequence[int], device_type: str,
             _rank_main, args=(fn, devices, device_type, init, tmp,
                               tuple(args)),
             nprocs=len(devices), join=False, start_method="spawn")
-        _join(ctx, timeout)
+        _join(ctx, timeout, tmp)
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False)
                 for r in range(len(devices))]

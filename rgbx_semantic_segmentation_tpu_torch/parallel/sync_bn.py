@@ -6,7 +6,8 @@ DDP, reference train.py:64-65).
 
 torch.nn.SyncBatchNorm refuses CPU tensors once a process group is up, so
 one module serves both backends here. In train mode each rank sums, in
-fp32 and per channel, its x and x^2 and counts its elements; one
+fp32 (float64 for a float64 input) and per channel, its x and x^2 and
+counts its elements; one
 all-reduce of the three (autograd-aware: the backward all-reduces the
 gradients of the sums, so every rank's input gradient sees every rank's
 loss) gives mean = E[x], var = E[x^2] - E[x]^2 as JAX computes them; the
@@ -52,7 +53,7 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         C = x.shape[1]
-        xf = x.float()
+        xf = x if x.dtype == torch.float64 else x.float()
         count = xf.new_full((1,), xf.numel() // C)
         sums = _AllReduceSum.apply(torch.cat(
             [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))

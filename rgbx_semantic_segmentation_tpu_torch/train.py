@@ -2,9 +2,10 @@
 (counterpart of rgbx_semantic_segmentation_tpu/train.py).
 
 One step = forward under bf16 autocast (fp32 params, no GradScaler: bf16
-needs no loss scaling), cross-entropy (plus 0.4 x the aux head's, for the
-decoders that carry one), backward (the SR attentions through
-the hand-written backward kernel on the card), AdamW at the scheduled lr.
+needs no loss scaling), the config's criterion (plus 0.4 x the aux head's,
+for the decoders that carry one; Mask2Former's own loss on its query
+dict), backward (the SR attentions through the hand-written backward
+kernel on the card), AdamW at the scheduled lr.
 uint8 batches are normalised on the device; fp32 batches are taken as
 host-normalised. The drop-path / dropout masks of step `s` come from a
 generator seeded from (seed, s, rank), so a resumed run draws the same masks.
@@ -13,8 +14,8 @@ Data parallelism (`world`, parallel/dist.py): one process per device, the
 model in DistributedDataParallel, with the JAX data mesh's semantics, where
 one jitted step shards the global batch (JAX train.py:209-245): a step on N
 ranks computes what one process computes on the global batch. So the
-loss is the mean over the GLOBAL batch's valid pixels (each rank divides
-its sum by the all-reduced count, and a comm hook SUMS the gradient buckets
+loss is that of the GLOBAL batch (each rank divides its sums by the
+all-reduced counts, losses.py, and a comm hook SUMS the gradient buckets
 where DDP's default averages per-rank means, which differ once the ranks
 hold different counts of ignored pixels); the BatchNorms are
 parallel/sync_bn's (global statistics); every rank builds the same weights
@@ -24,7 +25,6 @@ window attention offsets its kernels' seed by the rank.
 """
 from __future__ import annotations
 
-import functools
 import time
 from typing import Callable, Dict, Optional
 
@@ -45,26 +45,29 @@ from rgbx_semantic_segmentation_tpu_torch.parallel.sync_bn import (
     convert_sync_batchnorm)
 
 def make_loss_fn(cfg: Config, world: Optional[World] = None) -> Callable:
-    """The criterion on the model's output; on an (logits, aux) pair
-    criterion(logits) + AUX_RATE * criterion(aux), as the JAX make_loss_fn.
-    The mask2former dict comes with its decoder (ROADMAP M10 item 3).
+    """The criterion on the model's output: on an (logits, aux) pair
+    criterion(logits) + AUX_RATE * criterion(aux), on the mask2former dict
+    losses.mask2former_loss (no criterion: the head brings its own loss),
+    as the JAX make_loss_fn.
 
-    Each criterion divides this rank's sum by the valid count summed over
-    the `world`'s ranks (no gradient flows through it): the ranks' losses
-    then add up to the mean over the global batch. Without a world, one
-    process's: the mean over its batch."""
-    criterion = losses_lib.build_criterion(cfg)
+    Each loss divides this rank's sum by the count summed over the
+    `world`'s ranks (no gradient flows through it; see losses.py): the
+    ranks' losses then add up to the loss of the global batch. Without a
+    world, one process's: the loss of its batch."""
     world = world or World.solo()
 
     def global_sum(t: torch.Tensor) -> torch.Tensor:
         return world.all_reduce(t.detach().clone())
 
-    criterion = functools.partial(criterion, denom_reduce=global_sum)
+    criterion = (None if cfg.model.decoder == "mask2former" else
+                 losses_lib.build_criterion(cfg, world.size, global_sum))
 
     def loss_fn(outputs, labels):
         if isinstance(outputs, dict):
-            raise NotImplementedError(
-                "mask2former outputs are not ported yet: ROADMAP M10 item 3")
+            return losses_lib.mask2former_loss(
+                outputs["pred_logits"], outputs["pred_masks"], labels,
+                cfg.dataset.num_classes, cfg.dataset.background,
+                denom_reduce=global_sum)
         if isinstance(outputs, tuple):
             logits, aux = outputs
             return criterion(logits, labels) + AUX_RATE * criterion(aux, labels)

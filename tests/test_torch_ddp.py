@@ -701,6 +701,25 @@ def test_a_failed_rank_fails_the_run():
         spawn(_raise_on_rank1, 2)
 
 
+def test_the_first_failed_rank_is_reported(tmp_path):
+    """When the rank waiting in a collective has failed too ("connection
+    closed by peer") by the time the launcher looks, the launcher still
+    raises the rank that failed first, not the lowest failed rank. Both
+    ranks are made to end before the join."""
+    init = "file://" + str(tmp_path / "rendezvous")
+    ctx = torch.multiprocessing.start_processes(
+        launch._rank_main, args=(_raise_on_rank1, [0, 1], "cpu", init,
+                                 str(tmp_path), ()),
+        nprocs=2, join=False, start_method="spawn")
+    for p in ctx.processes:
+        p.join(120)
+    assert [p.exitcode for p in ctx.processes] == [1, 1]
+    with pytest.raises(ProcessRaisedException,
+                       match="failed on purpose") as raised:
+        launch._join(ctx, 60, str(tmp_path))
+    assert raised.value.error_index == 1
+
+
 def test_a_world_past_its_timeout_is_killed():
     t0 = time.monotonic()
     with pytest.raises(TimeoutError):

@@ -25,7 +25,8 @@ from rgbx_semantic_segmentation_tpu.config import (
 from rgbx_semantic_segmentation_tpu.models.builder import (
     EncoderDecoder as JaxEncoderDecoder)
 from rgbx_semantic_segmentation_tpu.models.decoders import (
-    deeplabv3plus as jdlv3, fcnhead as jfcn, upernet as jupn)
+    deeplabv3plus as jdlv3, fcnhead as jfcn, mlp_decoderpp as jmlppp,
+    upernet as jupn)
 from rgbx_semantic_segmentation_tpu.models.encoders import aspp as jaspp
 from rgbx_semantic_segmentation_tpu.ops import resize as jresize
 from rgbx_semantic_segmentation_tpu_torch import train as ttrain
@@ -33,7 +34,8 @@ from rgbx_semantic_segmentation_tpu_torch.convert import (
     flax_params_to_torch, flax_to_torch_state_dict)
 from rgbx_semantic_segmentation_tpu_torch.models import builder as tbuilder
 from rgbx_semantic_segmentation_tpu_torch.models.decoders import (
-    deeplabv3plus as tdlv3, fcnhead as tfcn, upernet as tupn)
+    deeplabv3plus as tdlv3, fcnhead as tfcn, mlp_decoderpp as tmlppp,
+    upernet as tupn)
 from rgbx_semantic_segmentation_tpu_torch.models.encoders import aspp as taspp
 from rgbx_semantic_segmentation_tpu_torch.ops import layers as tlayers
 from rgbx_semantic_segmentation_tpu_torch.ops import resize as tresize
@@ -155,13 +157,17 @@ MODULES = {
     "DeepLabV3Plus": lambda eps: (
         jdlv3.DeepLabV3Plus(CHANNELS, NUM_CLASSES, bn_eps=CFG_EPS),
         tdlv3.DeepLabV3Plus(CHANNELS, NUM_CLASSES, bn_eps=eps), _feats()),
+    "MLPDecoderpp": lambda eps: (
+        jmlppp.MLPDecoderpp(NUM_CLASSES, embed_dim=32, bn_eps=CFG_EPS),
+        tmlppp.MLPDecoderpp(CHANNELS, NUM_CLASSES, embed_dim=32, bn_eps=eps),
+        _feats()),
 }
 # (the eps the JAX module runs at, another one): the encoder's ASPPs do not
 # take the config's eps, the heads do.
 EPS = {"StageASPP_stage1": (1e-5, CFG_EPS), "StageASPP_stage4": (1e-5, CFG_EPS),
        "EASPP": (1e-5, CFG_EPS), "FCNHead_aux": (CFG_EPS, 1e-5),
        "FCNHead_fcn": (CFG_EPS, 1e-5), "UPerHead": (CFG_EPS, 1e-5),
-       "DeepLabV3Plus": (CFG_EPS, 1e-5)}
+       "DeepLabV3Plus": (CFG_EPS, 1e-5), "MLPDecoderpp": (CFG_EPS, 1e-5)}
 
 
 def _to_port(x):
@@ -331,7 +337,8 @@ def test_aux_loss_weight():
 CARRIED = [("mit_tiny_w_aspp", "UPernet"), ("mit_tiny_w_ef_aspp", "deeplabv3+"),
            ("mit_tiny", "fcn"), ("mit_tiny", None),
            ("mit_tiny_w_aspp", "MLPDecoder"), ("mit_tiny", "MLPDecoder"),
-           ("mit_b0_w_aspp", "UPernet"), ("mit_b0_w_ef_aspp", "deeplabv3+")]
+           ("mit_b0_w_aspp", "UPernet"), ("mit_b0_w_ef_aspp", "deeplabv3+"),
+           ("mit_b0", "mask2former"), ("mit_b0", "MLPDecoderpp")]
 
 
 def test_segment_indices_map_every_trailing_index():
@@ -408,11 +415,30 @@ def test_every_aspp_name_builds(backbone):
 
 
 @pytest.mark.parametrize("backbone,decoder,item", [
-    ("mit_b2", "MLPDecoderpp", "M10 item 2"),
-    ("mit_b2", "mask2former", "M10 item 3"),
     ("segnext_tiny", "MLPDecoder", "M10 item 6"),
     ("resnet50", "UPernet", "M10 item 7")])
 def test_unported_names_still_raise(backbone, decoder, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         with torch.device("meta"):
             tbuilder.EncoderDecoder(_cfg(backbone, decoder))
+
+
+@pytest.mark.parametrize("decoder", ["MLPDecoderpp", "mask2former"])
+@pytest.mark.parametrize("backbone", sorted(tbuilder.MIT_FACTORIES))
+def test_last_heads_build_on_every_mit(backbone, decoder):
+    """The two heads that raised before now build on every MiT backbone
+    (on the meta device), read all four stages, and at mit_tiny / mit_b0
+    have the JAX model's parameter count (by eval_shape); their outputs are
+    held against JAX in tests/test_torch_mask2former.py and
+    tests/test_torch_mlp_decoderpp.py."""
+    cfg = _cfg(backbone, decoder)
+    with torch.device("meta"):
+        model = tbuilder.EncoderDecoder(cfg)
+    assert model.aux_head is None and model.every_param_in_loss
+    if backbone in ("mit_tiny", "mit_b0"):
+        x = np.zeros((1, 64, 80, 3), np.float32)
+        shapes = jax.eval_shape(lambda: JaxEncoderDecoder(cfg=cfg).init(
+            jax.random.PRNGKey(0), x, x))
+        assert sum(p.numel() for p in model.parameters()) == sum(
+            int(np.prod(v.shape))
+            for v in jax.tree_util.tree_leaves(shapes["params"]))

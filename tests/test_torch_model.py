@@ -104,15 +104,23 @@ def test_flagship_parameter_count_matches_jax():
 def test_unported_names_raise():
     """Names of the JAX registry the port does not build yet raise
     NotImplementedError naming their ROADMAP item; the ASPP variants and
-    the UPernet head now build (tests/test_torch_heads.py)."""
+    the UPernet head now build (tests/test_torch_heads.py), and so do the
+    MLPDecoderpp and mask2former heads on the flagship's mit_b2, with the
+    JAX model's parameter count (by eval_shape)."""
     for backbone in ("segnext_tiny", "resnet50"):
         cfg = mfnet_config().replace(model=ModelConfig(backbone=backbone))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, device="cpu", seed=None)
+    x = np.zeros((1, 64, 64, 3), np.float32)
     for decoder in ("MLPDecoderpp", "mask2former"):
         cfg = mfnet_config().replace(model=ModelConfig(decoder=decoder))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu", seed=None)
+        with torch.device("meta"):
+            model = EncoderDecoder(cfg)
+        shapes = jax.eval_shape(lambda: JaxEncoderDecoder(cfg=cfg).init(
+            jax.random.PRNGKey(0), x, x))
+        assert sum(p.numel() for p in model.parameters()) == sum(
+            int(np.prod(v.shape))
+            for v in jax.tree_util.tree_leaves(shapes["params"]))
     with torch.device("meta"):
         for backbone, decoder in (("mit_b2_w_aspp", "UPernet"),
                                   ("mit_b2_w_ef_aspp", "MLPDecoder")):

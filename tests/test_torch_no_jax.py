@@ -6,6 +6,8 @@ Swin tower forward and backward, builds mit_tinypp (IFRM/IFFM) and runs a
 train step through the flash-attention op, imports the bench tools, runs
 builds mit_tiny_w_aspp + UPernet (ASPPs, the aux head) and runs a train
 step and a multi-scale, flipped, stride-swapped sliding-window prediction,
+builds mit_tiny + mask2former and runs a train step (its own loss) and an
+evaluation, runs a train step under every criterion name,
 runs train_cli -> eval_cli -e last -> predict_cli on a synthetic dataset (the
 threaded loader on the native image ops, checkpoints, the engine) and
 train_cli -c and eval_cli over two CPU ranks (parallel/: the launcher, the
@@ -95,6 +97,29 @@ pred = SegEvaluator(cfg_pst, trainer.model.eval(), device="cpu",
                     compat_stride_swap=True).sliding_eval_rgbx(
     np.zeros((40, 48, 3), np.uint8), np.zeros((40, 48), np.uint8))
 assert pred.shape == (40, 48), pred.shape
+cfg_m2f = cfg.replace(
+    model=dataclasses.replace(cfg.model, decoder="mask2former"),
+    eval=dataclasses.replace(cfg.eval, eval_crop_size=(32, 32)))
+trainer = Trainer(cfg_m2f, device="cpu", seed=0)
+batch = {"rgb": torch.zeros(2, 32, 32, 3, dtype=torch.uint8),
+         "modal_x": torch.zeros(2, 32, 32, 3, dtype=torch.uint8),
+         "label": torch.ones(2, 32, 32, dtype=torch.uint8)}
+loss = float(trainer.step(batch)["loss"])
+assert loss == loss and loss > 0, loss
+items = [{"rgb": np.zeros((32, 32, 3), np.uint8),
+          "modal_x": np.zeros((32, 32), np.uint8),
+          "label": np.ones((32, 32), np.uint8)}] * 2
+scores, line = SegEvaluator(cfg_m2f, trainer.model.eval(),
+                            device="cpu").evaluate(items, eval_batch=2)
+assert "mean_IoU" in line, line
+criteria = ("CrossEntropyLoss", "FocalLoss", "SigmoidFocalLoss", "DiceLoss",
+            "DiceCELoss", "RCELoss", "BalanceLoss", "FocalLoss2d",
+            "OhemCrossEntropy", "berHuLoss", "CE_Focal", "TopologyAwareLoss",
+            "TopologyAwareCE")
+for name in criteria:
+    named = cfg.replace(train=dataclasses.replace(cfg.train, criterion=name))
+    loss = float(Trainer(named, device="cpu", seed=0).step(batch)["loss"])
+    assert loss == loss, (name, loss)
 import os
 import tempfile
 from rgbx_semantic_segmentation_tpu_torch import (
@@ -168,5 +193,6 @@ def test_no_jax_import_in_sources():
             "models/decoders/upernet.py", "models/decoders/deeplabv3plus.py",
             "ops/resize.py", "evaluator.py", "parallel/dist.py",
             "parallel/launch.py", "parallel/sync_bn.py",
-            "parallel/multihost.py"} <= names
+            "parallel/multihost.py", "models/decoders/mask2former.py",
+            "models/decoders/mlp_decoderpp.py", "losses.py"} <= names
     assert len(sources) >= 10

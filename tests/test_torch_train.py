@@ -369,16 +369,30 @@ def test_fit_epoch_and_should_stop():
 
 
 def test_trainer_default_device_and_unported_outputs():
+    """The trainer defaults to the card. The outputs and criteria that
+    raised before now give the JAX make_loss_fn's loss (rtol 1e-5): the
+    mask2former dict (its own loss, no criterion) and DiceLoss."""
     cfg = tiny_cfg()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.Trainer(cfg)
-    with pytest.raises(NotImplementedError, match="M10 item 3"):
-        ttrain.make_loss_fn(cfg)({"pred_logits": torch.zeros(1),
-                                  "pred_masks": torch.zeros(1)},
-                                 torch.zeros(1))
-    bad = cfg.replace(train=dataclasses.replace(cfg.train,
-                                                criterion="DiceLoss"))
-    with pytest.raises(NotImplementedError, match="M11"):
-        ttrain.make_loss_fn(bad)
+    rng = np.random.RandomState(0)
+    label = rng.randint(0, 5, (2, 8, 8)).astype(np.int32)
+    label[0, 0] = 255
+    m2f = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                decoder="mask2former"))
+    out = {"pred_logits": rng.randn(2, 6, 6).astype(np.float32),
+           "pred_masks": rng.randn(2, 6, 8, 8).astype(np.float32)}
+    got = ttrain.make_loss_fn(m2f)(
+        {k: torch.from_numpy(v) for k, v in out.items()},
+        torch.from_numpy(label))
+    assert float(got) == pytest.approx(
+        float(jtrain.make_loss_fn(m2f)(out, label)), rel=1e-5)
+    dice = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                 criterion="DiceLoss"))
+    logits = rng.randn(2, 8, 8, 5).astype(np.float32)
+    got = ttrain.make_loss_fn(dice)(torch.from_numpy(logits),
+                                    torch.from_numpy(label))
+    assert float(got) == pytest.approx(
+        float(jtrain.make_loss_fn(dice)(logits, label)), rel=1e-5)
     assert tlosses.build_criterion(cfg) is not None
