@@ -78,6 +78,27 @@ and nyu presets:
     function on the CPU: loss and gradient, OHEM and the Mask2Former loss
     twice bit-equal, their device time forward + backward, the component
     count's rounds;
+  * swin_b end to end (window 12) with the absolute position embedding
+    (its 96x96 grid bicubic-resized to the 120x160 tokens), frozen stages
+    2 (the patch embeds, the embeddings and stage 0 of both towers) and
+    SGD with momentum under CyclicLR: K3 and K4 at swin_b's four stage
+    shapes against their plain versions (K4 on its scalar kernel for
+    N = 144; device time, SDPA, bound), evaluate() (K3 48 a forward), 3
+    train steps (K3 48 and K4 44 a step: stage 0 launches no backward; the
+    optimizer's lr and momentum the schedule's at each step; frozen
+    parameters bit-unchanged, the others moved), step and device time,
+    peak memory, and one step with drop rates 0 on the kernel path, bf16,
+    held to the fp32 plain composition;
+  * remat (activation checkpointing of every block) off and on for mit_b2
+    and swin_s: launches a step (K1 64 with remat: the recompute; swin_s
+    K3 96), step ms and peak memory of both, and the first step's loss and
+    gradients with every preset drop rate on held to the spread of two
+    runs without remat;
+  * L-BFGS (the port's optax.lbfgs with its zoom line search) on mit_b2:
+    2 steps, the line search's evaluations a step (K1 and K2 launching
+    32 x (1 + evaluations)), the loss falling along each step, the
+    BatchNorm running statistics equal to one forward's, step ms, the
+    optimizer's memory and the peak;
   * data parallelism at world 1: Trainer through the launcher
     (parallel/launch.py) as one NCCL rank, with the synced BatchNorm and
     the summed gradient all-reduce, 3 steps of mit_b2 at global batch 8
@@ -1888,6 +1909,449 @@ def swin_train_phase(S, W, T, cfg_lib, train_lib, dual_swin, items):
             "fp32_loss_rel": fp32[0], "fp32_grad_rel": fp32[1]}
 
 
+# swin_b end to end: the mfnet preset with backbone swin_b (window
+# 12, N = 144), the absolute position embedding (its 96x96 grid resized to
+# the 120x160 tokens), frozen_stages 2 (the patch embeds, the embeddings and
+# stage 0 of both towers frozen: stage 0 runs in eval mode, K3 at rate 0,
+# no K4) and SGD with momentum under CyclicLR. One epoch a step (3-epoch
+# cycles, no warm-up), so the lr and the momentum change every step; lr
+# 1e-3, an SGD-sized lr (the preset's 6e-5 is AdamW's). K3 48 launches a
+# forward, K4 44 a step (stage 0's 2 blocks x 2 towers launch no backward).
+# The kernel path against the plain composition: one step, every drop rate
+# 0, on parameters the step trains. Two bf16 paths of swin_b lie further
+# apart than swin_s's bounds allow (the last stage's fc2 5.6% against 5%,
+# read on the H100), so, as mit_b2pp's and pst900's, its bf16 kernel path
+# is held to the fp32 plain path (TF32 off): at most PP_TRUTH_FACTOR times
+# as far from it as the bf16 plain path is (see compare_step_to_truth).
+SWIN_B_STEPS = 3
+SWIN_B_LR = 1e-3
+SWIN_B_GRAD_NAMES = [
+    "backbone.layers.1.blocks.0.attn.qkv.weight",
+    "backbone.layers.1.blocks.1.attn.relative_position_bias_table",
+    "backbone.layers_d.2.blocks.17.attn.relative_position_bias_table",
+    "backbone.layers.3.blocks.1.mlp.fc2.weight",
+    "backbone.downsamples.0.reduction.weight",
+    "backbone.FRMs.0.channel_weights.mlp.0.weight",
+    "decode_head.linear_pred.weight"]
+# (B, Hp, Wp, h) of swin_b's window attentions at 480x640, batch 8 (d 32,
+# window 12): tools/bench_window_attention.SWIN_B_STAGES; its K4 launches a
+# step with stage 0 frozen.
+SWIN_B_BWD_CALLS = [0, 4, 36, 4]
+# remat: first-step loss and named gradients with remat on against
+# off, every drop rate of the preset on (mit_b2: drop-path 0.1 and the
+# decoder's Dropout2d 0.1; swin_s: + attention dropout 0.3 in K3/K4), the
+# same seed: within REMAT_FACTOR x the distance between two remat-off runs
+# (the card's step is not bit-reproducible: cuDNN's weight gradients and
+# the resize backward use atomics) plus REMAT_FLOOR (relative L2). A
+# recompute that drew other masks lands ~1e-1 away (another sample's
+# residual branch dropped).
+REMAT_FACTOR, REMAT_FLOOR = 4.0, 1e-3
+REMAT_STEPS = 3
+
+
+def swin_b_cfg(cfg_lib):
+    cfg = cfg_lib.mfnet_config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, backbone="swin_b",
+                                  swin_ape=True, swin_frozen_stages=2),
+        train=dataclasses.replace(cfg.train, optimizer="SGDM",
+                                  lr_policy="CyclicLR", lr=SWIN_B_LR,
+                                  warm_up_epoch=0, niters_per_epoch=1,
+                                  cycle_epochs=3))
+
+
+def swin_b_kernel_phase(W, T):
+    """K3 and K4 at swin_b's four stage shapes (window 12, N = 144, d 32,
+    heads 4/8/16/32; K4 takes its scalar kernel: bf16 with N > 56) against
+    their plain versions with the swin_s bounds, unshifted and masked, rate
+    0 and 0.3 (the kernel's mask read off its outputs against the plain
+    mask); then each one's device time a call (torch.profiler, shifted and
+    unshifted), SDPA's forward and backward (CUDA events) and the bound."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    fwd_err = bwd_err = 0.0
+    shapes = [(*s, T.D, T.SWIN_B_WS) for s in T.SWIN_B_STAGES]
+    for shape in shapes:
+        for shifted in (False, True):
+            fwd_err = max(fwd_err, hold_window_fwd(W, T, shape, torch.bfloat16,
+                                                   shifted, gen))
+            bwd_err = max(bwd_err, hold_window_bwd(W, T, shape, torch.bfloat16,
+                                                   shifted, gen))
+    seed = torch.empty(1, dtype=torch.int64, device="cuda").random_(
+        generator=gen)
+    B, Hp, Wp, h, d, ws = shapes[2]
+    want = W.keep_mask(seed, B, (Hp // ws) * (Wp // ws), h, ws * ws, T.RATE)
+    got = T.kernel_mask(shapes[2], seed, T.RATE)
+    check(bool(torch.equal(got, want)), f"kernel mask != plain at {shapes[2]}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for shape in shapes:
+        B, Hp, Wp, h, d, ws = shape
+        sc = d ** -0.5
+        dev = {"fwd": {}, "bwd": {}}
+        for shifted in (True, False):
+            qkv, bias, cot, seed = T.window_inputs(
+                shape, torch.bfloat16, "shifted" if shifted else "unshifted",
+                gen)
+            fargs = (qkv, bias, seed, sc, T.RATE, ws)
+            bargs = (qkv, bias, seed, cot, sc, T.RATE, ws)
+            with torch.no_grad():
+                dev["fwd"][shifted] = T.kernel_ms(
+                    lambda: W.window_attention(*fargs))
+            dev["bwd"][shifted] = T.kernel_ms(
+                lambda: W.window_attention_bwd(*bargs))
+        lq, lk, lv, mask = (t.requires_grad_() for t in
+                            T.sdpa_inputs(qkv, bias, shape))
+        w = W._split_windows(cot, ws, 1, h)[:, :, 0].reshape(lq.shape)
+
+        def fwd():
+            return sdpa(lq, lk, lv, attn_mask=mask, dropout_p=T.RATE,
+                        scale=sc)
+
+        with torch.no_grad():
+            lib_fwd = median_ms(fwd, reps=5)
+        lib_bwd = median_ms(lambda: torch.autograd.grad(
+            fwd(), (lq, lk, lv, mask), w), reps=5) - lib_fwd
+        bf = [bound_ms(*reversed(T.work(shape, sh, False)))
+              for sh in (True, False)]
+        bb = [bound_ms(*reversed(T.work(shape, sh, True)))
+              for sh in (True, False)]
+        row = {"shape": list(shape),
+               "fwd_device_ms": device_reading(dev["fwd"]),
+               "bwd_device_ms": device_reading(dev["bwd"]),
+               "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+               "fwd_bound_ms": (bf[0][0] + bf[1][0]) / 2,
+               "bwd_bound_ms": (bb[0][0] + bb[1][0]) / 2,
+               "bound_by": bf[0][1]}
+        rows.append(row)
+        print(f"swin_b window attention (B,Hp,Wp,h,d,ws)={shape}, rate "
+              f"{T.RATE}: K3 device {ms_text(row['fwd_device_ms'])} ms, K4 "
+              f"(scalar) device {ms_text(row['bwd_device_ms'])} ms; SDPA "
+              f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms "
+              f"(CUDA events); bound {row['fwd_bound_ms']:.4f} / "
+              f"{row['bwd_bound_ms']:.4f} ms ({row['bound_by']})")
+    per = {}
+    for key, calls in (("fwd_device_ms", SWIN_CALLS),
+                       ("bwd_device_ms", SWIN_B_BWD_CALLS),
+                       ("sdpa_fwd_ms", SWIN_CALLS),
+                       ("sdpa_bwd_ms", SWIN_B_BWD_CALLS),
+                       ("fwd_bound_ms", SWIN_CALLS),
+                       ("bwd_bound_ms", SWIN_B_BWD_CALLS)):
+        per[key] = per_step(rows, key, calls)
+    print("swin_b window attention a step (48 forward calls, 44 backward): "
+          + ", ".join(f"{k} {ms_text(v)}" for k, v in per.items()))
+    return {"fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+            "per_call": rows, "per_step": per}
+
+
+def swin_b_phase(S, W, T, cfg_lib, builder, evaluator_lib, train_lib,
+                 dual_swin, items):
+    """swin_b with the absolute position embedding, frozen stages 2, SGDM
+    and CyclicLR at full width and depth: evaluate() (K3 48 a forward),
+    SWIN_B_STEPS counted train steps (K3 48, K4 44 a step; the optimizer's
+    lr and momentum those of the schedule at each step; frozen parameters
+    bit-unchanged, the others moved), the step's time, device time and
+    peak memory, and one step with drop rates 0 on the kernel path against
+    the plain composition (bf16, held to the fp32 plain path)."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import lr_schedules, optim
+
+    cfg = swin_b_cfg(cfg_lib)
+    model = builder.build_model(cfg, seed=0)
+    blocks = [m for m in model.modules() if isinstance(m, dual_swin.SwinBlock)]
+    check(len(blocks) == 48 and blocks[0].window_size == 12
+          and blocks[0].attn.qkv.in_features == 128
+          and blocks[-1].attn.num_heads == 32
+          and tuple(model.backbone.absolute_pos_embed.shape) == (1, 128, 96,
+                                                                 96),
+          "swin_b at full width and depth with its 96x96 embedding")
+    ev = evaluator_lib.SegEvaluator(cfg, model)
+    ev.evaluate(items[:EVAL_BATCH], eval_batch=EVAL_BATCH)  # warm-up
+    W.window_attention.launches = 0
+    W.window_attention_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, _ = ev.evaluate(items, eval_batch=EVAL_BATCH)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    eval_launches = W.window_attention.launches
+    forwards = N_IMAGES // EVAL_BATCH
+    print(f"swin_b eval: {N_IMAGES} images, {eval_launches} K3 launches "
+          f"(expected {48 * forwards}), {N_IMAGES / dt:.2f} img/s")
+    check(eval_launches == 48 * forwards
+          and W.window_attention_bwd.launches == 0
+          and np.isfinite(scores.pixel_acc), "swin_b eval launches")
+    del model, ev
+    torch.cuda.empty_cache()
+
+    batches = uint8_batches(items, cfg.train.batch_size)
+    trainer = train_lib.Trainer(cfg, seed=0)
+    model = trainer.model
+    frozen = optim.frozen_mask(cfg, model)
+    named = dict(model.named_parameters())
+    check(sum(frozen.values()) > 0
+          and all(named[n].requires_grad != f for n, f in frozen.items()),
+          "frozen parameters require no gradient")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    lr_s, mom_s = lr_schedules.cyclic_schedules(cfg.train)
+    counters = (W.window_attention, W.window_attention_bwd, S.sr_attention)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for step in range(SWIN_B_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(float(trainer.step(batches[step % 2])["loss"]))
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        lr, mom = optim.applied_lr(trainer.optimizer), \
+            optim.applied_momentum(trainer.optimizer)
+        print(f"swin_b step {step}: loss {losses[-1]:.4f}, lr {lr:.6g} "
+              f"(schedule {lr_s(step):.6g}), momentum {mom:.6g} (schedule "
+              f"{mom_s(step):.6g}), {step_ms[-1]:.1f} ms (CUDA events)")
+        check(lr == lr_s(step) and mom == mom_s(step),
+              "the optimizer's lr and momentum are the schedule's")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd, bwd = W.window_attention.launches, W.window_attention_bwd.launches
+    print(f"swin_b train: {SWIN_B_STEPS} steps, K3 {fwd} launches (expected "
+          f"{48 * SWIN_B_STEPS}), K4 {bwd} (expected {44 * SWIN_B_STEPS}), "
+          f"peak {peak:.2f} GiB, losses {losses}")
+    check(fwd == 48 * SWIN_B_STEPS and bwd == 44 * SWIN_B_STEPS
+          and S.sr_attention.launches == 0, f"swin_b launches {fwd}/{bwd}")
+    check(all(np.isfinite(losses)), "swin_b losses finite")
+    check(len({round(mom_s(s), 9) for s in range(SWIN_B_STEPS)}) > 1,
+          "the momentum schedule moves over the steps")
+    after = model.state_dict()
+    changed = {k for k, v in after.items() if v.is_floating_point()
+               and not torch.equal(v, before[k])}
+    still = [n for n, f in frozen.items() if f and n in changed]
+    trainable = [n for n, f in frozen.items() if not f]
+    moved = [n for n in trainable if n in changed]
+    print(f"swin_b train: {sum(frozen.values())} frozen tensors, "
+          f"{len(still)} of them changed; {len(moved)} of {len(trainable)} "
+          "trainable tensors moved")
+    check(not still, f"frozen parameters changed: {still[:4]}")
+    # A bias in front of a BatchNorm has a zero true gradient and may stay.
+    check(len(moved) >= 0.95 * len(trainable), "the trainable ones moved")
+    prof = profile_steps(trainer, cycle(batches))
+    del trainer, model, before, after
+    torch.cuda.empty_cache()
+
+    def no_drop(m):
+        for mod in m.modules():
+            if isinstance(mod, dual_swin.WindowAttention):
+                mod.attn_drop.rate = 0.0
+
+    cfg0 = cfg.replace(model=dataclasses.replace(
+        cfg.model, drop_path_rate=0.0, decoder_dropout_ratio=0.0))
+    both = one_step_losses_and_grads(train_lib, dual_swin, cfg0, batches[0],
+                                     SWIN_B_GRAD_NAMES, no_drop)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg0.replace(model=dataclasses.replace(
+        cfg0.model, use_mixed_precision=False))
+    truth = one_step_losses_and_grads(train_lib, dual_swin, cfg32,
+                                      batches[0], SWIN_B_GRAD_NAMES, no_drop,
+                                      paths=(True,))[0]
+    bf16 = compare_step_to_truth("swin_b bf16", *both, truth,
+                                 SWIN_B_GRAD_NAMES)
+    torch.cuda.empty_cache()
+    return {"eval_launches": eval_launches, "fwd_launches": fwd,
+            "bwd_launches": bwd, "eval_img_per_s": N_IMAGES / dt,
+            "step_ms": step_ms, "losses": losses, "peak_gib": peak,
+            "device_kernels": prof[0] if prof else None,
+            "device_ms": prof[1] if prof else None,
+            "kernel_device_ms": prof[2] if prof else None,
+            "bf16_worst_kernel_to_plain_error_ratio": bf16[0],
+            "bf16_grad_rel_to_fp32": bf16[1]}
+
+
+def remat_launches(remat, i):
+    """Launches of counter i (K1, K2, K3, K4) over remat_phase's counted
+    steps, both models, remat off and on."""
+    return sum(r[on]["launches"][i] for r in remat.values()
+               for on in ("off", "on"))
+
+
+def _first_step(train_lib, cfg, batch, names):
+    """Loss and named gradients of one Trainer step from seed-0 weights."""
+    import torch
+
+    trainer = train_lib.Trainer(cfg, seed=0)
+    loss = float(trainer.step(batch)["loss"])
+    named = dict(trainer.model.named_parameters())
+    grads = {n: named[n].grad.float().clone() for n in names}
+    del trainer, named
+    torch.cuda.empty_cache()
+    return loss, grads
+
+
+def _rel(a, b, names):
+    """Worst relative L2 distance between two (loss, gradients) readings."""
+    (la, ga), (lb, gb) = a, b
+    return max([abs(la - lb) / abs(lb)]
+               + [float((ga[n] - gb[n]).norm() / gb[n].norm())
+                  for n in names])
+
+
+def remat_phase(S, W, cfg_lib, train_lib, items):
+    """remat off and on for mit_b2 and swin_s with the preset's drop rates:
+    REMAT_STEPS steps each (1 warm-up, the rest counted: K1 64 forward
+    launches a step with remat, 32 without; K2 32; swin_s K3 96 / 48 and K4
+    48), step ms and peak GiB; the first step's loss and named gradients
+    with remat held to two remat-off runs' spread."""
+    import torch
+
+    out = {}
+    for tag, cfg, names in (("mit_b2", cfg_lib.mfnet_config(), GRAD_NAMES),
+                            ("swin_s", swin_cfg(cfg_lib), SWIN_GRAD_NAMES)):
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    warm_up_epoch=0))
+        batches = uint8_batches(items, cfg.train.batch_size)
+        res = {}
+        for remat in (False, True):
+            c = cfg.replace(model=dataclasses.replace(cfg.model, remat=remat))
+            trainer = train_lib.Trainer(c, seed=0)
+            data = cycle(batches)
+            trainer.fit_epoch(data, 1)
+            counters = (S.sr_attention, S.sr_attention_bwd,
+                        W.window_attention, W.window_attention_bwd)
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            steps = REMAT_STEPS - 1
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            trainer.fit_epoch(data, steps)
+            b.record()
+            b.synchronize()
+            counts = [fn.launches // steps for fn in counters]
+            res[remat] = {"step_ms": a.elapsed_time(b) / steps,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30,
+                          "launches_per_step": counts,
+                          "launches": [fn.launches for fn in counters]}
+            print(f"{tag} remat={remat}: {res[remat]['step_ms']:.1f} ms a "
+                  f"step (CUDA events, {steps} steps), peak "
+                  f"{res[remat]['peak_gib']:.2f} GiB; launches a step K1 "
+                  f"{counts[0]}, K2 {counts[1]}, K3 {counts[2]}, K4 "
+                  f"{counts[3]}")
+            del trainer
+            torch.cuda.empty_cache()
+        want = ({False: [32, 32, 0, 0], True: [64, 32, 0, 0]}
+                if tag == "mit_b2" else
+                {False: [0, 0, 48, 48], True: [0, 0, 96, 48]})
+        check(all(res[r]["launches_per_step"] == want[r] for r in res),
+              f"{tag} launches a step {res}")
+        off1 = _first_step(train_lib, cfg, batches[0], names)
+        off2 = _first_step(train_lib, cfg, batches[0], names)
+        on = _first_step(train_lib, cfg.replace(model=dataclasses.replace(
+            cfg.model, remat=True)), batches[0], names)
+        spread, dist = _rel(off2, off1, names), _rel(on, off1, names)
+        bound = REMAT_FACTOR * spread + REMAT_FLOOR
+        print(f"{tag} first step with dropout on: remat vs off {dist:.3e} "
+              f"(bound {bound:.3e}), two remat-off runs {spread:.3e} apart; "
+              f"losses {off1[0]:.6f} / {off2[0]:.6f} / {on[0]:.6f}")
+        check(np.isfinite(dist) and dist <= bound, f"{tag} remat gradients")
+        out[tag] = {"off": res[False], "on": res[True], "spread": spread,
+                    "remat_vs_off": dist}
+    return out
+
+
+def lbfgs_phase(S, cfg_lib, train_lib, items):
+    """mit_b2 with LBFGS (the preset's lr): 2 steps on one batch; the
+    line search's evaluations a step, K1 and K2 launching 32 x (1 + those)
+    times a step, the loss falling along each step's line (the accepted
+    point's loss below the step's first, on the step's own masks), the
+    BatchNorm running statistics after each step those one train-mode
+    forward with the step's masks gives, step ms and peak memory beside
+    the optimizer's memory."""
+    import copy
+
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
+        set_generator)
+
+    cfg = cfg_lib.mfnet_config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, optimizer="LBFGS"))
+    batch = uint8_batches(items, cfg.train.batch_size)[0]
+    trainer = train_lib.Trainer(cfg, seed=0)
+    model = trainer.model
+    mean = torch.tensor(cfg.dataset.norm_mean, device="cuda")
+    std = torch.tensor(cfg.dataset.norm_std, device="cuda")
+    rgb = (torch.from_numpy(batch["rgb"]).cuda().float() / 255 - mean) / std
+    mx = (torch.from_numpy(batch["modal_x"]).cuda().float() / 255 - mean) / std
+    stats = [n for n, _ in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    losses, rows = [], []
+    torch.cuda.reset_peak_memory_stats()
+    trainer_gen = next(m.generator for m in model.modules()
+                       if getattr(m, "generator", None) is not None)
+    for step in range(2):
+        # the step's first forward, on a copy: the Trainer's seed (0) and
+        # step fix its masks
+        set_generator(model, None)
+        ref = copy.deepcopy(model).train()
+        set_generator(model, trainer_gen)
+        gen = torch.Generator(device="cuda").manual_seed(
+            train_lib.step_seed(0, step))
+        set_generator(ref, gen)
+        with torch.no_grad():
+            ref(rgb, mx)
+        want = dict(ref.named_buffers())
+        del ref
+        S.sr_attention.launches = S.sr_attention_bwd.launches = 0
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(float(trainer.step(batch)["loss"]))
+        b.record()
+        b.synchronize()
+        info = dict(trainer.optimizer.last_step)
+        got = dict(model.named_buffers())
+        err = max(float((got[n] - want[n]).abs().max()
+                        / want[n].abs().max().clamp_min(1e-12))
+                  for n in stats)
+        k1, k2 = S.sr_attention.launches, S.sr_attention_bwd.launches
+        evals = info["evaluations"]
+        rows.append({"step_ms": a.elapsed_time(b), "evaluations": evals,
+                     "stepsize": info["stepsize"], "k1": k1, "k2": k2,
+                     "bn_rel_err": err, "value_after": info["value"]})
+        print(f"LBFGS step {step}: loss {losses[-1]:.5f} -> "
+              f"{info['value']:.5f} at step size {info['stepsize']:.4g}, "
+              f"{evals} line-search evaluations, K1 {k1} / K2 {k2} "
+              f"launches (expected {32 * (1 + evals)} each), "
+              f"{rows[-1]['step_ms']:.1f} ms (CUDA events); BatchNorm "
+              f"statistics against one forward: {err:.2e} of their largest")
+        # the line search's accepted point, on the step's own masks
+        check(info["value"] < losses[-1], f"LBFGS step {step}: the loss "
+              "did not fall")
+        check(k1 == k2 == 32 * (1 + evals), "K1/K2 launches a step")
+        check(err <= 1e-5, "BatchNorm statistics from one forward only")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    opt = trainer.optimizer
+    st = opt.state[opt.param_groups[0]["params"][0]]
+    mem = sum(v.numel() * v.element_size() for v in st.values()
+              if torch.is_tensor(v)) / 2 ** 30
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"LBFGS: {n_params / 1e6:.2f} M parameters, optimizer memory "
+          f"{mem:.2f} GiB, peak {peak:.2f} GiB; losses {losses}")
+    check(all(np.isfinite(losses)), "LBFGS losses finite")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {"steps": rows, "losses": losses, "peak_gib": peak,
+            "optimizer_gib": mem, "params_m": n_params / 1e6,
+            "k1": sum(r["k1"] for r in rows),
+            "k2": sum(r["k2"] for r in rows)}
+
+
 # The CLI phase: a synthetic MFNet-shaped dataset on disk (PNG triples),
 # CLI_TRAIN train and CLI_VAL val pairs at 480x640, epochs of CLI_NITERS
 # steps of batch 8. The preset's warm-up (10 epochs) covers every step, so
@@ -3315,6 +3779,7 @@ def main() -> int:
               f"plain {per_step(rows, 'plain_ms', SWIN_CALLS):.3f} ms, SDPA "
               f"{per_step(rows, 'library_ms', SWIN_CALLS):.3f} ms, bound "
               f"{bound:.3f} ms")
+    swin_b_kernels = swin_b_kernel_phase(W, T)
     flash_err, flash_rows = flash_kernel_phase(FA, T5)
     for which, tag in (("fwd", "forward"), ("dkv", "dk/dv"), ("dq", "dq")):
         rows = flash_rows[which]
@@ -3333,6 +3798,10 @@ def main() -> int:
                                 dual_swin, items)
     swin_train = swin_train_phase(S, W, T, cfg_lib, train_lib, dual_swin,
                                   items)
+    swin_b = swin_b_phase(S, W, T, cfg_lib, builder, evaluator_lib,
+                          train_lib, dual_swin, items)
+    remat = remat_phase(S, W, cfg_lib, train_lib, items)
+    lbfgs = lbfgs_phase(S, cfg_lib, train_lib, items)
     pp_eval = slice_phase(S, FA, pp_cfg(cfg_lib), builder, evaluator_lib,
                           dual_segformer, items, sr_calls=PP_SR_CALLS,
                           flash_calls=PP_FLASH_CALLS, fp32_batch=PP_FP32_BATCH,
@@ -3428,20 +3897,27 @@ def main() -> int:
          + proto["launches"] + pst_cli["launches"]["fwd"]
          + m2f_eval["launches"] + m2f_train["fwd_launches"]
          + m2f_cli["launches"]["fwd"] + mlppp_eval["launches"]
-         + mlppp_train["fwd_launches"] + ddp["launches"]["fwd"], fwd_err,
+         + mlppp_train["fwd_launches"] + ddp["launches"]["fwd"]
+         + remat_launches(remat, 0) + lbfgs["k1"], fwd_err,
          fwd_rows, CALLS_PER_FORWARD, None),
         ("sr_attention_bwd", "sr_attention.py:123",
          train["bwd_launches"] + pp_train["bwd_launches"]
          + cli["launches"]["bwd"] + pst_train["bwd_launches"]
          + pst_cli["launches"]["bwd"] + m2f_train["bwd_launches"]
          + m2f_cli["launches"]["bwd"] + mlppp_train["bwd_launches"]
-         + ddp["launches"]["bwd"], bwd_err, bwd_rows, CALLS_PER_FORWARD,
-         None),
+         + ddp["launches"]["bwd"] + remat_launches(remat, 1) + lbfgs["k2"],
+         bwd_err, bwd_rows, CALLS_PER_FORWARD, None),
         ("window_attention_fwd", "window_attention.py:179",
-         swin_eval["launches"] + swin_train["fwd_launches"], wfwd_err,
-         wfwd_rows, SWIN_CALLS, None),
+         swin_eval["launches"] + swin_train["fwd_launches"]
+         + swin_b["eval_launches"] + swin_b["fwd_launches"]
+         + remat_launches(remat, 2),
+         max(wfwd_err, swin_b_kernels["fwd_max_abs_err"]), wfwd_rows,
+         SWIN_CALLS, None),
         ("window_attention_bwd", "window_attention.py:205",
-         swin_train["bwd_launches"], wbwd_err, wbwd_rows, SWIN_CALLS, None),
+         swin_train["bwd_launches"] + swin_b["bwd_launches"]
+         + remat_launches(remat, 3),
+         max(wbwd_err, swin_b_kernels["bwd_max_abs_err"]), wbwd_rows,
+         SWIN_CALLS, None),
         ("flash_attention_fwd", "attention.py:50", flash_eval + flash_train[0],
          flash_err["fwd"], flash_rows["fwd"], T5.CALLS, None),
         ("flash_attention_bwd_dkv", "attention.py:50", flash_train[1],
@@ -3459,7 +3935,8 @@ def main() -> int:
         "pst_cli": pst_cli, "m2f_eval": m2f_eval, "m2f_train": m2f_train,
         "m2f_cli": m2f_cli, "mlppp_eval": mlppp_eval,
         "mlppp_train": mlppp_train, "criteria": criteria,
-        "ddp_world1": ddp, "card": card}))
+        "ddp_world1": ddp, "swin_b_kernels": swin_b_kernels,
+        "swin_b": swin_b, "remat": remat, "lbfgs": lbfgs, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,8 @@ module:
   - Dense kernel (in, out)          -> weight (out, in)
   - Conv kernel HWIO                -> weight OIHW (depthwise (3, 3, 1, C)
                                        -> (C, 1, 3, 3))
+  - Swin absolute_pos_embed(_d)     -> the original's (1, C, h, w) from
+    (1, h, w, C)                       flax's NHWC grid
   - LayerNorm/BatchNorm scale       -> weight (a `scale` leaf beside a
                                        `bias`; any other `scale`, such
                                        as Mask2Former's temperature, stays
@@ -72,6 +74,8 @@ def _param(name: str, value: np.ndarray,
         raise ValueError(f"unhandled kernel ndim {value.ndim}")
     if name == "scale" and "bias" in siblings:   # a norm's scale
         return "weight", value
+    if name.startswith("absolute_pos_embed") and value.ndim == 4:
+        return name, value.transpose(0, 3, 1, 2)   # NHWC grid -> NCHW
     return name, value
 
 

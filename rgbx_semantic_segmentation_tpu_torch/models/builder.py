@@ -7,10 +7,10 @@ the `mit_*_w_aspp` and `mit_*_w_ef_aspp` names with a per-stage ASPP or one
 eASPP) and the dual Swin family (swin_s, swin_b) with FRM/FFM; the heads
 MLPDecoder, UPernet and deeplabv3+ (both with the aux FCNHead on feature 2:
 the model then returns (logits, aux), as the JAX EncoderDecoder does in
-train and eval mode) and fcn / None (an FCNHead on feature 3). Every other
-backbone or decoder name the JAX registry knows, and the Swin knobs
-`swin_ape` and `swin_frozen_stages`, raise NotImplementedError naming their
-ROADMAP item.
+train and eval mode) and fcn / None (an FCNHead on feature 3). The Swin
+knobs `swin_ape` and `swin_frozen_stages` and the shared `remat` pass
+through to the encoders. The other backbone names the JAX registry knows
+(SegNeXt, ResNet) raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -68,10 +68,6 @@ def is_mit_pp(name: str) -> bool:
 
 def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
     name = cfg.model.backbone
-    if cfg.model.remat:
-        raise NotImplementedError(
-            "ModelConfig.remat (activation checkpointing) is not ported "
-            "yet: ROADMAP M5 rest")
     if name in SWIN_FACTORIES:
         return _build_swin(cfg), dual_swin.CHANNELS[name]
     # mit_*pp: the same towers with IFRM/IFFM whatever the config names.
@@ -95,23 +91,18 @@ def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
         drop_path_rate=cfg.model.drop_path_rate,
         use_pallas=cfg.model.use_pallas_kernels,
         gelu_approximate=cfg.model.gelu_approximate,
-        dtype=torch_dtype(cfg.model))
+        dtype=torch_dtype(cfg.model), remat=cfg.model.remat)
     return module, dual_segformer.CHANNELS[base]
 
 
 def _build_swin(cfg: Config) -> nn.Module:
-    if cfg.model.swin_ape:
-        raise NotImplementedError(
-            "ModelConfig.swin_ape (absolute position embedding, needs the "
-            "bicubic resize) is not ported yet: ROADMAP M1 rest")
-    if cfg.model.swin_frozen_stages >= 0:
-        raise NotImplementedError(
-            "ModelConfig.swin_frozen_stages (needs optim.frozen_mask) is not "
-            "ported yet: ROADMAP M11")
     return SWIN_FACTORIES[cfg.model.backbone](
         frm=cfg.model.feature_rectify_module,
         ffm=cfg.model.feature_fusion_module,
         drop_path_rate=cfg.model.drop_path_rate,
+        ape=cfg.model.swin_ape,
+        frozen_stages=cfg.model.swin_frozen_stages,
+        remat=cfg.model.remat,
         use_pallas=cfg.model.use_pallas_kernels,
         dtype=torch_dtype(cfg.model))
 
@@ -169,12 +160,15 @@ class EncoderDecoder(nn.Module):
                 in_index=AUX_INDEX, channels=256,
                 bn_momentum=cfg.model.bn_momentum, bn_eps=cfg.model.bn_eps)
         # A stage that no head reads leaves its fusion module out of the
-        # loss, without a gradient (data parallelism must then look for
-        # such parameters: Trainer).
+        # loss, without a gradient, as does a Swin downsample that feeds a
+        # frozen stage alone (data parallelism must then look for such
+        # parameters: Trainer).
         read = set(self.decode_head.in_stages)
         if self.aux_head is not None:
             read |= set(self.aux_head.in_stages)
-        self.every_param_in_loss = read == set(range(len(channels)))
+        self.every_param_in_loss = (
+            read == set(range(len(channels)))
+            and getattr(self.backbone, "every_param_in_loss", True))
 
     def forward(self, rgb: torch.Tensor, modal_x: torch.Tensor
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],

@@ -29,7 +29,7 @@ from rgbx_semantic_segmentation_tpu_torch.models.encoders.aspp import (
 from rgbx_semantic_segmentation_tpu_torch.ops.attention import (
     multi_head_attention)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
-    DropPath, Dropout, map_to_tokens, tokens_to_map)
+    DropPath, Dropout, checkpointed, map_to_tokens, tokens_to_map)
 
 LN_EPS = 1e-6  # MiT LayerNorms (original repo partial(nn.LayerNorm, eps=1e-6))
 
@@ -189,8 +189,11 @@ class RGBXTransformer(nn.Module):
                  aspp: Optional[str] = None,
                  use_pallas: bool = False, gelu_approximate: bool = False,
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
+        # remat: each Block under activation checkpointing (the JAX
+        # module's nn.remat; ops/layers.checkpointed).
+        self.remat = remat
         frm_cls = fusion.get_frm(frm)
         ffm_cls = fusion.get_ffm(ffm)
         # SegFormer decay rule dpr[cur + i] for both towers (the JAX package's
@@ -239,8 +242,12 @@ class RGBXTransformer(nn.Module):
             x_e, _, _ = getattr(self, f"extra_patch_embed{n}")(x_e)
             for blk, eblk in zip(getattr(self, f"block{n}"),
                                  getattr(self, f"extra_block{n}")):
-                x_rgb = blk(x_rgb, H, W)
-                x_e = eblk(x_e, H, W)
+                if self.remat:
+                    x_rgb = checkpointed(blk, x_rgb, H, W)
+                    x_e = checkpointed(eblk, x_e, H, W)
+                else:
+                    x_rgb = blk(x_rgb, H, W)
+                    x_e = eblk(x_e, H, W)
             x_rgb = getattr(self, f"norm{n}")(x_rgb)
             x_e = getattr(self, f"extra_norm{n}")(x_e)
             m_rgb, m_e = self.FRMs[s](tokens_to_map(x_rgb, H, W),

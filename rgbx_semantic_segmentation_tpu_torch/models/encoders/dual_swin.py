@@ -18,8 +18,11 @@ through its strides; without it, the literal composition (window partition,
 q * scale, softmax, Dropout, window reverse) that the kernel path is held
 against.
 
-Not ported yet (the builder raises NotImplementedError naming the ROADMAP
-item): the absolute position embedding, frozen stages, remat.
+Knobs of the JAX module: `ape`, the absolute position embedding of each
+tower (stored as the original's (1, C, res, res) grid, res =
+pretrain_img_size // patch_size, bicubic-resized to the token grid);
+`frozen_stages` (see DualSwinTransformer); `remat`, each block under
+activation checkpointing (ops/layers.checkpointed).
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ from torch import nn
 from rgbx_semantic_segmentation_tpu_torch.models import fusion
 from rgbx_semantic_segmentation_tpu_torch.ops import window_attention as WA
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
-    DropPath, Dropout, map_to_tokens, tokens_to_map)
+    DropPath, Dropout, checkpointed, map_to_tokens, tokens_to_map)
+from rgbx_semantic_segmentation_tpu_torch.ops.resize import (
+    resize_bicubic_torch)
 
 # The JAX Swin's LayerNorms take flax's default eps (the original torch repo
 # used nn.LayerNorm's 1e-5); the port holds to the JAX package.
@@ -255,7 +260,8 @@ class SwinBlock(nn.Module):
 
 
 class BasicLayer(nn.Module):
-    """One Swin stage; blocks alternate shift 0 / ws // 2."""
+    """One Swin stage; blocks alternate shift 0 / ws // 2. With `remat`
+    each block runs under activation checkpointing."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int = 7, mlp_ratio: float = 4.0,
@@ -263,8 +269,9 @@ class BasicLayer(nn.Module):
                  attn_drop: float = 0.0,
                  drop_path: Sequence[float] = (0.0,),
                  use_pallas: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.blocks = nn.ModuleList([
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
@@ -274,7 +281,7 @@ class BasicLayer(nn.Module):
 
     def forward(self, x, H: int, W: int):
         for blk in self.blocks:
-            x = blk(x, H, W)
+            x = checkpointed(blk, x, H, W) if self.remat else blk(x, H, W)
         return x
 
 
@@ -328,7 +335,19 @@ class DualSwinTransformer(nn.Module):
     [1/4, 1/8, 1/16, 1/32].
 
     FRM rectifies the pre-downsample features; its outputs feed both the
-    next stage's PatchMerging and (normed) the FFM fusion."""
+    next stage's PatchMerging and (normed) the FFM fusion.
+
+    `frozen_stages` fs (the JAX module's, which fixes the original's
+    RGB-only freeze: both towers freeze): fs >= 0 detaches both towers'
+    tokens after the patch embeds, fs >= 1 the absolute position
+    embeddings, fs >= 2 runs `pos_drop` in eval mode, and stage i is frozen
+    iff fs >= 2 and i < fs - 1: it runs in eval mode (no DropPath, Dropout
+    or attention dropout: the window kernel at rate 0) and without autograd
+    (its outputs carry no gradient). The FRMs, FFMs, downsamples and output
+    norms stay trainable; optim.frozen_mask names the frozen parameters.
+    A downsample whose only reader is a frozen stage (fs >= 3) then gets no
+    gradient: `every_param_in_loss` says so (data parallelism must look for
+    such parameters)."""
 
     def __init__(self, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2),
@@ -336,14 +355,18 @@ class DualSwinTransformer(nn.Module):
                  window_size: int = 7, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.2,
+                 ape: bool = False, pretrain_img_size: int = 224,
                  patch_size: int = 4, patch_norm: bool = True,
                  out_indices: Sequence[int] = (0, 1, 2, 3),
+                 frozen_stages: int = -1, remat: bool = False,
                  frm: str = "FRM", ffm: str = "FFM",
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5,
                  use_pallas: bool = False, in_chans: int = 3,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         num_layers = len(depths)
+        self.frozen_stages = frozen_stages
+        self.every_param_in_loss = frozen_stages < 3
         dims = [int(embed_dim * 2 ** i) for i in range(num_layers)]
         dpr = [float(v) for v in np.linspace(0, drop_path_rate, sum(depths))]
         frm_cls = fusion.get_frm(frm)
@@ -353,6 +376,13 @@ class DualSwinTransformer(nn.Module):
                                       patch_norm)
         self.patch_embed_d = PatchEmbed(patch_size, in_chans, embed_dim,
                                         patch_norm)
+        self.ape = ape
+        if ape:
+            res = pretrain_img_size // patch_size
+            self.absolute_pos_embed = nn.Parameter(
+                torch.zeros(1, embed_dim, res, res))
+            self.absolute_pos_embed_d = nn.Parameter(
+                torch.zeros(1, embed_dim, res, res))
         self.pos_drop = Dropout(drop_rate)
 
         def tower():
@@ -360,7 +390,7 @@ class DualSwinTransformer(nn.Module):
                 BasicLayer(dims[i], depths[i], num_heads[i], window_size,
                            mlp_ratio, qkv_bias, drop_rate, attn_drop_rate,
                            dpr[sum(depths[:i]):sum(depths[:i + 1])],
-                           use_pallas, dtype)
+                           use_pallas, dtype, remat)
                 for i in range(num_layers)])
 
         self.layers = tower()
@@ -377,15 +407,47 @@ class DualSwinTransformer(nn.Module):
             setattr(self, f"norm{i}", nn.LayerNorm(dims[i], eps=LN_EPS))
             setattr(self, f"norm_d{i}", nn.LayerNorm(dims[i], eps=LN_EPS))
 
+    def _frozen(self, i: int) -> bool:
+        return self.frozen_stages >= 2 and i < self.frozen_stages - 1
+
+    def train(self, mode: bool = True):
+        """As nn.Module.train, but the frozen stages (and `pos_drop`, from
+        fs >= 2) stay in eval mode."""
+        super().train(mode)
+        if mode and self.frozen_stages >= 2:
+            self.pos_drop.eval()
+            for i, (layer, layer_d) in enumerate(zip(self.layers,
+                                                     self.layers_d)):
+                if self._frozen(i):
+                    layer.eval()
+                    layer_d.eval()
+        return self
+
     def forward(self, x_rgb, x_e) -> List[torch.Tensor]:
         x, H, W = self.patch_embed(x_rgb)
         x_d, _, _ = self.patch_embed_d(x_e)
+        fs = self.frozen_stages
+        if fs >= 0:
+            x, x_d = x.detach(), x_d.detach()
+        if self.ape:
+            ape, ape_d = self.absolute_pos_embed, self.absolute_pos_embed_d
+            if fs >= 1:
+                ape, ape_d = ape.detach(), ape_d.detach()
+            # The sum is fp32, as in the JAX module, where the bf16 tokens
+            # plus the fp32 embedding promote to fp32 before pos_drop and
+            # the first LayerNorm. The port's tokens leave the patch embed's
+            # LayerNorm in fp32 already (autocast runs layer_norm in fp32),
+            # so they are not rounded to bf16 before the add, as JAX's are.
+            x = x + map_to_tokens(resize_bicubic_torch(ape, (H, W)))
+            x_d = x_d + map_to_tokens(resize_bicubic_torch(ape_d, (H, W)))
         x = self.pos_drop(x)
         x_d = self.pos_drop(x_d)
         outs = []
         for i, (layer, layer_d) in enumerate(zip(self.layers, self.layers_d)):
-            x = layer(x, H, W)
-            x_d = layer_d(x_d, H, W)
+            grad = torch.is_grad_enabled() and not self._frozen(i)
+            with torch.set_grad_enabled(grad):
+                x = layer(x, H, W)
+                x_d = layer_d(x_d, H, W)
             m, m_d = self.FRMs[i](tokens_to_map(x, H, W),
                                   tokens_to_map(x_d, H, W))
             x, x_d = map_to_tokens(m), map_to_tokens(m_d)
@@ -426,7 +488,8 @@ def swin_s(**kw):
 def swin_b(**kw):
     return DualSwinTransformer(**{**dict(
         embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
-        window_size=12, attn_drop_rate=0.3, drop_path_rate=0.1), **kw})
+        window_size=12, attn_drop_rate=0.3, drop_path_rate=0.1,
+        pretrain_img_size=384), **kw})
 
 
 # Output channel lists per variant (what decoders consume).

@@ -9,8 +9,9 @@ nn.BatchNorm2d, whose eval mode normalises with the running statistics
 (the JAX TorchBatchNorm exists to re-create exactly torch's semantics).
 
 Initialization follows the JAX package (which follows the original repo's
-`_init_weights`): Linear and the Swin relative-position bias tables =
-truncated normal (std 0.02), Linear bias zero; Conv2d = normal(0, sqrt(2 / fan_out)), fan_out = kh * kw * out / groups,
+`_init_weights`): Linear, the Swin relative-position bias tables and
+absolute position embeddings = truncated normal (std 0.02), Linear bias
+zero; Conv2d = normal(0, sqrt(2 / fan_out)), fan_out = kh * kw * out / groups,
 with zero bias; norms = ones / zeros; the IFRM lambdas = 0.5; the
 Mask2Former queries = normal(0.02) and its mask temperature = 20.
 `init_weights` applies it to a whole model from an explicit
@@ -56,13 +57,14 @@ def conv_kaiming_normal_(w: torch.Tensor, groups: int,
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every Linear, Conv2d, LayerNorm, BatchNorm2d,
-    `relative_position_bias_table`, IFRM lambda and Mask2Former
-    `query_embed` / `scale` parameter of `model` in place (see module
-    docstring); BatchNorm running stats are reset."""
+    `relative_position_bias_table`, Swin `absolute_pos_embed`, IFRM
+    lambda and Mask2Former `query_embed` / `scale` parameter of `model` in
+    place (see module docstring); BatchNorm running stats are reset."""
     for name, p in model.named_parameters():
         # Bare nn.Parameters (Swin WindowAttention, IFRM, Mask2Former), not
         # modules.
-        if name.endswith("relative_position_bias_table"):
+        if name.endswith(("relative_position_bias_table",
+                          "absolute_pos_embed", "absolute_pos_embed_d")):
             trunc_normal_(p, 0.02, generator)
         elif name.endswith(("lambda_channel", "lambda_spatial")):
             p.fill_(0.5)
@@ -145,6 +147,41 @@ def set_generator(model: nn.Module, generator: Optional[torch.Generator],
         if isinstance(m, _Stochastic):
             m.generator = generator
             m.rank = rank
+
+
+def checkpointed(module: nn.Module, *args):
+    """`module(*args)` under activation checkpointing (the JAX package's
+    `remat`, nn.remat): in training with autograd on, the forward keeps only
+    its inputs and the backward runs it again
+    (torch.utils.checkpoint, non-reentrant). The recompute must draw the
+    masks of the first run: the module's DropPath / Dropout (and the window
+    attention's kernel seed) draw from the explicit generator that
+    set_generator handed out, which checkpoint's own preserve_rng_state does
+    not cover; so the generator is put back to its state before the first
+    run for the recompute, and to its later state after it. Elsewhere a
+    plain call."""
+    from torch.utils.checkpoint import checkpoint
+
+    if not (module.training and torch.is_grad_enabled()):
+        return module(*args)
+    gen = next((m.generator for m in module.modules()
+                if isinstance(m, _Stochastic) and m.generator is not None),
+               None)
+    before = None if gen is None else gen.get_state()
+    runs = [0]
+
+    def run(*a):
+        runs[0] += 1
+        if runs[0] == 1 or gen is None:
+            return module(*a)
+        after = gen.get_state()
+        gen.set_state(before)
+        try:
+            return module(*a)
+        finally:
+            gen.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def conv_bn_relu(in_ch: int, out_ch: int, kernel: int, bias: bool = True,

@@ -1,6 +1,7 @@
 """Device-side resize (counterpart of rgbx_semantic_segmentation_tpu/ops/
-resize.py) on NCHW maps: the bilinear upsample of every head and the
-align_corners=True resize of the DeepLabV3+ head. The JAX package re-creates
+resize.py) on NCHW maps: the bilinear upsample of every head, the
+align_corners=True resize of the DeepLabV3+ head and the bicubic resize of
+the Swin absolute position embedding. The JAX package re-creates
 torch's semantics (its `adaptive_avg_pool` is torch's AdaptiveAvgPool2d,
 which the heads use as it is), so the bilinear resize is torch's own op; the
 align-corners resize is the JAX version's arithmetic. Both compute as the
@@ -59,3 +60,22 @@ def resize_bilinear_align_corners(x: torch.Tensor,
         out = top[:, :, :, x0] * (1.0 - wx) + top[:, :, :, x1] * wx
     return out.to(x.dtype)
 
+
+
+def resize_bicubic_torch(x: torch.Tensor, size: Tuple[int, int]
+                         ) -> torch.Tensor:
+    """Bicubic-resize NCHW maps to (H, W) with F.interpolate(mode="bicubic",
+    align_corners=False): cubic convolution with a = -0.75, half-pixel
+    centres, border taps clamped — the semantics the JAX
+    `resize_bicubic_torch` re-creates (in its matrix form) for the Swin
+    absolute position embedding. Computed in float64 (autocast off) and
+    cast back to the input dtype: in fp32 F.interpolate forms its taps'
+    weights in fp32 and lands up to 3.5e-5 from the exact resize of O(1)
+    values, where the JAX version (fp32 matrices built in float64) lies
+    within 1e-6. The embedding grid is small (at most (1, C, 96, 96) in,
+    the token grid out), so the float64 costs nothing that shows."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    with torch.autocast(x.device.type, enabled=False):
+        return F.interpolate(x.double(), size=tuple(size), mode="bicubic",
+                             align_corners=False).to(x.dtype)

@@ -5,7 +5,15 @@ One step = forward under bf16 autocast (fp32 params, no GradScaler: bf16
 needs no loss scaling), the config's criterion (plus 0.4 x the aux head's,
 for the decoders that carry one; Mask2Former's own loss on its query
 dict), backward (the SR attentions through the hand-written backward
-kernel on the card), AdamW at the scheduled lr.
+kernel on the card), the optimizer's update at the scheduled lr (and
+momentum: SGD under CyclicLR). A trainable parameter that the loss does
+not reach (a stage no head reads; a downsample that only feeds a frozen
+Swin stage) gets a zero gradient, as in the JAX package, so that weight
+decay and the moments still act on it. LBFGS (lbfgs.py) runs its line
+search through a closure that evaluates the loss and its gradient again on
+the same batch, with the same masks (the generator reseeded for each
+evaluation), leaving the BatchNorm running statistics as the step's first
+evaluation left them (the JAX step keeps only that evaluation's).
 uint8 batches are normalised on the device; fp32 batches are taken as
 host-normalised. The drop-path / dropout masks of step `s` come from a
 generator seeded from (seed, s, rank), so a resumed run draws the same masks.
@@ -19,7 +27,7 @@ all-reduced counts, losses.py, and a comm hook SUMS the gradient buckets
 where DDP's default averages per-rank means, which differ once the ranks
 hold different counts of ignored pixels); the BatchNorms are
 parallel/sync_bn's (global statistics); every rank builds the same weights
-from the seed and runs the same AdamW update on the same gradients. Masks
+from the seed and runs the same update on the same gradients. Masks
 differ per rank: the rank folds into the mask generator's seed, and the
 window attention offsets its kernels' seed by the rank.
 """
@@ -34,7 +42,8 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from rgbx_semantic_segmentation_tpu_torch import losses as losses_lib
-from rgbx_semantic_segmentation_tpu_torch import lr_schedules, optim
+from rgbx_semantic_segmentation_tpu_torch import optim
+from rgbx_semantic_segmentation_tpu_torch.lbfgs import LBFGS
 from rgbx_semantic_segmentation_tpu_torch.config import Config
 from rgbx_semantic_segmentation_tpu_torch.device import resolve_device
 from rgbx_semantic_segmentation_tpu_torch.models.builder import (
@@ -106,7 +115,9 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     device = next(model.parameters()).device
     world = world or World.solo(device)
     loss_fn = make_loss_fn(cfg, world)
-    schedule = lr_schedules.build_schedule(cfg.train.lr_policy, cfg.train)
+    lr_schedule, momentum_schedule = optim.build_schedules(cfg)
+    lbfgs = isinstance(optimizer, LBFGS)
+    trainable = [p for g in optimizer.param_groups for p in g["params"]]
     base_seed = cfg.train.seed if seed is None else seed
     generator = torch.Generator(device=device)
     set_generator(model, generator, world.rank)
@@ -138,27 +149,49 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
             mx = (mx.float() / 255.0 - mean) / std
         return rgb, mx, to_device(batch["label"]).long()
 
-    def train_step(step: int, batch: Dict) -> torch.Tensor:
-        rgb, mx, label = prep(batch)
+    def evaluate(step, rgb, mx, label) -> torch.Tensor:
+        """Loss and gradient at the current parameters, with the masks of
+        `step`; returns the global batch's loss."""
         generator.manual_seed(step_seed(base_seed, step, world.rank))
-        optim.set_lr(optimizer, schedule(step))
-        model.train()
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(net(rgb, mx), label)
         loss.backward()
-        optimizer.step()
+        for p in trainable:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         return world.all_reduce(loss.detach().clone())
+
+    def train_step(step: int, batch: Dict) -> torch.Tensor:
+        rgb, mx, label = prep(batch)
+        if lr_schedule is not None:
+            optim.set_lr(optimizer, lr_schedule(step),
+                         None if momentum_schedule is None
+                         else momentum_schedule(step))
+        model.train()
+        loss = evaluate(step, rgb, mx, label)
+        if not lbfgs:
+            optimizer.step()
+            return loss
+        stats = {k: v.clone() for k, v in model.named_buffers()
+                 if k.endswith(("running_mean", "running_var",
+                                "num_batches_tracked"))}
+        optimizer.step(lambda: evaluate(step, rgb, mx, label), loss)
+        for k, v in model.named_buffers():
+            if k in stats:
+                v.copy_(stats[k])
+        return loss
 
     return train_step
 
 
 class Trainer:
-    """The JAX Trainer: model, AdamW, schedule and step counter on `device`
-    (None: the card; see device.resolve_device), or, with a `world`, one
-    rank of a data-parallel run on the world's device (the JAX Trainer on a
-    1-D data mesh; see the module docstring; the synced BatchNorms and DDP
-    only where a process group joins the ranks). `model` is the bare module
-    (no DDP wrapper): its state dict is the checkpoint's."""
+    """The JAX Trainer: model, optimizer, schedule and step counter on
+    `device` (None: the card; see device.resolve_device), or, with a
+    `world`, one rank of a data-parallel run on the world's device (the JAX
+    Trainer on a 1-D data mesh; see the module docstring; the synced
+    BatchNorms and DDP only where a process group joins the ranks). `model`
+    is the bare module (no DDP wrapper): its state dict is the
+    checkpoint's."""
 
     def __init__(self, cfg: Config, device=None, seed: Optional[int] = None,
                  init_values: bool = True, world: Optional[World] = None):
@@ -207,10 +240,11 @@ class Trainer:
             metrics = self.step(next(data_iter))
             losses.append(metrics["loss"])
             if (it + 1) % log_every == 0 and logger is not None:
+                lr = optim.applied_lr(self.optimizer)
                 logger.info(
-                    "epoch %d it %d/%d loss %.4f lr %.3e (%.2f img/s)",
+                    "epoch %d it %d/%d loss %.4f lr %s (%.2f img/s)",
                     self.epoch, it + 1, niters, float(metrics["loss"]),
-                    optim.applied_lr(self.optimizer),
+                    "line search" if lr is None else f"{lr:.3e}",
                     (it + 1) * self.cfg.train.batch_size / (time.time() - t0))
         self.epoch += 1
         if not losses:

@@ -159,11 +159,14 @@ def train(world, args, cfg):
                         should_stop=lambda: engine.preempted)
                 seconds = time.time() - t0
                 engine.drain_preemption(epoch, trainer)
-                # The lr of the last update, read from the optimizer itself.
+                # The lr of the last update, read from the optimizer itself
+                # (LBFGS: None, its constant lr scales the line search's
+                # step; the writer gets cfg.train.lr, as the JAX CLI's).
                 lr_now = optim.applied_lr(trainer.optimizer)
                 if writer is not None:
                     writer.scalar("train/epoch_loss", avg_loss, epoch)
-                    writer.scalar("train/learning_rate", lr_now,
+                    writer.scalar("train/learning_rate",
+                                  cfg.train.lr if lr_now is None else lr_now,
                                   trainer.global_step)
                 img_per_s = loader.niters * cfg.train.batch_size / seconds
                 logger.info("epoch %d/%d loss %.4f (%.1fs, %.2f img/s)",

@@ -174,10 +174,3 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
             evaluate_checkpoints(cfg, [], [1], str(tmp_path))
         else:
             Trainer(cfg)
-
-
-def test_remat_raises():
-    cfg = _tiny()
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, remat=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")

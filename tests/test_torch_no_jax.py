@@ -7,7 +7,9 @@ train step through the flash-attention op, imports the bench tools, runs
 builds mit_tiny_w_aspp + UPernet (ASPPs, the aux head) and runs a train
 step and a multi-scale, flipped, stride-swapped sliding-window prediction,
 builds mit_tiny + mask2former and runs a train step (its own loss) and an
-evaluation, runs a train step under every criterion name,
+evaluation, runs a train step under every criterion name and under LBFGS
+(lbfgs.py) and SGDM with CyclicLR, runs a small Swin with the absolute
+position embedding, frozen stages and remat forward and backward,
 runs train_cli -> eval_cli -e last -> predict_cli on a synthetic dataset (the
 threaded loader on the native image ops, checkpoints, the engine) and
 train_cli -c and eval_cli over two CPU ranks (parallel/: the launcher, the
@@ -61,7 +63,23 @@ sum(o.sum() for o in outs).backward()
 grads = [p.grad for p in swin.parameters() if p.grad is not None]
 assert grads and all(torch.isfinite(g).all() for g in grads)
 assert window_attention.window_attention.launches == 0
+swin = dual_swin.DualSwinTransformer(
+    embed_dim=16, depths=(1, 1), num_heads=(1, 2), out_indices=(0, 1),
+    pretrain_img_size=64, ape=True, frozen_stages=2, remat=True,
+    attn_drop_rate=0.3, drop_path_rate=0.2, use_pallas=True).train()
+outs = swin(torch.zeros(1, 3, 56, 56), torch.zeros(1, 3, 56, 56))
+sum(o.sum() for o in outs).backward()
+assert swin.absolute_pos_embed.grad is None
+assert swin.layers[1].blocks[0].attn.qkv.weight.grad is not None
 import dataclasses
+from rgbx_semantic_segmentation_tpu_torch.lbfgs import LBFGS
+for opt_name, policy in (("LBFGS", "WarmUpPolyLR"), ("SGDM", "CyclicLR")):
+    named = cfg.replace(train=dataclasses.replace(
+        cfg.train, optimizer=opt_name, lr_policy=policy, lr=1e-2))
+    trainer = Trainer(named, device="cpu", seed=0)
+    loss = float(trainer.step(batch)["loss"])
+    assert loss == loss, (opt_name, loss)
+assert isinstance(trainer.optimizer, torch.optim.SGD)
 from rgbx_semantic_segmentation_tpu_torch.ops import flash_attention
 from rgbx_semantic_segmentation_tpu_torch.tools import (  # noqa: F401
     bench_flash_attention, bench_sr_attention, bench_window_attention)
@@ -194,5 +212,6 @@ def test_no_jax_import_in_sources():
             "ops/resize.py", "evaluator.py", "parallel/dist.py",
             "parallel/launch.py", "parallel/sync_bn.py",
             "parallel/multihost.py", "models/decoders/mask2former.py",
-            "models/decoders/mlp_decoderpp.py", "losses.py"} <= names
+            "models/decoders/mlp_decoderpp.py", "losses.py",
+            "lbfgs.py", "optim.py", "lr_schedules.py"} <= names
     assert len(sources) >= 10

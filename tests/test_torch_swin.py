@@ -364,11 +364,3 @@ def test_swin_b_builds_and_matches_jax_parameter_count():
     blocks = [m for m in model.modules() if isinstance(m, tswin.SwinBlock)]
     assert len(blocks) == 48 and blocks[1].shift_size == 6
     assert blocks[0].attn.attn_drop.rate == 0.3
-
-
-@pytest.mark.parametrize("knob,item", [
-    (dict(swin_ape=True), "M1"), (dict(swin_frozen_stages=1), "M11"),
-    (dict(swin_frozen_stages=0), "M11"), (dict(remat=True), "M5")])
-def test_unported_swin_knobs_raise(knob, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        build_model(_cfg(**knob), device="cpu", seed=None)
