@@ -82,8 +82,9 @@ and nyu presets:
     (its 96x96 grid bicubic-resized to the 120x160 tokens), frozen stages
     2 (the patch embeds, the embeddings and stage 0 of both towers) and
     SGD with momentum under CyclicLR: K3 and K4 at swin_b's four stage
-    shapes against their plain versions (K4 on its scalar kernel for
-    N = 144; device time, SDPA, bound), evaluate() (K3 48 a forward), 3
+    shapes against their plain versions (K4 on its cluster kernel for
+    bf16 N = 144, its mask and route checked; time, SDPA, bound),
+    evaluate() (K3 48 a forward), 3
     train steps (K3 48 and K4 44 a step: stage 0 launches no backward; the
     optimizer's lr and momentum the schedule's at each step; frozen
     parameters bit-unchanged, the others moved), step and device time,
@@ -799,11 +800,20 @@ def window_bwd_kernel_phase(W, T):
             err = hold_window_bwd(W, T, shape, dtype, shifted, gen)
             if shape[:4] in T.STAGES and dtype == torch.bfloat16:
                 stage_err = max(stage_err, err)
+    return stage_err, time_window_bwd(W, T, T.STAGES, T.WS, gen)
+
+
+def time_window_bwd(W, T, stages, ws, gen):
+    """K4's rows at the `stages` (B, Hp, Wp, h) with window ws, bf16, rate
+    T.RATE: CUDA-event ms (plain, kernel, kernel, plain), device ms
+    (torch.profiler), shifted and unshifted, blocks per launch, SDPA's
+    backward and the bound."""
+    import torch
 
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for stage in T.STAGES:
-        shape = (*stage, T.D, T.WS)
+    for stage in stages:
+        shape = (*stage, T.D, ws)
         B, Hp, Wp, h, d, ws = shape
         sc = d ** -0.5
         t, dev = {}, {}
@@ -839,6 +849,7 @@ def window_bwd_kernel_phase(W, T):
         with torch.no_grad():
             lib_fwd = median_ms(fwd, reps=5)
         lib = median_ms(fwd_bwd, reps=5) - lib_fwd
+        del lq, lk, lv, mask, w
         bounds = [bound_ms(*reversed(T.work(shape, sh, True)))
                   for sh in (True, False)]
         rows.append({"shape": list(shape), "ms": (t[True] + t[False]) / 2,
@@ -860,10 +871,10 @@ def window_bwd_kernel_phase(W, T):
               f"{T.RATE}: kernel shifted {t[True]:.4f} ms, unshifted "
               f"{t[False]:.4f} ms, device {ms_text(dev[True])} / "
               f"{ms_text(dev[False])} ms, {blocks} blocks of "
-              f"{row['images_per_block']} images, plain "
+              f"{row['images_per_block']} (unit, image) pairs, plain "
               f"{p1:.3f}/{p2:.3f} ms, SDPA backward {lib:.4f} ms, bound "
               f"{bounds[0][0]:.4f} / {bounds[1][0]:.4f} ms ({bounds[0][1]})")
-    return stage_err, rows
+    return rows
 
 
 def bf16_ulp(x):
@@ -1933,10 +1944,6 @@ SWIN_B_GRAD_NAMES = [
     "backbone.downsamples.0.reduction.weight",
     "backbone.FRMs.0.channel_weights.mlp.0.weight",
     "decode_head.linear_pred.weight"]
-# (B, Hp, Wp, h) of swin_b's window attentions at 480x640, batch 8 (d 32,
-# window 12): tools/bench_window_attention.SWIN_B_STAGES; its K4 launches a
-# step with stage 0 frozen.
-SWIN_B_BWD_CALLS = [0, 4, 36, 4]
 # remat: first-step loss and named gradients with remat on against
 # off, every drop rate of the preset on (mit_b2: drop-path 0.1 and the
 # decoder's Dropout2d 0.1; swin_s: + attention dropout 0.3 in K3/K4), the
@@ -1962,12 +1969,16 @@ def swin_b_cfg(cfg_lib):
 
 def swin_b_kernel_phase(W, T):
     """K3 and K4 at swin_b's four stage shapes (window 12, N = 144, d 32,
-    heads 4/8/16/32; K4 takes its scalar kernel: bf16 with N > 56) against
-    their plain versions with the swin_s bounds, unshifted and masked, rate
-    0 and 0.3 (the kernel's mask read off its outputs against the plain
-    mask); then each one's device time a call (torch.profiler, shifted and
-    unshifted), SDPA's forward and backward (CUDA events) and the bound."""
+    heads 4/8/16/32; bf16 K4 takes its cluster kernel, 56 < N <= 144)
+    against their plain versions with the swin_s bounds, unshifted and
+    masked, rate 0 and 0.3, each backward twice bit-equal; the masks of
+    both kernels read off their outputs against the plain mask; the
+    backward's route by the profiler's kernel name (bf16: the cluster
+    kernel, fp32: the scalar one); then K3's device time a call
+    (torch.profiler, shifted and unshifted) and SDPA's forward (CUDA
+    events), and K4's rows as the swin_s backward's (time_window_bwd)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     fwd_err = bwd_err = 0.0
@@ -1982,67 +1993,68 @@ def swin_b_kernel_phase(W, T):
         generator=gen)
     B, Hp, Wp, h, d, ws = shapes[2]
     want = W.keep_mask(seed, B, (Hp // ws) * (Wp // ws), h, ws * ws, T.RATE)
-    got = T.kernel_mask(shapes[2], seed, T.RATE)
-    check(bool(torch.equal(got, want)), f"kernel mask != plain at {shapes[2]}")
+    check(bool(torch.equal(T.kernel_mask(shapes[2], seed, T.RATE), want)),
+          f"forward kernel mask != plain at {shapes[2]}")
+    check(bool(torch.equal(T.kernel_bwd_mask(shapes[2], seed, T.RATE), want)),
+          f"backward kernel mask != plain at {shapes[2]}")
+    routes = {}
+    for dtype, want_name in ((torch.bfloat16, "window_attention_bwd_cluster"),
+                             (torch.float32, "window_attention_bwd_scalar")):
+        small = (2, 24, 36, 4, T.D, T.SWIN_B_WS)
+        qkv, bias, cot, seed = T.window_inputs(small, dtype, "shifted", gen)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            W.window_attention_bwd(qkv, bias, seed, cot, T.D ** -0.5, T.RATE,
+                                   T.SWIN_B_WS)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if "window_attention" in e.key]
+        routes[str(dtype)[6:]] = names
+        check(len(names) == 1 and want_name in names[0],
+              f"{dtype} window-12 backward launched {names}, not {want_name}")
+    print(f"swin_b window-12 backward routes: {routes}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
     for shape in shapes:
         B, Hp, Wp, h, d, ws = shape
         sc = d ** -0.5
-        dev = {"fwd": {}, "bwd": {}}
+        dev = {}
         for shifted in (True, False):
             qkv, bias, cot, seed = T.window_inputs(
                 shape, torch.bfloat16, "shifted" if shifted else "unshifted",
                 gen)
             fargs = (qkv, bias, seed, sc, T.RATE, ws)
-            bargs = (qkv, bias, seed, cot, sc, T.RATE, ws)
             with torch.no_grad():
-                dev["fwd"][shifted] = T.kernel_ms(
-                    lambda: W.window_attention(*fargs))
-            dev["bwd"][shifted] = T.kernel_ms(
-                lambda: W.window_attention_bwd(*bargs))
-        lq, lk, lv, mask = (t.requires_grad_() for t in
-                            T.sdpa_inputs(qkv, bias, shape))
-        w = W._split_windows(cot, ws, 1, h)[:, :, 0].reshape(lq.shape)
-
-        def fwd():
-            return sdpa(lq, lk, lv, attn_mask=mask, dropout_p=T.RATE,
-                        scale=sc)
-
+                dev[shifted] = T.kernel_ms(lambda: W.window_attention(*fargs))
+        lq, lk, lv, mask = T.sdpa_inputs(qkv, bias, shape)
         with torch.no_grad():
-            lib_fwd = median_ms(fwd, reps=5)
-        lib_bwd = median_ms(lambda: torch.autograd.grad(
-            fwd(), (lq, lk, lv, mask), w), reps=5) - lib_fwd
+            lib_fwd = median_ms(lambda: sdpa(lq, lk, lv, attn_mask=mask,
+                                             dropout_p=T.RATE, scale=sc),
+                                reps=5)
+        del lq, lk, lv, mask
         bf = [bound_ms(*reversed(T.work(shape, sh, False)))
               for sh in (True, False)]
-        bb = [bound_ms(*reversed(T.work(shape, sh, True)))
-              for sh in (True, False)]
-        row = {"shape": list(shape),
-               "fwd_device_ms": device_reading(dev["fwd"]),
-               "bwd_device_ms": device_reading(dev["bwd"]),
-               "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+        row = {"shape": list(shape), "fwd_device_ms": device_reading(dev),
+               "sdpa_fwd_ms": lib_fwd,
                "fwd_bound_ms": (bf[0][0] + bf[1][0]) / 2,
-               "bwd_bound_ms": (bb[0][0] + bb[1][0]) / 2,
                "bound_by": bf[0][1]}
         rows.append(row)
-        print(f"swin_b window attention (B,Hp,Wp,h,d,ws)={shape}, rate "
-              f"{T.RATE}: K3 device {ms_text(row['fwd_device_ms'])} ms, K4 "
-              f"(scalar) device {ms_text(row['bwd_device_ms'])} ms; SDPA "
-              f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms "
-              f"(CUDA events); bound {row['fwd_bound_ms']:.4f} / "
-              f"{row['bwd_bound_ms']:.4f} ms ({row['bound_by']})")
+        print(f"swin_b window attention forward (B,Hp,Wp,h,d,ws)={shape}, "
+              f"rate {T.RATE}: K3 device {ms_text(row['fwd_device_ms'])} ms; "
+              f"SDPA forward {lib_fwd:.4f} ms (CUDA events); bound "
+              f"{row['fwd_bound_ms']:.4f} ms ({row['bound_by']})")
+    bwd_rows = time_window_bwd(W, T, T.SWIN_B_STAGES, T.SWIN_B_WS, gen)
     per = {}
     for key, calls in (("fwd_device_ms", SWIN_CALLS),
-                       ("bwd_device_ms", SWIN_B_BWD_CALLS),
                        ("sdpa_fwd_ms", SWIN_CALLS),
-                       ("sdpa_bwd_ms", SWIN_B_BWD_CALLS),
-                       ("fwd_bound_ms", SWIN_CALLS),
-                       ("bwd_bound_ms", SWIN_B_BWD_CALLS)):
+                       ("fwd_bound_ms", SWIN_CALLS)):
         per[key] = per_step(rows, key, calls)
+    for key in ("ms", "device_ms", "library_ms", "bound_ms"):
+        per[f"bwd_{key}"] = per_step(bwd_rows, key, T.SWIN_B_BWD_CALLS)
     print("swin_b window attention a step (48 forward calls, 44 backward): "
           + ", ".join(f"{k} {ms_text(v)}" for k, v in per.items()))
     return {"fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
-            "per_call": rows, "per_step": per}
+            "routes": routes, "per_call": rows, "bwd_per_call": bwd_rows,
+            "per_step": per}
 
 
 def swin_b_phase(S, W, T, cfg_lib, builder, evaluator_lib, train_lib,
@@ -3914,10 +3926,14 @@ def main() -> int:
          max(wfwd_err, swin_b_kernels["fwd_max_abs_err"]), wfwd_rows,
          SWIN_CALLS, None),
         ("window_attention_bwd", "window_attention.py:205",
-         swin_train["bwd_launches"] + swin_b["bwd_launches"]
-         + remat_launches(remat, 3),
-         max(wbwd_err, swin_b_kernels["bwd_max_abs_err"]), wbwd_rows,
-         SWIN_CALLS, None),
+         swin_train["bwd_launches"] + remat_launches(remat, 3), wbwd_err,
+         wbwd_rows, SWIN_CALLS, None),
+        # K4's route for bf16 windows 56 < N <= 144 (swin_b's window 12):
+        # the same entry and wrapper, its launches those of the swin_b phase.
+        ("window_attention_bwd_cluster", "window_attention.py:205",
+         swin_b["bwd_launches"], swin_b_kernels["bwd_max_abs_err"],
+         swin_b_kernels["bwd_per_call"], T.SWIN_B_BWD_CALLS,
+         "window_attention_bwd"),
         ("flash_attention_fwd", "attention.py:50", flash_eval + flash_train[0],
          flash_err["fwd"], flash_rows["fwd"], T5.CALLS, None),
         ("flash_attention_bwd_dkv", "attention.py:50", flash_train[1],

@@ -2,13 +2,12 @@
 at the swin_s (or swin_b) shapes, on one NVIDIA GPU.
 
     python -m rgbx_semantic_segmentation_tpu_torch.tools.bench_window_attention \
-        [--model swin_s|swin_b] [--parent DIR] [--json PATH]
+        [--model swin_s|swin_b] [--batch B] [--parent DIR] [--json PATH]
 
 For each of the four swin_s stages at 480x640, batch 8 (bf16, d = 32,
-window 7; swin_b: window 12, the forward only, since its backward takes the
-scalar kernel), with a bias block per window carrying the model's shift mask
-("shifted") and with one block shared by all windows ("unshifted"), at the
-preset's attention dropout 0.3 and at 0:
+window 7; swin_b: window 12, N = 144), with a bias block per window
+carrying the model's shift mask ("shifted") and with one block shared by
+all windows ("unshifted"), at the preset's attention dropout 0.3 and at 0:
 
   * the forward kernel and the backward kernel (dqkv, db) in device time
     per call (torch.profiler, the kernels' own time), beside
@@ -18,12 +17,17 @@ preset's attention dropout 0.3 and at 0:
     backward through autograd minus the forward) and beside the card's bound
     for the same work;
   * the launch of each kernel as the profiler records it: blocks, and from
-    them the images each block walks;
+    them the (unit, image) pairs of a block (B x units / blocks; the window-12
+    backward's blocks each take a third of a unit's rows over all images);
   * each kernel's result against its plain version: the forward in bf16
     ulps of the output's largest magnitude, dqkv likewise, db relative to
     its largest magnitude;
   * per step: the 48 calls of one forward or backward (4 / 4 / 36 / 4 at
-    stages 1-4, half of them shifted).
+    stages 1-4, half of them shifted); swin_b's backward runs 0 / 4 / 36 / 4
+    (stage 1 frozen, the preset's swin_frozen_stages).
+
+With --batch B the stages run at B images instead of 8: B = 2 is one
+rank's share of the global batch 8 on four cards (chip_smoke.py --ddp 4).
 
 With --parent DIR, the package directory of another checkout (the parent
 commit unpacked under .chipcheck/, say), that checkout's kernels are timed
@@ -35,7 +39,7 @@ libraries failed with an illegal instruction (PERF.md section 6).
 
 It prints the card's name and power limit first; --json writes the numbers
 to a file as well. chip_smoke.py takes the shapes, the input builder, the
-SDPA inputs, the work counts and the kernel's mask reader from here.
+SDPA inputs, the work counts and the kernels' mask readers from here.
 """
 from __future__ import annotations
 
@@ -68,6 +72,7 @@ D, WS, RATE = 32, 7, 0.3
 SWIN_B_STAGES = [(8, 120, 168, 4), (8, 60, 84, 8), (8, 36, 48, 16),
                  (8, 24, 24, 32)]
 SWIN_B_WS = 12
+SWIN_B_BWD_CALLS = [0, 4, 36, 4]
 # Peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core rate
 # and device-memory rate.
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -187,6 +192,31 @@ def kernel_mask(shape, seed, rate):
     return kept
 
 
+def kernel_bwd_mask(shape, seed, rate):
+    """The keep mask the backward KERNEL drew, read off its dv: with q = k =
+    0 and a zero bias every probability is 1 / N > 0, and with the
+    cotangent one-hot over d query rows at a time (g[row, e] = 1 iff row =
+    c0 + e), dv[key, e] = pd[c0 + e, key] > 0 iff that element was kept.
+    bool (B, nW, h, N, N), to be equal to W.keep_mask."""
+    B, Hp, Wp, h, d, ws = shape
+    N, nW = ws * ws, (Hp // ws) * (Wp // ws)
+    bias = torch.zeros(1, h, N, N, device="cuda").expand(nW, -1, -1, -1)
+    qkv = torch.zeros(B, Hp, Wp, 3 * h * d, device="cuda",
+                      dtype=torch.bfloat16)
+    kept = torch.zeros(B, nW, h, N, N, dtype=torch.bool, device="cuda")
+    for c0 in range(0, N, d):
+        cot = torch.zeros(B, nW, 1, h, N, d, device="cuda",
+                          dtype=torch.bfloat16)
+        rows = torch.arange(c0, min(c0 + d, N), device="cuda")
+        cot[:, :, 0, :, rows, rows - c0] = 1.0
+        dqkv, _ = W.window_attention_bwd(
+            qkv, bias, seed, W._merge_windows(cot, ws, Hp, Wp), 1.0, rate, ws)
+        dv = W._split_windows(dqkv, ws, 3, h)[:, :, 2]    # (B, nW, h, N, d)
+        kept[..., c0:c0 + len(rows), :] = (
+            dv[..., :len(rows)] > 0).transpose(-1, -2)
+    return kept
+
+
 class Parent:
     """K3 and K4 of another checkout's package, built from its csrc/ and
     called through its C entries; the arguments are this checkout's
@@ -264,11 +294,11 @@ def measured_ms(fn):
     return ms
 
 
-def time_stage(stage, gen, parent=None, ws=WS, backward=True):
+def time_stage(stage, gen, parent=None, ws=WS):
     """One stage's row: device ms per call by bias kind and rate of K3, K4
-    (this checkout's or the parent's; K4 only with `backward`) and, for this
-    checkout, SDPA's forward and backward; blocks per launch and images a
-    block; errors against the plain versions."""
+    (this checkout's or the parent's) and, for this checkout, SDPA's forward
+    and backward; blocks per launch and (unit, image) pairs a block; errors
+    against the plain versions."""
     shape = (*stage, D, ws)
     B, Hp, Wp, h, d, ws = shape
     n_units = units(shape)
@@ -299,19 +329,18 @@ def time_stage(stage, gen, parent=None, ws=WS, backward=True):
                 if key == f"shifted_{RATE}":
                     row["fwd_blocks"] = launch_blocks(
                         lambda: fwd(qkv, bias, seed, sc, rate, ws))
-                if backward:
-                    dqkv, db = bwd(qkv, bias, seed, cot, sc, rate, ws)
-                    rq, rb = W.window_attention_bwd_reference(
-                        qkv, bias, seed, cot, sc, rate, ws)
-                    row["dqkv_ulps"] = max(row["dqkv_ulps"], ulps(dqkv, rq))
-                    row["db_rel"] = max(row["db_rel"], float(
-                        (db - rb).abs().max() / rb.abs().max()))
-                    del dqkv, db, rq, rb
-                    row["bwd_ms"][key] = measured_ms(
+                dqkv, db = bwd(qkv, bias, seed, cot, sc, rate, ws)
+                rq, rb = W.window_attention_bwd_reference(
+                    qkv, bias, seed, cot, sc, rate, ws)
+                row["dqkv_ulps"] = max(row["dqkv_ulps"], ulps(dqkv, rq))
+                row["db_rel"] = max(row["db_rel"], float(
+                    (db - rb).abs().max() / rb.abs().max()))
+                del dqkv, db, rq, rb
+                row["bwd_ms"][key] = measured_ms(
+                    lambda: bwd(qkv, bias, seed, cot, sc, rate, ws))
+                if key == f"shifted_{RATE}":
+                    row["bwd_blocks"] = launch_blocks(
                         lambda: bwd(qkv, bias, seed, cot, sc, rate, ws))
-                    if key == f"shifted_{RATE}":
-                        row["bwd_blocks"] = launch_blocks(
-                            lambda: bwd(qkv, bias, seed, cot, sc, rate, ws))
             if parent is not None:
                 continue
             lq, lk, lv, mask = (t.requires_grad_() for t in
@@ -327,9 +356,8 @@ def time_stage(stage, gen, parent=None, ws=WS, backward=True):
 
             with torch.no_grad():
                 row["sdpa_fwd_ms"][key] = device_ms(lib_fwd)
-            if backward:
-                row["sdpa_bwd_ms"][key] = (device_ms(lib_fwd_bwd)
-                                           - row["sdpa_fwd_ms"][key])
+            row["sdpa_bwd_ms"][key] = (device_ms(lib_fwd_bwd)
+                                       - row["sdpa_fwd_ms"][key])
             del lq, lk, lv, mask, w
     for which in ("fwd", "bwd"):
         if row.get(f"{which}_blocks"):
@@ -338,8 +366,8 @@ def time_stage(stage, gen, parent=None, ws=WS, backward=True):
     return row
 
 
-def per_step(rows, key):
-    """{rate: ms} of one swin_s (swin_b) forward or backward: the calls of
+def per_step(rows, key, calls=CALLS):
+    """{rate: ms} of one swin_s (swin_b) forward or backward: `calls` of
     each stage, half shifted, half unshifted."""
     out = {}
     for rate in (RATE, 0.0):
@@ -347,7 +375,7 @@ def per_step(rows, key):
             continue
         out[str(rate)] = sum(
             c * sum(r[key][f"{kind}_{rate}"] for kind in KINDS) / 2
-            for c, r in zip(CALLS, rows))
+            for c, r in zip(calls, rows))
     return out
 
 
@@ -357,8 +385,10 @@ def main() -> int:
                     "time its kernels instead of this checkout's")
     ap.add_argument("--json", help="also write the numbers to this file")
     ap.add_argument("--model", choices=("swin_s", "swin_b"), default="swin_s",
-                    help="whose stage shapes (swin_b: window 12, the forward "
-                    "only)")
+                    help="whose stage shapes (swin_b: window 12)")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="images a call (8: the preset's batch; 2: a rank's "
+                    "share of it on four cards)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_window_attention: no CUDA device", file=sys.stderr)
@@ -371,15 +401,16 @@ def main() -> int:
     tag = "parent" if parent is not None else "new"
     gen = torch.Generator(device="cuda").manual_seed(0)
     swin_b = args.model == "swin_b"
-    whiches = ("fwd",) if swin_b else ("fwd", "bwd")
+    whiches = ("fwd", "bwd")
+    calls = {"fwd": CALLS, "bwd": SWIN_B_BWD_CALLS if swin_b else CALLS}
     rows = []
     for stage in SWIN_B_STAGES if swin_b else STAGES:
-        row = time_stage(stage, gen, parent, SWIN_B_WS if swin_b else WS,
-                         backward=not swin_b)
+        stage = (args.batch, *stage[1:])
+        row = time_stage(stage, gen, parent, SWIN_B_WS if swin_b else WS)
         rows.append(row)
         print(f"{tag} {args.model} (B,Hp,Wp,h)={stage}: " + ", ".join(
                   f"{which} {row.get(f'{which}_blocks')} blocks of "
-                  f"{row.get(f'{which}_images_per_block')} images"
+                  f"{row.get(f'{which}_images_per_block')} unit-images"
                   for which in whiches) + "; "
               + "; ".join(
                   f"{key} " + " ".join(
@@ -393,20 +424,22 @@ def main() -> int:
               + f" ms; err fwd {row['fwd_ulps']:.2f} ulps, dqkv "
               f"{row['dqkv_ulps']:.2f} ulps, db {row['db_rel']:.2e}",
               flush=True)
-    step = {f"{key}_ms": per_step(rows, f"{key}_ms") for key in
-            ("fwd", "bwd", "sdpa_fwd", "sdpa_bwd") if key[-3:] in whiches}
+    step = {f"{key}_ms": per_step(rows, f"{key}_ms", calls[key[-3:]])
+            for key in ("fwd", "bwd", "sdpa_fwd", "sdpa_bwd")}
     for which in whiches:
         step[f"{which}_bound_ms"] = sum(
             c * (r[f"{which}_bound_ms_shifted"]
                  + r[f"{which}_bound_ms_unshifted"]) / 2
-            for c, r in zip(CALLS, rows))
+            for c, r in zip(calls[which], rows))
         ms = step[f"{which}_ms"][str(RATE)]
         step[f"{which}_share_of_bound"] = step[f"{which}_bound_ms"] / ms
-    print(f"{tag}, per {args.model} step (48 calls): " + json.dumps(step))
+    print(f"{tag}, per {args.model} step ({sum(calls['fwd'])} forward, "
+          f"{sum(calls['bwd'])} backward calls): " + json.dumps(step))
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": card, "tag": tag, "model": args.model,
-                       "rows": rows, "step": step}, f, indent=1)
+                       "batch": args.batch, "rows": rows, "step": step}, f,
+                      indent=1)
     return 0
 
 

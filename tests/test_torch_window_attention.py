@@ -30,7 +30,10 @@ os.environ.setdefault("RGBX_PALLAS_INTERPRET", "1")
 
 # (B, ni, nj, h, d, ws, shifted): window grid ni x nj. The JAX pack factor
 # (windows per block-diagonal slice) follows from ni: 3 -> P = 3, 2 -> 2,
-# 1 -> 1, 7 -> 1 (7 * 49 > 256, prime); ws = 12 never packs.
+# 1 -> 1, 7 -> 1 (7 * 49 > 256, prime); ws = 12 never packs, ws = 8 (N = 64)
+# and 11 (N = 121) pack two windows at ni = 2. Windows 8, 11 and 12 span the
+# range 56 < N <= 144 of the bf16 backward's cluster kernel on the card,
+# whose plain version these hold to JAX.
 SHAPES = [
     (2, 3, 2, 3, 32, 7, True),
     (2, 3, 2, 3, 32, 7, False),
@@ -39,6 +42,8 @@ SHAPES = [
     (2, 2, 3, 4, 8, 7, True),
     (1, 2, 1, 4, 32, 12, True),
     (1, 1, 2, 2, 32, 12, False),
+    (1, 2, 2, 2, 32, 8, True),
+    (1, 2, 1, 2, 16, 11, False),
 ]
 
 
@@ -414,12 +419,15 @@ def test_wrapper_rejects_bad_inputs():
 # ------------------------------------------------------------ on the card ----
 
 # (B, Hp, Wp, h, d, ws): the four swin_s stages at 480x640 with a small
-# batch, window 12 (swin_b), d = 64, one image, a single window.
+# batch, window 12 (swin_b), d = 64, one image, a single window, and the
+# four swin_b stages at 480x640 with a small batch.
 CUDA_SHAPES = [(2, 126, 161, 3, 32, 7), (2, 63, 84, 6, 32, 7),
                (2, 35, 42, 12, 32, 7), (2, 21, 21, 24, 32, 7),
                (2, 24, 36, 4, 32, 12), (1, 14, 21, 2, 64, 7),
                (3, 7, 7, 1, 16, 7), (1, 14, 14, 2, 24, 7),
-               (1, 16, 16, 1, 128, 16)]
+               (1, 16, 16, 1, 128, 16), (2, 120, 168, 4, 32, 12),
+               (2, 60, 84, 8, 32, 12), (2, 36, 48, 16, 32, 12),
+               (2, 24, 24, 32, 32, 12)]
 
 
 def _cuda_inputs(shape, dtype, dev, shifted, seed=0):
@@ -506,11 +514,18 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, shifted, rate):
 
 # (B, Hp, Wp, h, d, ws): the swin_s stage-3 and stage-4 shapes at the
 # model's batch 8, and batches 1, 3, 5 and 13, odd counts of images for the
-# two-stage ring a block walks (batch 1: the first image alone).
+# two-stage ring a block walks (batch 1: the first image alone); the four
+# swin_b stages at batch 8, and the backward's cluster kernel (56 < N <=
+# 144) at windows 8 and 11 (padded key tiles and rows) and at window 12 with
+# d 16, 24 and 64, at batches 1, 3 and 5.
 TC_SHAPES = [(8, 35, 42, 12, 32, 7), (8, 21, 21, 24, 32, 7),
              (1, 21, 21, 24, 32, 7), (3, 35, 42, 12, 32, 7),
              (5, 21, 21, 24, 32, 7), (5, 14, 21, 2, 64, 7),
-             (13, 7, 14, 1, 32, 7)]
+             (13, 7, 14, 1, 32, 7), (8, 120, 168, 4, 32, 12),
+             (8, 60, 84, 8, 32, 12), (8, 36, 48, 16, 32, 12),
+             (8, 24, 24, 32, 32, 12), (3, 16, 24, 2, 32, 8),
+             (1, 22, 33, 3, 32, 11), (5, 24, 36, 4, 16, 12),
+             (1, 24, 36, 4, 24, 12), (3, 24, 24, 2, 64, 12)]
 
 
 @pytest.mark.cuda
@@ -564,17 +579,37 @@ def test_tensor_core_forward_draws_keep_mask(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,fwd,bwd", [
-    ((2, 35, 42, 12, 32, 7), "fwd_tc", "bwd_tc"),
-    ((2, 24, 36, 4, 32, 12), "fwd_tc", "bwd_scalar"),
-    ((1, 14, 21, 2, 64, 7), "fwd_tc", "bwd_tc")])
-def test_bf16_shapes_take_the_tensor_core_kernels(cuda, shape, fwd, bwd):
-    """The device kernels a bf16 call launches, by name: window 7 (swin_s)
-    takes the tensor-core forward and backward, window 12 (swin_b, N = 144)
-    still the tensor-core forward and the scalar backward."""
+@pytest.mark.parametrize("shape", [(8, 35, 42, 12, 32, 7),
+                                   (8, 36, 48, 16, 32, 12),
+                                   (3, 22, 33, 3, 32, 11)])
+def test_tensor_core_backward_draws_keep_mask(cuda, shape):
+    """At rate 0.3 the mask the bf16 backward kernel applies (window 7: the
+    one-block kernel; windows 11 and 12: the cluster kernel), read off its
+    dv, is `keep_mask`, bit for bit."""
+    from rgbx_semantic_segmentation_tpu_torch.tools import (
+        bench_window_attention as T)
+
+    seed = torch.tensor([987654321012], device=cuda)
+    B, Hp, Wp, h, _, ws = shape
+    want = W.keep_mask(seed, B, (Hp // ws) * (Wp // ws), h, ws * ws, 0.3)
+    assert torch.equal(T.kernel_bwd_mask(shape, seed, 0.3), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,fwd,bwd", [
+    ((2, 35, 42, 12, 32, 7), torch.bfloat16, "fwd_tc", "bwd_tc"),
+    ((2, 24, 36, 4, 32, 12), torch.bfloat16, "fwd_tc", "bwd_cluster"),
+    ((1, 14, 21, 2, 64, 7), torch.bfloat16, "fwd_tc", "bwd_tc"),
+    ((2, 24, 36, 4, 32, 12), torch.float32, "fwd_scalar", "bwd_scalar")])
+def test_bf16_shapes_take_the_tensor_core_kernels(cuda, shape, dtype, fwd,
+                                                  bwd):
+    """The device kernels a call launches, by name: bf16 window 7 (swin_s)
+    takes the tensor-core forward and backward, bf16 window 12 (swin_b, N =
+    144) the tensor-core forward and the backward's cluster kernel; fp32
+    window 12 the scalar kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    qkv, bias, cot, seed = _cuda_inputs(shape, torch.bfloat16, cuda, True)
+    qkv, bias, cot, seed = _cuda_inputs(shape, dtype, cuda, True)
     d, ws = shape[4], shape[5]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         W.window_attention(qkv, bias, seed, d ** -0.5, 0.3, ws)
