@@ -11,7 +11,8 @@ at the shapes the models give it: the SR-attention forward and backward
 (dqkv, db; with and without the in-kernel dropout, whose mask must be the
 plain version's bit for bit) of the Swin towers, and the long-kv flash
 attention (forward, dk/dv and dq kernels) of the IFFM cross-attention of
-the mit_*pp family, on the models' layouts,
+the mit_*pp family and of segnext_b (its narrow heads, d = 8, 16, 40, and
+the padded route of segnext_tiny's d = 4), on the models' layouts,
 with their times beside the plain version's, a library call's
 (F.scaled_dot_product_attention, a yardstick only: the port never calls it)
 and the card's bound for the same work. Then it drives the port's paths
@@ -73,6 +74,18 @@ and nyu presets:
     mask2former for one short epoch and eval_cli (its confusion matrix
     equal to evaluate()'s); with the MLPDecoderpp head: the eval and train
     checks (2 counted steps);
+  * segnext_b + MLPDecoder (MSCA towers, IFRM/IFFM at every stage: K5 6
+    and K1/K2 2 a forward and backward), through the eval and train
+    checks of mit_b2pp: evaluate() on 16 images, K5 on the model's own
+    activations and cotangents, the bf16 logits held to the fp32 plain
+    path, 4 counted train steps with their launches, the loss falling,
+    every BatchNorm statistic and IFRM/IFFM tensor moving, step ms on
+    both paths, peak, the profiler's device time and top operations, one
+    step's loss and gradients in bf16 held to the fp32 plain path, fp32
+    paths at batch 2; then resnet50 + UPernet (the preset's FRM/FFM: no
+    attention kernel): evaluate(), 3 counted steps with no launch, the
+    main and aux losses, the device time, and the card's fp32 forward
+    (TF32 off, batch 1) held to the CPU's on the same weights;
   * every criterion name of build_criterion and the Mask2Former loss on
     (8, 480, 640, 9) logits (masks (8, 100, 480, 640)) against the same
     function on the CPU: loss and gradient, OHEM and the Mask2Former loss
@@ -105,7 +118,9 @@ and nyu presets:
     the summed gradient all-reduce, 3 steps of mit_b2 at global batch 8
     against two plain one-process Trainers from the same seed (held to the
     resume bound: the card's step is not bit-reproducible), K1 and K2
-    launching 32 times a step in the rank.
+    launching 32 times a step in the rank; OHEM and berHu through their
+    over-ranks functions (NCCL all-gather, all-reduce MAX and its
+    backward) against the same criteria in one process.
 
 `--ddp N` runs only the N-card part, and fails when fewer cards are
 visible: K1-K4 at the shapes a rank hands them (8 / N images) against their
@@ -117,7 +132,10 @@ held within the spread of three one-card runs), eval_cli over the N cards
 NCCL all-reduce's share of a mit_b2 step's device time on rank 0
 (torch.profiler), swin_s steps at attention
 dropout 0.3 (K3/K4 launches per rank, ranks 0 and 1 drawing different
-masks), and the first-step gradient over the N ranks against one card on a
+masks), OHEM and berHu over the N ranks (their order statistics gathered
+across the cards; the largest residual tied across ranks in one case)
+against one card on the global batch, and the first-step gradient over the
+N ranks against one card on a
 batch whose ranks ignore different counts of pixels (fp32; bounded by
 one-card readings, which DDP's default per-rank mean must miss).
 
@@ -1079,10 +1097,10 @@ def pp_cfg(cfg_lib):
                                                  backbone="mit_b2pp"))
 
 
-def flash_in_model_phase(FA, model, rgb_t, mx_t):
+def flash_in_model_phase(FA, model, rgb_t, mx_t, flash_calls):
     """K5 on the model's own activations: one bf16 forward and backward of
-    the model (kernel path) with ImprovedCrossAttention._attend watched,
-    then every long-kv call's q, k, v (the strided views the projections
+    the model (kernel path) with ImprovedCrossAttention._attend watched
+    (`flash_calls` long-kv calls), then every long-kv call's q, k, v (the strided views the projections
     give) and the cotangent autograd handed it go through the three kernels
     and their plain versions, by the kernel phase's bounds. Returns the
     largest absolute errors {fwd, dkv, dq} over the calls."""
@@ -1109,7 +1127,7 @@ def flash_in_model_phase(FA, model, rgb_t, mx_t):
     finally:
         fusion.ImprovedCrossAttention._attend = attend
     model.zero_grad(set_to_none=True)
-    check(len(calls) == PP_FLASH_CALLS and all("g" in c for c in calls),
+    check(len(calls) == flash_calls and all("g" in c for c in calls),
           f"{len(calls)} long-kv attention calls watched in the model")
     worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
     for i, call in enumerate(calls):
@@ -1143,7 +1161,9 @@ def stage_outputs(model, rgb_t, mx_t):
         return hook
 
     for s in range(4):
-        for name in (f"norm{s + 1}", f"FRMs.{s}", f"FFMs.{s}"):
+        norm = (f"norm{s + 1}" if hasattr(model.backbone, f"norm{s + 1}")
+                else f"norm.{s}")   # MiT; SegNeXt
+        for name in (norm, f"FRMs.{s}", f"FFMs.{s}"):
             module = model.backbone.get_submodule(name)
             handles.append(module.register_forward_hook(keep(name)))
     try:
@@ -1253,7 +1273,7 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
              if model.aux_head is not None or cfg.model.decoder in NEW_HEADS
              else {})
     if flash_calls:
-        in_model = flash_in_model_phase(FA, model, rgb_t, mx_t)
+        in_model = flash_in_model_phase(FA, model, rgb_t, mx_t, flash_calls)
         print(f"{tag}: K5 on the model's activations and cotangents, "
               f"{flash_calls} calls, within the kernel phase's bounds; largest "
               f"errors {in_model}")
@@ -3217,11 +3237,25 @@ def _ddp_world1_rank(world, cfg, steps):
             t0 = time.perf_counter()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    launches = (S.sr_attention.launches, S.sr_attention_bwd.launches)
+    payload = _trainer_payload(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    # OHEM and berHu through their over-ranks functions (NCCL all-gather,
+    # all-reduce MAX and its backward) against the same criteria as one
+    # process computes them.
+    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
+    from rgbx_semantic_segmentation_tpu_torch.parallel.dist import World
+
+    rows = slice(0, 8)
+    order = hold_order_losses(
+        "world of 1 over NCCL", [order_losses(world, cfg_lib, rows, 1,
+                                              force_ranks=True)],
+        order_losses(World.solo(world.device), cfg_lib, rows, 1))
     return {"backend": backend, "device": str(world.device),
-            "launches": (S.sr_attention.launches,
-                         S.sr_attention_bwd.launches),
-            "losses": [float(v) for v in losses], "step_ms": step_ms,
-            "payload": _trainer_payload(trainer)}
+            "launches": launches, "losses": [float(v) for v in losses],
+            "step_ms": step_ms, "payload": payload,
+            "order_statistics_grad_err": order}
 
 
 def ddp_world1_phase(S, cfg_lib, train_lib):
@@ -3275,7 +3309,8 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
     return {"launches": {"fwd": rank["launches"][0],
                          "bwd": rank["launches"][1]},
             "losses": rank["losses"], "step_ms": rank["step_ms"],
-            "plain_step_ms": plain_ms, "rel_l2": dist, "seconds": wall}
+            "plain_step_ms": plain_ms, "rel_l2": dist, "seconds": wall,
+            "order_statistics_grad_err": rank["order_statistics_grad_err"]}
 
 
 def _grad_cfg(cfg_lib):
@@ -3688,6 +3723,14 @@ def ddp_main(n: int, card: str) -> int:
     check(all(tuple(s["launches"]) == want for s in swin),
           "swin_s: 48 K3 and K4 launches a step on every rank")
     check(len({s["loss"] for s in swin}) == 1, "swin_s: one global loss")
+    t1 = time.perf_counter()
+    ranks = launch.spawn(_order_rank, devices, "cuda", ())
+    want = order_losses(World.solo("cuda:0"), cfg_lib, slice(0, 8), n)
+    print(f"OHEM and berHu over {n} cards against one card on the global "
+          f"(8, 480, 640, 9) batch ({time.perf_counter() - t1:.1f} s):")
+    out["order_statistics_grad_err"] = hold_order_losses(
+        f"{n} cards", ranks, want)
+    del ranks, want
     out["gradient"], control = grad_phase(train_lib, cfg_lib, devices)
     # Last, the two checks that need two ranks (`--ddp 1` fails them).
     # (the first call: stage 1, its first window attention; rate 0.3)
@@ -3706,6 +3749,314 @@ def ddp_main(n: int, card: str) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ------------------------------------------------ segnext_b and resnet50 --
+
+# K5 at segnext_b's IFFM shapes (T5.SEGNEXT_SHAPES: d = 8, 16, 40, the
+# columns past d of the kernels' 64-wide panels zeros) and the padded
+# route at segnext_tiny's first stage: d = 4 zero-padded to 8 by
+# ops/attention.multi_head_attention. Held by the kernel phase's bounds.
+SEGNEXT_PADDED = (8, 8, 19200, 19200, 4)
+# segnext_b: K5 serves the IFFM of stages 1-3 (two calls each), K1/K2 the
+# two short-kv calls of stage 4 (15 x 20 tokens, d = 64). slice_phase and
+# train_phase drive it as mit_b2pp (IFRM/IFFM at every stage): its bf16
+# kernel path is held to its fp32 plain path (PP_TRUTH_FACTOR), its fp32
+# paths to each other at batch SEGNEXT_FP32_BATCH.
+SEGNEXT_FLASH_CALLS, SEGNEXT_SR_CALLS, SEGNEXT_FP32_BATCH = 6, 2, 2
+SEGNEXT_GRAD_NAMES = [
+    "backbone.stem.0.weight",
+    "backbone.stages.0.0.attn.conv211.0.weight",
+    "backbone.extra_stages.0.2.ffn_fc1.weight",
+    "backbone.stages.2.26.ls1_layer_scale",
+    "backbone.FRMs.0.channel_weights.mlp.0.weight",
+    "backbone.FFMs.0.cross.cross_attn.q1.weight",
+    "backbone.FFMs.0.cross.cross_attn.kv2.weight",
+    "backbone.FFMs.2.cross.cross_attn.proj1.weight",
+    "decode_head.linear_pred.weight"]
+# resnet50 + UPernet (the preset's FRM/FFM: no attention kernel on its
+# path) is held card against CPU: the card's fp32 forward (TF32 off) and
+# the CPU's on the same weights, batch 1: logits within 1e-4 of their
+# largest magnitude (summation orders through ~60 layers), argmax
+# agreement >= 0.999.
+RESNET_STEPS, RESNET_CPU_RTOL, RESNET_CPU_AGREE = 3, 1e-4, 0.999
+
+
+def narrow_flash_kernel_phase(FA, T5):
+    """K5's three kernels at segnext_b's shapes in bf16 and (batch 1) fp32
+    and on the padded route at SEGNEXT_PADDED, against their plain versions
+    (hold_flash_case), two runs bit-equal; the padded route through
+    multi_head_attention under autograd bit-equal to the kernels on the
+    padded operands, whose plain version lies within FLASH_REL_L2 of the
+    plain version at d = 4; then the times at segnext_b's shapes (kernel,
+    plain, SDPA, bound, the exponentials' floor). Returns ({kernel: worst
+    error at the bf16 shapes}, {kernel: rows})."""
+    import torch
+    import torch.nn.functional as F
+
+    from rgbx_semantic_segmentation_tpu_torch.ops import attention as A
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    cases = [(s, torch.bfloat16) for s in T5.SEGNEXT_SHAPES] + \
+            [((1, *s[1:]), torch.float32) for s in T5.SEGNEXT_SHAPES]
+    for shape, dtype in cases:
+        q, k, v, w = T5.inputs(shape, dtype, gen)
+        errs = hold_flash_case(FA, f"segnext (B,h,N,M,d)={shape}", q, k, v, w,
+                               shape[4] ** -0.5)
+        if dtype == torch.bfloat16:
+            worst = {key: max(worst[key], e) for key, e in errs.items()}
+        del q, k, v, w
+    B, h, N, M, d = SEGNEXT_PADDED
+    sc = d ** -0.5
+    q, k, v, w = T5.inputs(SEGNEXT_PADDED, torch.bfloat16, gen)
+    padded = [F.pad(t, (0, -d % 8)) for t in (q, k, v, w)]
+    errs = hold_flash_case(FA, f"padded route (B,h,N,M,d)={SEGNEXT_PADDED} "
+                           f"-> d = {padded[0].shape[3]}", *padded, sc)
+    worst = {key: max(worst[key], e) for key, e in errs.items()}
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = A.multi_head_attention(*leaves, sc, use_kernels=True)
+    out.backward(w.transpose(1, 2).reshape(B, N, h * d))
+    with torch.no_grad():
+        kout, lse = FA._forward(*padded[:3], sc)
+        grads = FA.flash_attention_bwd(*padded[:3], kout, lse, padded[3], sc)
+        same = torch.equal(out, kout[..., :d].transpose(1, 2).reshape(
+            B, N, h * d)) and all(torch.equal(t.grad, g[..., :d])
+                                  for t, g in zip(leaves, grads))
+        plain4 = FA.flash_attention_reference(q, k, v, sc)[0].float()
+        rel = float((kout[..., :d].float() - plain4).norm() / plain4.norm())
+    print(f"padded route through multi_head_attention: output and dq, dk, "
+          f"dv bit-equal to the kernels on the padded operands: {same}; "
+          f"kernel vs plain at d = {d}: rel L2 {rel:.2e} (<= "
+          f"{FLASH_REL_L2:.0e})")
+    check(same and rel <= FLASH_REL_L2, "the padded flash route")
+    del q, k, v, w, padded, leaves, out, kout, lse, grads, plain4
+    torch.cuda.empty_cache()
+    rows = {"fwd": [], "dkv": [], "dq": []}
+    for shape in T5.SEGNEXT_SHAPES:
+        timed = T5.time_shape(shape, gen)
+        T5.print_rows(shape, timed)
+        for which, row in timed.items():
+            rows[which].append(row)
+    torch.cuda.empty_cache()
+    print(f"narrow K5 phase: {time.perf_counter() - t0:.1f} s")
+    return worst, rows
+
+
+def family_cfg(cfg_lib, backbone, decoder=None):
+    """The mfnet preset with `backbone` (and `decoder`), no warm-up."""
+    cfg = cfg_lib.mfnet_config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, backbone=backbone,
+                                  decoder=decoder or cfg.model.decoder),
+        train=dataclasses.replace(cfg.train, warm_up_epoch=0))
+
+
+def resnet_phase(S, FA, cfg_lib, builder, evaluator_lib, train_lib, items):
+    """resnet50 + UPernet (the aux FCNHead, 0.4) at the preset's 480x640,
+    batch 8, bf16: evaluate() on 16 images and RESNET_STEPS counted
+    fit_epoch steps, no attention kernel launched (the preset's FRM/FFM
+    use the linear cross-attention); step ms, peak, the profiler's device
+    time and top operations, the main and aux losses; the card's fp32
+    forward against the CPU's (RESNET_CPU_RTOL)."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import losses as losses_lib
+
+    t0 = time.perf_counter()
+    cfg = family_cfg(cfg_lib, "resnet50", "UPernet")
+    counters = {"sr_fwd": S.sr_attention, "sr_bwd": S.sr_attention_bwd,
+                "flash_fwd": FA.flash_attention,
+                "flash_dkv": FA.flash_attention_dkv,
+                "flash_dq": FA.flash_attention_dq}
+    model = builder.build_model(cfg, seed=0)
+    ev = evaluator_lib.SegEvaluator(cfg, model)
+    ev.evaluate(items[:EVAL_BATCH], eval_batch=EVAL_BATCH)  # warm-up
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scores, line = ev.evaluate(items, eval_batch=EVAL_BATCH)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    n = {k: fn.launches for k, fn in counters.items()}
+    print(f"resnet50 + UPernet eval: {N_IMAGES} images, {N_IMAGES / dt:.2f} "
+          f"img/s; launches {n} (none expected); {line.splitlines()[-1]}")
+    check(not any(n.values()) and np.isfinite(scores.pixel_acc),
+          f"resnet50 eval launches {n}")
+    pair = ev.prepare(items[0]["rgb"], items[0]["modal_x"])
+    del model, ev
+    torch.cuda.empty_cache()
+
+    batches = uint8_batches(items, cfg.train.batch_size)
+    data = cycle(batches)
+    trainer = train_lib.Trainer(cfg, seed=0)
+    trainer.fit_epoch(data, 1)    # warm-up
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    loss = trainer.fit_epoch(data, RESNET_STEPS)
+    b.record()
+    b.synchronize()
+    n = {k: fn.launches for k, fn in counters.items()}
+    step_ms = a.elapsed_time(b) / RESNET_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rgb, mx, label = normalised(cfg, batches[0], "cuda")
+    criterion = losses_lib.build_criterion(cfg)
+    trainer.model.eval()
+    with torch.no_grad():
+        logits, aux = trainer.model(rgb, mx)
+        main_loss, aux_loss = (float(criterion(t, label))
+                               for t in (logits, aux))
+    trainer.model.train()
+    print(f"resnet50 + UPernet train: {RESNET_STEPS} steps of batch 8 at "
+          f"{HW}, bf16: {step_ms:.1f} ms a step (CUDA events), "
+          f"{8e3 / step_ms:.2f} img/s, mean loss {loss:.4f}, peak "
+          f"{peak:.2f} GiB; launches {n} (none expected); on batch 0 after "
+          f"training (eval mode): main loss {main_loss:.4f}, aux loss "
+          f"{aux_loss:.4f} (weight {builder.AUX_RATE})")
+    check(not any(n.values()) and np.isfinite(loss)
+          and np.isfinite(aux_loss), f"resnet50 train launches {n}")
+    prof = profile_steps(trainer, data, steps=1)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # fp32, TF32 off: the card's forward against the CPU's, same weights.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.replace(model=dataclasses.replace(
+        cfg.model, use_mixed_precision=False))
+    x = [torch.from_numpy(p[None]) for p in pair]
+    with torch.no_grad():
+        card = builder.main_logits(builder.build_model(cfg32, seed=0)(
+            *(t.cuda() for t in x))).cpu()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cpu = builder.main_logits(builder.build_model(
+            cfg32, device="cpu", seed=0)(*x))
+        cpu_s = time.perf_counter() - t1
+    err = float((card - cpu).abs().max())
+    tol = RESNET_CPU_RTOL * float(cpu.abs().max())
+    agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
+    print(f"resnet50 + UPernet fp32 forward, batch 1, card (TF32 off) vs CPU "
+          f"({cpu_s:.1f} s): max_abs_err {err:.3e} (tol {tol:.3e}), argmax "
+          f"agreement {agree:.6f} (>= {RESNET_CPU_AGREE})")
+    check(err <= tol and agree >= RESNET_CPU_AGREE,
+          "resnet50 fp32 card forward vs CPU")
+    seconds = time.perf_counter() - t0
+    print(f"resnet50 phase: {seconds:.1f} s")
+    return {"eval_img_per_s": N_IMAGES / dt, "step_ms": step_ms,
+            "peak_gib": peak, "main_loss": main_loss, "aux_loss": aux_loss,
+            "device_kernels": prof[0] if prof else None,
+            "device_ms": prof[1] if prof else None,
+            "cpu_max_abs_err": err, "cpu_argmax_agreement": agree,
+            "seconds": seconds}
+
+
+# The order-statistic criteria over ranks: (name, TrainConfig overrides).
+# The preset's OHEM (threshold 0.6) and one whose threshold lies below most
+# target probabilities, so the k-th smallest of the global batch decides
+# the kept set; berHu as configured and with its largest residual tied
+# across the ranks (the same pixel, label and logits in the first image of
+# every rank, logit 9 on a wrong class: residual 0.99988, unsaturated).
+ORDER_CASES = (("OhemCrossEntropy", {}),
+               ("OhemCrossEntropy", {"ohem_thresh": 0.05,
+                                     "ohem_min_kept": 500000}),
+               ("berHuLoss", {}), ("berHuLoss", {"tie": True}))
+
+
+def order_inputs(cfg, n_ranks, tie):
+    """(8, 480, 640, 9) logits and labels made from a seed on the CPU; with
+    `tie` the first image of each of `n_ranks` ranks shares pixel (0, 0)."""
+    C, B = cfg.dataset.num_classes, cfg.train.batch_size
+    rng = np.random.RandomState(11)
+    # Logits of scale 0.5: no random pixel's residual reaches the tie's.
+    logits = (0.5 * rng.randn(B, *HW, C)).astype(np.float32)
+    labels = rng.randint(0, C, (B, *HW))
+    labels[rng.rand(B, *HW) < 0.05] = 255
+    if tie:
+        for b in range(0, B, B // n_ranks):
+            logits[b, 0, 0] = 0.0
+            logits[b, 0, 0, 1] = 9.0
+            labels[b, 0, 0] = 0
+    return logits, labels
+
+
+def order_losses(world, cfg_lib, rows, n_ranks, force_ranks=False):
+    """[(loss, gradient of this rank's rows)] of ORDER_CASES through
+    make_loss_fn(cfg, world), on the card; `force_ranks`: through the
+    over-ranks functions (all_gather_ranks, max_over_ranks) whatever the
+    world's size."""
+    import functools
+
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import losses as losses_lib
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+
+    out = []
+    for name, extra in ORDER_CASES:
+        extra = dict(extra)
+        tie = extra.pop("tie", False)
+        cfg = cfg_lib.mfnet_config()
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, criterion=name, **extra))
+        logits, labels = order_inputs(cfg, n_ranks, tie)
+        x = torch.from_numpy(logits[rows]).to(world.device).requires_grad_()
+        y = torch.from_numpy(labels[rows]).to(world.device)
+        fn = train_lib.make_loss_fn(cfg, world)
+        if force_ranks:
+            glob = {"ignore_index": cfg.dataset.background,
+                    "denom_reduce": lambda t: world.all_reduce(
+                        t.detach().clone())}
+            fn = (functools.partial(
+                losses_lib.prob_ohem_cross_entropy, **glob,
+                thresh=cfg.train.ohem_thresh,
+                min_kept=cfg.train.ohem_min_kept,
+                gather=losses_lib.all_gather_ranks)
+                if name == "OhemCrossEntropy" else functools.partial(
+                    losses_lib.berhu_seg_loss, **glob,
+                    global_max=losses_lib.max_over_ranks))
+        loss = fn(x, y)
+        loss.backward()
+        out.append((float(loss.detach()), x.grad.cpu()))
+    return out
+
+
+def hold_order_losses(tag, got, want):
+    """Per case: the ranks' losses add up to the global batch's (rtol
+    1e-5), their gradients, stacked in rank order, are its gradient (1e-4
+    of the largest)."""
+    import torch
+
+    worst = 0.0
+    for i, (name, extra) in enumerate(ORDER_CASES):
+        loss = sum(r[i][0] for r in got)
+        grad = torch.cat([r[i][1] for r in got])
+        wl, wg = want[i]
+        rel = abs(loss - wl) / abs(wl)
+        gerr = float((grad - wg).abs().max() / wg.abs().max())
+        worst = max(worst, gerr)
+        print(f"  {tag}: {name} {extra}: loss {loss:.6f} vs {wl:.6f} (rel "
+              f"{rel:.2e}, <= 1e-5), gradient {gerr:.2e} of its largest "
+              f"(<= 1e-4)")
+        check(rel <= 1e-5 and gerr <= 1e-4,
+              f"{tag}: {name} {extra} over ranks vs the global batch")
+    return worst
+
+
+def _order_rank(world):
+    """One rank of the order-statistic check: ORDER_CASES on its rows."""
+    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
+    from rgbx_semantic_segmentation_tpu_torch.parallel.multihost import (
+        process_batch_slice)
+
+    rows = process_batch_slice(8, world.rank, world.size)
+    return order_losses(world, cfg_lib, rows, world.size)
 
 
 def main() -> int:
@@ -3793,13 +4144,17 @@ def main() -> int:
               f"{bound:.3f} ms")
     swin_b_kernels = swin_b_kernel_phase(W, T)
     flash_err, flash_rows = flash_kernel_phase(FA, T5)
+    narrow_err, narrow_rows = narrow_flash_kernel_phase(FA, T5)
     for which, tag in (("fwd", "forward"), ("dkv", "dk/dv"), ("dq", "dq")):
-        rows = flash_rows[which]
-        print(f"flash attention {tag}, the 6 calls of a mit_b2pp step: kernel "
-              f"{per_step(rows, 'ms', T5.CALLS):.3f} ms, plain "
-              f"{per_step(rows, 'plain_ms', T5.CALLS):.3f} ms, SDPA "
-              f"{per_step(rows, 'library_ms', T5.CALLS):.3f} ms, bound "
-              f"{per_step(rows, 'bound_ms', T5.CALLS):.3f} ms")
+        for model, rows in (("mit_b2pp", flash_rows[which]),
+                            ("segnext_b", narrow_rows[which])):
+            print(f"flash attention {tag}, the 6 calls of a {model} step: "
+                  f"kernel {per_step(rows, 'ms', T5.CALLS):.3f} ms, plain "
+                  f"{per_step(rows, 'plain_ms', T5.CALLS):.3f} ms, SDPA "
+                  f"{per_step(rows, 'library_ms', T5.CALLS):.3f} ms, bound "
+                  f"{per_step(rows, 'bound_ms', T5.CALLS):.3f} ms, "
+                  f"exponentials' floor "
+                  f"{per_step(rows, 'exp_floor_ms', T5.CALLS):.3f} ms")
     cfg = cfg_lib.mfnet_config()
     check(cfg.model.backbone == "mit_b2", "mfnet preset is mit_b2")
     items = synthetic_items(N_IMAGES, HW, cfg.dataset.num_classes)
@@ -3854,6 +4209,20 @@ def main() -> int:
     mlppp_train = train_phase(S, FA, mlppp, train_lib, dual_segformer, items,
                               grad_names=MLPPP_GRAD_NAMES,
                               steps=MLPPP_TRAIN_STEPS)
+    t0 = time.perf_counter()
+    segnext_cfg = family_cfg(cfg_lib, "segnext_b")
+    segnext_eval = slice_phase(S, FA, segnext_cfg, builder, evaluator_lib,
+                               dual_segformer, items, sr_calls=SEGNEXT_SR_CALLS,
+                               flash_calls=SEGNEXT_FLASH_CALLS,
+                               fp32_batch=SEGNEXT_FP32_BATCH, vs_truth=True)
+    segnext_train = train_phase(S, FA, segnext_cfg, train_lib, dual_segformer,
+                                items, sr_calls=SEGNEXT_SR_CALLS,
+                                flash_calls=SEGNEXT_FLASH_CALLS,
+                                grad_names=SEGNEXT_GRAD_NAMES,
+                                fp32_batch=SEGNEXT_FP32_BATCH, vs_truth=True)
+    print(f"segnext_b phases: {time.perf_counter() - t0:.1f} s")
+    resnet = resnet_phase(S, FA, cfg_lib, builder, evaluator_lib, train_lib,
+                          items)
     criteria = criteria_phase(cfg_lib, train_tf32)
     torch.cuda.empty_cache()
     ddp = ddp_world1_phase(S, cfg_lib, train_lib)
@@ -3879,6 +4248,8 @@ def main() -> int:
                 "per_call": rows}
         if "device_ms" in rows[0]:
             entry["device_ms"] = per_step(rows, "device_ms", calls)
+        if "exp_floor_ms" in rows[0]:
+            entry["exp_floor_ms"] = per_step(rows, "exp_floor_ms", calls)
         return entry
 
     def with_rates(entry, calls):
@@ -3910,14 +4281,16 @@ def main() -> int:
          + m2f_eval["launches"] + m2f_train["fwd_launches"]
          + m2f_cli["launches"]["fwd"] + mlppp_eval["launches"]
          + mlppp_train["fwd_launches"] + ddp["launches"]["fwd"]
-         + remat_launches(remat, 0) + lbfgs["k1"], fwd_err,
+         + remat_launches(remat, 0) + lbfgs["k1"]
+         + segnext_eval["launches"] + segnext_train["fwd_launches"], fwd_err,
          fwd_rows, CALLS_PER_FORWARD, None),
         ("sr_attention_bwd", "sr_attention.py:123",
          train["bwd_launches"] + pp_train["bwd_launches"]
          + cli["launches"]["bwd"] + pst_train["bwd_launches"]
          + pst_cli["launches"]["bwd"] + m2f_train["bwd_launches"]
          + m2f_cli["launches"]["bwd"] + mlppp_train["bwd_launches"]
-         + ddp["launches"]["bwd"] + remat_launches(remat, 1) + lbfgs["k2"],
+         + ddp["launches"]["bwd"] + remat_launches(remat, 1) + lbfgs["k2"]
+         + segnext_train["bwd_launches"],
          bwd_err, bwd_rows, CALLS_PER_FORWARD, None),
         ("window_attention_fwd", "window_attention.py:179",
          swin_eval["launches"] + swin_train["fwd_launches"]
@@ -3939,7 +4312,19 @@ def main() -> int:
         ("flash_attention_bwd_dkv", "attention.py:50", flash_train[1],
          flash_err["dkv"], flash_rows["dkv"], T5.CALLS, "flash_attention_bwd"),
         ("flash_attention_bwd_dq", "attention.py:50", flash_train[2],
-         flash_err["dq"], flash_rows["dq"], T5.CALLS, "flash_attention_bwd")]
+         flash_err["dq"], flash_rows["dq"], T5.CALLS, "flash_attention_bwd"),
+        # K5 at segnext_b's narrow heads (d = 8, 16, 40 in the 64-wide
+        # panel): the same kernels, the segnext_b phase's launches.
+        ("flash_attention_fwd_narrow", "attention.py:50",
+         segnext_eval["flash_launches"] + segnext_train["flash_launches"][0],
+         narrow_err["fwd"],
+         narrow_rows["fwd"], T5.CALLS, "flash_attention_fwd"),
+        ("flash_attention_bwd_dkv_narrow", "attention.py:50",
+         segnext_train["flash_launches"][1], narrow_err["dkv"],
+         narrow_rows["dkv"], T5.CALLS, "flash_attention_bwd"),
+        ("flash_attention_bwd_dq_narrow", "attention.py:50",
+         segnext_train["flash_launches"][2], narrow_err["dq"],
+         narrow_rows["dq"], T5.CALLS, "flash_attention_bwd")]
     print(json.dumps({"kernels": [
         with_rates(kernel_entry(name, replaces, launches, err, rows, calls,
                                 source), calls)
@@ -3952,7 +4337,9 @@ def main() -> int:
         "m2f_cli": m2f_cli, "mlppp_eval": mlppp_eval,
         "mlppp_train": mlppp_train, "criteria": criteria,
         "ddp_world1": ddp, "swin_b_kernels": swin_b_kernels,
-        "swin_b": swin_b, "remat": remat, "lbfgs": lbfgs, "card": card}))
+        "swin_b": swin_b, "remat": remat, "lbfgs": lbfgs,
+        "segnext_b_eval": segnext_eval, "segnext_b_train": segnext_train,
+        "resnet50": resnet, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

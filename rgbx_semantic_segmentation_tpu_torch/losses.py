@@ -14,11 +14,13 @@ images or queries divided by a count takes `denom_reduce`, which maps a
 count (or a sum of weights, or a per-class sum whose sign matters) to its
 sum over the ranks; it is applied to detached tensors only, so no gradient
 flows through it. With `denom_reduce=None` a loss is that of the batch it
-is given. Two criteria do not decompose into such sums and raise
-NotImplementedError over more than one rank (build_criterion): OHEM's
-k-th smallest target probability and berHu's largest residual are order
-statistics of the global batch (ROADMAP M11, "order statistics over
-ranks").
+is given. Two criteria need an order statistic of the global batch as
+well: OHEM the k-th smallest target probability, which it takes from the
+target probabilities gathered from every rank (`gather`, all_gather_ranks),
+and berHu the largest residual, an all-reduce MAX whose gradient goes, as
+JAX's `max` VJP sends it, in equal shares to every element equal to the
+global max on any rank (`global_max`, max_over_ranks). build_criterion
+binds both to the default process group over more than one rank.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
@@ -40,6 +43,47 @@ _RCE_DISAGREE = -float(np.log(np.float32(1e-9)))
 def _global(t: torch.Tensor, denom_reduce: Reduce) -> torch.Tensor:
     """`t` summed over the ranks (itself without a reduce)."""
     return t if denom_reduce is None else denom_reduce(t)
+
+
+def all_gather_ranks(t: torch.Tensor) -> torch.Tensor:
+    """The ranks' 1-D `t`s (each the same length: the ranks hold equal
+    shares of the global batch) concatenated in rank order over the
+    default process group. No gradient flows through it."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    return torch.cat(parts)
+
+
+class _MaxOverRanks(torch.autograd.Function):
+    """The largest element of `x` over every rank's `x` (all-reduce MAX).
+    Backward: every rank's loss depends on the max, so its cotangent is
+    first summed over the ranks; the sum then goes in equal shares to the
+    elements equal to the max, counted over all ranks (JAX's `max` VJP:
+    jax.grad(jnp.max)([1, 3, 3]) = [0, .5, .5]). The data-parallel SUM of
+    the parameter gradients then adds each rank's part once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.max().clone()
+        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        ties = x == m
+        count = ties.sum().to(x.dtype)
+        dist.all_reduce(count)
+        ctx.save_for_backward(ties, count)
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        ties, count = ctx.saved_tensors
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return ties.to(g.dtype) * (g / count)
+
+
+def max_over_ranks(x: torch.Tensor) -> torch.Tensor:
+    """The global max of `x` over the ranks of the default process group,
+    differentiable as JAX's `max` of the global batch (_MaxOverRanks)."""
+    return _MaxOverRanks.apply(x)
 
 
 def _upcast(x: torch.Tensor) -> torch.Tensor:
@@ -184,30 +228,42 @@ def balance_loss(logits, labels, ignore_index: int = 255,
 
 
 def berhu_loss(pred, target, ignore_index: int = 0, delta: float = 0.2,
-               normalizer=None):
+               normalizer=None, denom_reduce: Reduce = None,
+               global_max: Optional[Callable] = None):
     """Reverse Huber regression loss with the original's masks: the linear
     part where the TARGET (not the residual) is <= delta x the largest
     valid residual, the quadratic part elsewhere. `normalizer`: divide the
-    sum by it instead of taking the mean over all elements."""
+    sum by it (summed over the ranks by `denom_reduce`) instead of taking
+    the mean over all elements (of the global batch). `global_max` takes
+    the largest residual over the ranks (max_over_ranks; None: this
+    batch's)."""
     pred = _upcast(pred)
     target = _upcast(target)
     valid = (target != ignore_index).float()
     valid_delta = (pred - target).abs() * valid
-    d = delta * valid_delta.max()
+    d = delta * (valid_delta.max() if global_max is None
+                 else global_max(valid_delta))
     f_mask = (target <= d).float() * valid
     s_mask = (1.0 - f_mask) * valid
     f_term = valid_delta * f_mask
     s_term = (valid_delta ** 2 + d ** 2) / (2.0 * d + 1e-12) * s_mask
     if normalizer is None:
-        return (f_term + s_term).mean()
-    return (f_term + s_term).sum() / torch.clamp(normalizer, min=1.0)
+        count = _global(torch.tensor(float(valid.numel()),
+                                     device=valid.device), denom_reduce)
+        return (f_term + s_term).sum() / count
+    return (f_term + s_term).sum() / torch.clamp(
+        _global(normalizer.detach(), denom_reduce), min=1.0)
 
 
-def berhu_seg_loss(logits, labels, ignore_index: int = 255):
+def berhu_seg_loss(logits, labels, ignore_index: int = 255,
+                   denom_reduce: Reduce = None,
+                   global_max: Optional[Callable] = None):
     """The JAX package's adaptation of berHu to segmentation (the
     original's subtracts (B, H, W) labels from (B, C, H, W) logits, a
     broadcast error): berHu between the softmax probabilities and the
-    one-hot target over the valid pixels, normalised by valid pixels x C."""
+    one-hot target over the valid pixels, normalised by valid pixels x C
+    (of the global batch, with the largest residual of the global batch
+    where `denom_reduce` and `global_max` are given)."""
     logits = _upcast(logits)
     num_classes = logits.shape[-1]
     valid = _valid_mask(labels, ignore_index)[..., None]
@@ -217,7 +273,8 @@ def berhu_seg_loss(logits, labels, ignore_index: int = 255):
     # One-hot targets are in {0, 1}: ignore_index=-1 disables berHu's own
     # target masking (validity is applied above).
     return berhu_loss(probs, oh, ignore_index=-1,
-                      normalizer=valid.sum() * num_classes)
+                      normalizer=valid.sum() * num_classes,
+                      denom_reduce=denom_reduce, global_max=global_max)
 
 
 def dice_loss(logits, labels, ignore_index: int = 255, smooth: float = 1e-6,
@@ -252,11 +309,19 @@ def dice_ce_loss(logits, labels, ignore_index: int = 255, alpha: float = 0.5,
 
 def prob_ohem_cross_entropy(logits, labels, ignore_index: int = 255,
                             thresh: float = 0.6, min_kept: int = 256,
-                            weight: Optional[torch.Tensor] = None):
+                            weight: Optional[torch.Tensor] = None,
+                            denom_reduce: Reduce = None,
+                            gather: Optional[Callable] = None):
     """Online hard example mining CE: keeps the valid pixels whose target
     probability is <= max(thresh, the min_kept-th smallest target
     probability), all valid pixels when fewer than min_kept are valid; the
-    rest count as ignored. No host sync: the branches are selects."""
+    rest count as ignored. No host sync: the branches are selects.
+
+    Over ranks the statistics are the global batch's: `gather`
+    (all_gather_ranks) brings every rank's target probabilities for the
+    k-th smallest (an order statistic, the same on every rank), the valid
+    count is summed by `denom_reduce`, and so is the kept pixels' CE
+    normaliser."""
     logits = _upcast(logits)
     num_classes = logits.shape[-1]
     flat_logits = logits.reshape(-1, num_classes)
@@ -268,13 +333,15 @@ def prob_ohem_cross_entropy(logits, labels, ignore_index: int = 255,
         tgt_prob = probs.gather(-1, tgt[:, None])[:, 0]
         # Ignored pixels get probability 1: they sort last.
         tgt_prob = torch.where(valid, tgt_prob, 1.0)
-        k = min(min_kept, tgt_prob.numel())
-        kth = torch.kthvalue(tgt_prob, k).values
+        every = tgt_prob if gather is None else gather(tgt_prob)
+        k = min(min_kept, every.numel())
+        kth = torch.kthvalue(every, k).values
         kept = valid & (tgt_prob <= torch.clamp(kth, min=thresh))
-        kept = torch.where(valid.sum() < min_kept, valid, kept)
+        n_valid = _global(valid.sum(), denom_reduce)
+        kept = torch.where(n_valid < min_kept, valid, kept)
     new_labels = torch.where(kept, flat_labels, ignore_index)
     return cross_entropy_loss(flat_logits, new_labels, ignore_index,
-                              weight=weight)
+                              weight=weight, denom_reduce=denom_reduce)
 
 
 # -------------------------------------------------------- Mask2Former --
@@ -477,30 +544,19 @@ def topology_aware_loss(logits, labels, ignore_index: int = 255,
 
 # ------------------------------------------------------------ factory --
 
-# Criteria whose value over several ranks is not a sum of per-rank terms.
-_ORDER_STATISTIC_CRITERIA = {
-    "OhemCrossEntropy": "the k-th smallest target probability",
-    "berHuLoss": "the largest residual",
-}
-
-
 def build_criterion(cfg, world_size: int = 1,
                     denom_reduce: Reduce = None) -> Callable[
                         [torch.Tensor, torch.Tensor], torch.Tensor]:
     """loss_fn(logits, labels) -> scalar from a Config: the criterion
     selection of the JAX build_criterion, every name of it. `denom_reduce`
     (see the module docstring) binds the global normalisers of a rank of
-    `world_size`; the two order-statistic criteria raise
-    NotImplementedError for a world_size above 1."""
+    `world_size`; over more than one rank OHEM and berHu also take their
+    order statistic of the global batch over the default process group
+    (all_gather_ranks, max_over_ranks)."""
     name = cfg.train.criterion
     ignore = cfg.dataset.background
-    if world_size > 1 and name in _ORDER_STATISTIC_CRITERIA:
-        raise NotImplementedError(
-            f"criterion {name!r} over {world_size} ranks needs "
-            f"{_ORDER_STATISTIC_CRITERIA[name]} of the global batch: ROADMAP "
-            "M11 (order statistics over ranks)")
-    common = {"ignore_index": ignore}
-    glob = dict(common, denom_reduce=denom_reduce)
+    ranks = world_size > 1
+    glob = {"ignore_index": ignore, "denom_reduce": denom_reduce}
     focal = dict(glob, gamma=cfg.model.fl_gamma, alpha=cfg.model.fl_alpha)
     if name == "CrossEntropyLoss":
         return functools.partial(cross_entropy_loss, **glob)
@@ -519,11 +575,13 @@ def build_criterion(cfg, world_size: int = 1,
     if name == "FocalLoss2d":
         return functools.partial(focal_loss_2d, **glob)
     if name == "OhemCrossEntropy":
-        return functools.partial(prob_ohem_cross_entropy, **common,
+        return functools.partial(prob_ohem_cross_entropy, **glob,
                                  thresh=cfg.train.ohem_thresh,
-                                 min_kept=cfg.train.ohem_min_kept)
+                                 min_kept=cfg.train.ohem_min_kept,
+                                 gather=all_gather_ranks if ranks else None)
     if name == "berHuLoss":
-        return functools.partial(berhu_seg_loss, **common)
+        return functools.partial(berhu_seg_loss, **glob,
+                                 global_max=max_over_ranks if ranks else None)
     if name == "CE_Focal":
         # CE + 0.2 x focal (the original's tuple criterion and its fixed
         # second-term weight).

@@ -9,8 +9,18 @@ MLPDecoder, UPernet and deeplabv3+ (both with the aux FCNHead on feature 2:
 the model then returns (logits, aux), as the JAX EncoderDecoder does in
 train and eval mode) and fcn / None (an FCNHead on feature 3). The Swin
 knobs `swin_ape` and `swin_frozen_stages` and the shared `remat` pass
-through to the encoders. The other backbone names the JAX registry knows
-(SegNeXt, ResNet) raise NotImplementedError naming their ROADMAP item.
+through to the encoders. The dual ResNet family (resnet50/101/152, the
+config's FRM/FFM) and the dual SegNeXt family (segnext_tiny/small/base/large
+and the original's spellings segnext_s / segnext_b, IFRM/IFFM hardwired,
+drop path 0: the JAX builder passes SegNeXt no rate) complete the JAX
+registry.
+
+One routing deviation from the JAX builder: the ResNet and SegNeXt IFFMs
+take `use_pallas = cfg.model.use_pallas_kernels`, as the MiT ones do, where
+the JAX modules pass none and their cross-attention always runs the plain
+`_sdpa`. In fp32 the two routes agree to summation order; in bf16 they
+differ by where p is rounded (ops/attention.py), the deviation that stands
+for long-kv shapes with the kernels off.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ from rgbx_semantic_segmentation_tpu_torch.models.decoders.mlp_decoderpp import (
     MLPDecoderpp)
 from rgbx_semantic_segmentation_tpu_torch.models.decoders.upernet import UPerHead
 from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
-    dual_segformer, dual_swin)
+    dual_resnet, dual_segformer, dual_segnext, dual_swin)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import init_weights
 from rgbx_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
 
@@ -45,12 +55,18 @@ MIT_FACTORIES = {
 SWIN_FACTORIES = {"swin_s": dual_swin.swin_s, "swin_b": dual_swin.swin_b}
 # The encoder-side ASPP variants: name suffix -> RGBXTransformer `aspp`.
 ASPP_SUFFIXES = {"_w_aspp": "aspp", "_w_ef_aspp": "easpp"}
-# Backbone names of the JAX registry (models/builder.py BACKBONES) that
-# this port does not build yet, with the ROADMAP item that ports them.
-_LATER_BACKBONES = {
-    "segnext": "M10 item 6 (SegNeXt)",
-    "resnet": "M10 item 7 (ResNet)",
+RESNET_FACTORIES = {"resnet50": dual_resnet.dual_resnet50,
+                    "resnet101": dual_resnet.dual_resnet101,
+                    "resnet152": dual_resnet.dual_resnet152}
+SEGNEXT_FACTORIES = {
+    "segnext_tiny": dual_segnext.segnext_tiny,
+    "segnext_small": dual_segnext.segnext_small,
+    "segnext_base": dual_segnext.segnext_base,
+    "segnext_large": dual_segnext.segnext_large,
 }
+# The original's spellings (its builder imports names its encoder module
+# lacks), aliased as the JAX registry does.
+SEGNEXT_ALIASES = {"segnext_s": "segnext_small", "segnext_b": "segnext_base"}
 # Decoders that carry the aux FCNHead on feature AUX_INDEX; its loss
 # weighs AUX_RATE (the JAX builder's constants).
 AUX_DECODERS = {"UPernet", "deeplabv3+"}
@@ -70,6 +86,17 @@ def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
     name = cfg.model.backbone
     if name in SWIN_FACTORIES:
         return _build_swin(cfg), dual_swin.CHANNELS[name]
+    if name in RESNET_FACTORIES:
+        module = RESNET_FACTORIES[name](
+            frm=cfg.model.feature_rectify_module,
+            ffm=cfg.model.feature_fusion_module,
+            use_pallas=cfg.model.use_pallas_kernels)
+        return module, module.channels
+    segnext = SEGNEXT_ALIASES.get(name, name)
+    if segnext in SEGNEXT_FACTORIES:
+        module = SEGNEXT_FACTORIES[segnext](
+            use_pallas=cfg.model.use_pallas_kernels)
+        return module, module.channels
     # mit_*pp: the same towers with IFRM/IFFM whatever the config names.
     pp = is_mit_pp(name)
     fusion = ({"frm": "IFRM", "ffm": "IFFM"} if pp else
@@ -80,12 +107,11 @@ def build_backbone(cfg: Config) -> Tuple[nn.Module, Sequence[int]]:
         if name.endswith(suffix) and name[:-len(suffix)] in MIT_FACTORIES:
             base, aspp = name[:-len(suffix)], kind
     if base not in MIT_FACTORIES:
-        for key, item in _LATER_BACKBONES.items():
-            if key in name:
-                raise NotImplementedError(
-                    f"backbone {name!r} is not ported yet: ROADMAP {item}")
         raise KeyError(f"unknown backbone {name!r}; have "
-                       f"{sorted(MIT_FACTORIES) + sorted(SWIN_FACTORIES)}")
+                       f"{sorted(MIT_FACTORIES) + sorted(SWIN_FACTORIES)}"
+                       f" + {sorted(RESNET_FACTORIES)}"
+                       f" + {sorted(SEGNEXT_FACTORIES)}"
+                       f" + {sorted(SEGNEXT_ALIASES)}")
     module = MIT_FACTORIES[base](
         **fusion, aspp=aspp,
         drop_path_rate=cfg.model.drop_path_rate,

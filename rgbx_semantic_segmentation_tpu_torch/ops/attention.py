@@ -4,8 +4,10 @@ ops/attention.py).
 `multi_head_attention` dispatches as the JAX version does on its
 accelerator: with kernels enabled, short-kv shapes (sr_attention.supported)
 go to the SR kernels and, tried after them, long-kv shapes
-(flash_attention.supported) to the flash attention kernels; shapes that pass
-neither gate run the plain `_sdpa`, forward and backward. On a CPU tensor
+(flash_attention.supported: N >= 1024, any d up to 128) to the flash
+attention kernels, a head dim that is not a multiple of 8 zero-padded to
+one; shapes that pass neither gate run the plain `_sdpa`, forward and
+backward. On a CPU tensor
 each kernel wrapper itself takes its plain versions. With kernels disabled
 the same shapes run `_sdpa`, except the long-kv ones, whose (N, M)
 probabilities `_sdpa` would keep for its backward (5.9 GB a call at the
@@ -16,10 +18,19 @@ and divides by the row sum after p @ v (the flash kernels' order), where
 `_sdpa` normalises first and rounds the probabilities. In fp32 the two agree
 to summation order (the CPU parity tests); in bf16 they differ by the
 rounding of p, about a bf16 ulp of the output.
+
+The JAX package sends a long-kv shape to its flash kernel only where d >= 32
+and d % 8 == 0 (the upstream TPU kernel's blocks), and it builds the
+SegNeXt and ResNet IFFMs without `use_pallas`, so their cross-attention
+always runs `_sdpa` there. Here those IFFMs take the model's kernel switch,
+as the MiT ones do, and their narrow heads (SegNeXt: d = dim / 8, 4 to 96) the
+flash kernels: `_sdpa` would keep 94 GB of fp32 logits for one call at the
+first segnext_b stage of a batch of eight 480x640 images.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from rgbx_semantic_segmentation_tpu_torch.ops import flash_attention as FA
 from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as SR
@@ -77,9 +88,17 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # The kernel takes the head-split views as they are, and its output
         # is laid out so that the merge below is a view.
         out = (SR.sr_attention if use_kernels else _sdpa)(q, k, v, scale)
+    elif FA.supported(q.shape, k.shape) and use_kernels:
+        # The kernels take head dims that are multiples of 8: zero columns
+        # add nothing to the logits and their output columns are dropped,
+        # so the padded call is exact (with the scale of the true d), and
+        # autograd carries dq, dk and dv back through the pad.
+        pad = -d % 8
+        if pad:
+            q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+        out = FA.flash_attention(q, k, v, scale)[..., :d]
     elif FA.supported(q.shape, k.shape):
-        out = (FA.flash_attention if use_kernels
-               else FA.flash_attention_plain)(q, k, v, scale)
+        out = FA.flash_attention_plain(q, k, v, scale)
     else:
         out = _sdpa(q, k, v, scale)
     return out.transpose(1, 2).reshape(B, N, h * d)

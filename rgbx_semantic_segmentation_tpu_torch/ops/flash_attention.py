@@ -46,11 +46,16 @@ CHUNK_ELEMS = 1 << 28
 
 
 def supported(q_shape: Sequence[int], k_shape: Sequence[int]) -> bool:
-    """Shapes the dispatch sends here: the JAX package's `flash_supported`
-    (N >= 1024: below that the (N, M) tensor is small; d >= 32, d % 8 == 0)
-    and the kernels' d <= 128."""
+    """Shapes the dispatch sends here: N >= 1024 (the JAX package's
+    `flash_supported`: below that the (N, M) tensor is small) and the
+    kernels' d <= 128. The JAX gate's d >= 32, d % 8 == 0 was the upstream
+    TPU kernel's block constraint, not the attention's: the CUDA kernels
+    stage any d that is a multiple of 8 into a 64-wide panel whose columns
+    past d are zeros, and ops/attention.multi_head_attention zero-pads
+    other head dims (SegNeXt's 4, 12 and 20) up to the next multiple of 8
+    before it calls them."""
     N, d = q_shape[2], q_shape[3]
-    return N >= 1024 and 32 <= d <= MAX_D and d % 8 == 0
+    return N >= 1024 and d <= MAX_D
 
 
 def _row_chunks(q: torch.Tensor, M: int):

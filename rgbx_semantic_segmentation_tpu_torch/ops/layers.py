@@ -13,7 +13,8 @@ Initialization follows the JAX package (which follows the original repo's
 absolute position embeddings = truncated normal (std 0.02), Linear bias
 zero; Conv2d = normal(0, sqrt(2 / fan_out)), fan_out = kh * kw * out / groups,
 with zero bias; norms = ones / zeros; the IFRM lambdas = 0.5; the
-Mask2Former queries = normal(0.02) and its mask temperature = 20.
+Mask2Former queries = normal(0.02) and its mask temperature = 20; the
+SegNeXt LayerScales = their block's `ls_init` (1e-2).
 `init_weights` applies it to a whole model from an explicit
 torch.Generator.
 
@@ -58,7 +59,8 @@ def conv_kaiming_normal_(w: torch.Tensor, groups: int,
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every Linear, Conv2d, LayerNorm, BatchNorm2d,
     `relative_position_bias_table`, Swin `absolute_pos_embed`, IFRM
-    lambda and Mask2Former `query_embed` / `scale` parameter of `model` in
+    lambda, Mask2Former `query_embed` / `scale` and SegNeXt LayerScale
+    parameter of `model` in
     place (see module docstring); BatchNorm running stats are reset."""
     for name, p in model.named_parameters():
         # Bare nn.Parameters (Swin WindowAttention, IFRM, Mask2Former), not
@@ -72,6 +74,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.normal_(0.0, 0.02, generator=generator)
         elif name == "scale" or name.endswith(".scale"):
             p.fill_(20.0)
+        elif name.endswith(("ls1_layer_scale", "ls2_layer_scale")):
+            p.fill_(model.get_submodule(name.rpartition(".")[0]).ls_init)
     for m in model.modules():
         if isinstance(m, nn.Linear):
             trunc_normal_(m.weight, 0.02, generator)

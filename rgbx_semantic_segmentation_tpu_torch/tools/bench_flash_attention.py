@@ -57,6 +57,15 @@ from rgbx_semantic_segmentation_tpu_torch.tools.bench_sr_attention import (
 SHAPES = [(8, 1, 19200, 19200, 64), (8, 2, 4800, 4800, 64),
           (8, 5, 1200, 1200, 64)]
 CALLS = [2, 2, 2]
+# The same for segnext_b (8 heads on the stage width: d = 8, 16, 40), whose
+# kernels stage d in a 64-wide panel with zero columns past d.
+SEGNEXT_SHAPES = [(8, 8, 19200, 19200, 8), (8, 8, 4800, 4800, 16),
+                  (8, 8, 1200, 1200, 40)]
+# Exponentials a second of one H100 SXM: 132 SMs, 16 MUFU.EX2 a clock each,
+# at the 1.98 GHz boost clock. Every kernel takes one exponential per logit
+# (the backward ones recompute p); at a narrow d they, not the products,
+# bind the kernel, a floor beside the table's bound.
+EXP_RATE = 132 * 16 * 1.98e9
 # Peaks of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor-core rate
 # and device-memory rate.
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -93,6 +102,12 @@ def work(shape, which, itemsize=2):
     return ops, 3 * rows_q + 2 * rows_kv + 2 * stat
 
 
+def exp_floor_ms(shape):
+    """Least time of one call's B*h*N*M exponentials (EXP_RATE), in ms."""
+    B, h, N, M, _ = shape
+    return B * h * N * M / EXP_RATE * 1e3
+
+
 def bound_ms(shape, which):
     """Least time the card could take for bf16 work; (ms, what binds)."""
     ops, nbytes = work(shape, which)
@@ -118,8 +133,8 @@ def median_ms(fn, warmup=2, iters=5, reps=2) -> float:
 
 def time_shape(shape, gen):
     """The times of one shape in bf16: {"fwd" | "dkv" | "dq": {"ms",
-    "plain_ms", "library_ms", "bound_ms", "bound_by", "share_of_bound",
-    "tflops"}}. The plain backward
+    "plain_ms", "library_ms", "bound_ms", "bound_by", "exp_floor_ms",
+    "share_of_bound", "tflops"}}. The plain backward
     is one function, so the dk/dv and dq rows share its time and the
     library's backward (SDPA forward + backward through autograd, minus the
     forward alone)."""
@@ -162,6 +177,7 @@ def time_shape(shape, gen):
         bound, by = bound_ms(shape, which)
         rows[which] = {"shape": list(shape), "ms": ms, "plain_ms": plain,
                        "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                       "exp_floor_ms": exp_floor_ms(shape),
                        "share_of_bound": bound / ms,
                        "tflops": work(shape, which)[0] / ms * 1e-9}
     return rows
@@ -173,7 +189,8 @@ def print_rows(shape, rows) -> None:
         print(f"time bf16 flash {which} (B,h,N,M,d)={tuple(shape)}: kernel "
               f"{r['ms']:.4f} ms, plain{note} {r['plain_ms']:.3f} ms, SDPA"
               f"{note} {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound")
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of bound; "
+              f"exponentials' floor {r['exp_floor_ms']:.4f} ms")
 
 
 class Parent:

@@ -225,17 +225,20 @@ def test_ohem_keeps_the_hard_pixels():
 
 
 def test_build_criterion_over_ranks():
-    """Over several ranks the two order-statistic criteria raise, naming
-    their ROADMAP item; the others build (tests/test_torch_ddp_criteria.py
-    holds them against one process)."""
+    """Every criterion builds over several ranks
+    (tests/test_torch_ddp_criteria.py holds them against one process); the
+    two order-statistic criteria then take their statistic over the ranks
+    (OHEM the gathered target probabilities, berHu the max over the ranks)
+    and one process its own batch's."""
     for name in NAMES:
-        if name in ("OhemCrossEntropy", "berHuLoss"):
-            with pytest.raises(NotImplementedError,
-                               match=r"ROADMAP M11 \(order statistics"):
-                tlosses.build_criterion(_named(name), world_size=2)
-        else:
-            tlosses.build_criterion(_named(name), world_size=2)
-        tlosses.build_criterion(_named(name), world_size=1)
+        over = tlosses.build_criterion(_named(name), world_size=2)
+        alone = tlosses.build_criterion(_named(name), world_size=1)
+        if name == "OhemCrossEntropy":
+            assert over.keywords["gather"] is tlosses.all_gather_ranks
+            assert alone.keywords["gather"] is None
+        if name == "berHuLoss":
+            assert over.keywords["global_max"] is tlosses.max_over_ranks
+            assert alone.keywords["global_max"] is None
 
 
 # -------------------------------------------------------- Mask2Former --

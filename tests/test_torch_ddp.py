@@ -17,6 +17,7 @@ interpreter and import this file): JAX is imported only inside the tests
 and fixtures that compare with it. Each world has its own timeout.
 Tolerances are stated at each test.
 """
+import contextlib
 import dataclasses
 import os
 import re
@@ -48,11 +49,15 @@ torch.set_num_threads(2)
 WORLD_TIMEOUT = 120   # seconds a world may take before it is killed
 BATCH, HW, STEPS, LR = 8, 32, 3, 1e-3
 # As tests/test_torch_train.py: biases whose true gradient is exactly 0
-# (a per-channel constant in front of a BatchNorm); AdamW moves them by
-# rounding noise.
+# (a per-channel constant in front of a BatchNorm; SegNeXt's: the stem
+# conv's, the IFRM's first two convs', and the per-channel constants that
+# enter the last stage's residual stream, which reaches only BatchNorms);
+# AdamW moves them by rounding noise.
 ZERO_GRADIENT = re.compile(
     r"channel_embed\.[34]\.bias$|channel_emb\.norm\.bias$"
-    r"|linear_c\d\.proj\.bias$|linear_fuse\.0\.bias$")
+    r"|linear_c\d\.proj\.bias$|linear_fuse\.0\.bias$"
+    r"|stem\.0\.bias$|spatial_weights\.conv[12]\.bias$"
+    r"|downsample\.2\.bias$|stages\.3\.\d+\.ffn_fc2\.bias$")
 STATS = ("running_mean", "running_var")
 
 
@@ -219,6 +224,79 @@ def _preempt_rank(world, cfg, batch, signal_at):
         return {"step": trainer.global_step, "handled": handled,
                 "signalled": engine.preempted,
                 "epochs": engine.checkpoints.all_epochs()}
+
+
+# Test-scale encoders of the two conv families, put in place of a registry
+# name (FAMILIES) while the model is built: one block a stage.
+FAMILIES = {"segnext_tiny": "SEGNEXT_FACTORIES", "resnet50": "RESNET_FACTORIES"}
+FAMILY_HW = 64   # stage-4 maps 2x2: no 1x1 BatchNorm inputs
+
+
+@contextlib.contextmanager
+def narrow_family(backbone):
+    """Within the block the registry's `backbone` builds its narrow
+    version; the registry and the ResNet widths are put back on exit."""
+    from rgbx_semantic_segmentation_tpu_torch.models import builder
+    from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+        dual_resnet, dual_segnext)
+
+    narrow = {
+        "segnext_tiny": lambda **kw: dual_segnext.SegNextEncoder(
+            depths=(1, 1, 1, 1), dims=(16, 32, 48, 64), **kw),
+        "resnet50": lambda **kw: dual_resnet.DualResNet(
+            (1, 1, 1, 1), **kw)}[backbone]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dual_resnet, "PLANES", (8, 16, 32, 64))
+        mp.setitem(getattr(builder, FAMILIES[backbone]), backbone, narrow)
+        yield
+
+
+def family_cfg(backbone):
+    """tiny_cfg's at FAMILY_HW with no warm-up (the one step moves the
+    weights)."""
+    cfg = tiny_cfg()
+    return cfg.replace(
+        dataset=dataclasses.replace(cfg.dataset, image_height=FAMILY_HW,
+                                    image_width=FAMILY_HW),
+        model=dataclasses.replace(cfg.model, backbone=backbone),
+        train=dataclasses.replace(cfg.train, warm_up_epoch=0))
+
+
+def family_batch(seed=3):
+    rng = np.random.RandomState(seed)
+    shape = (BATCH, FAMILY_HW, FAMILY_HW)
+    label = rng.randint(0, 5, size=shape)
+    for b in range(BATCH):
+        label[b][rng.rand(*shape[1:]) < 0.1 * b] = 255
+    return {"rgb": rng.randn(*shape, 3).astype(np.float32),
+            "modal_x": rng.randn(*shape, 3).astype(np.float32),
+            "label": label.astype(np.int32)}
+
+
+def _family_step(world, cfg, start, batch):
+    """One train step of the narrow family from `start` on this world's
+    rows in float64, built as Trainer builds it (synced BatchNorms where
+    the world has a process group, make_train_step's DDP wrapper and its
+    summed all-reduce): the loss, the gradients, the BN running statistics
+    and the state after the step."""
+    from rgbx_semantic_segmentation_tpu_torch import optim
+    from rgbx_semantic_segmentation_tpu_torch.train import make_train_step
+
+    torch.set_num_threads(1)
+    with narrow_family(cfg.model.backbone):
+        model = build_model(cfg, device="cpu", seed=None)
+    model.load_state_dict(start, strict=True)
+    if world.distributed:
+        convert_sync_batchnorm(model)
+    model.double()
+    step = make_train_step(cfg, model, optim.build_optimizer(cfg, model),
+                           seed=0, world=world)
+    loss = float(step(0, {k: v.astype(np.float64) if v.dtype == np.float32
+                          else v for k, v in rows_of(batch, world).items()}))
+    state = numpy_state(model)
+    return {"loss": loss, "grads": grads_of(model),
+            "stats": {k: v for k, v in state.items() if k.endswith(STATS)},
+            "state": state}
 
 
 def _raise_on_rank1(world):
@@ -739,6 +817,38 @@ def test_solo_world_is_one_process():
     got = launch.run(lambda w, x: (w.rank, w.size, w.device, w.distributed,
                                    x), "cpu", [0], ("x",))
     assert got == (0, 1, torch.device("cpu"), False, "x")
+
+
+@pytest.mark.parametrize("backbone", sorted(FAMILIES))
+def test_conv_families_over_ranks_match_one_process(backbone):
+    """One train step of a narrow SegNeXt (IFRM/IFFM, LayerScales, MSCA's
+    depthwise convs) and of a narrow ResNet (FRM/FFM) on 2 ranks against
+    one process on the same global batch, whose ranks hold different counts
+    of ignored pixels: the loss within 1e-5 relative, every gradient within
+    1e-4 of its tensor's largest (assert_gradients_close), the synced
+    BatchNorm statistics (every BatchNorm of towers, fusion and head)
+    within 1e-5, the parameters after one AdamW step within 2e-5
+    (assert_params_close), both ranks the same bits. In float64: in fp32
+    one process alone, given the batch in reverse order, already moves the
+    narrow ResNet's stage-3 gradients by 7% of their largest (measured),
+    which AdamW's first step, about lr x sign(g), turns into flips."""
+    cfg, batch = family_cfg(backbone), family_batch()
+    with narrow_family(backbone):
+        model = build_model(cfg, device="cpu", seed=0)
+    start = model.state_dict()
+    one = _family_step(pdist.World.solo(), cfg, start, batch)
+    res = spawn(_family_step, 2, cfg, start, batch)
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules())
+    assert len(one["stats"]) == 2 * n_bn
+    assert res[0]["loss"] == pytest.approx(one["loss"], rel=1e-5)
+    assert_gradients_close(res[0]["grads"], one["grads"], 1e-4)
+    for k, v in one["stats"].items():
+        np.testing.assert_allclose(res[0]["stats"][k], v, atol=1e-5, rtol=0,
+                                   err_msg=k)
+    assert_params_close(res[0]["state"], one["state"], 2e-5,
+                        {k: v.double() for k, v in start.items()})
+    for k, v in res[0]["state"].items():
+        assert np.array_equal(res[1]["state"][k], v), k
 
 
 @pytest.mark.parametrize("decoder", ["MLPDecoder", "UPernet", "deeplabv3+",

@@ -7,8 +7,13 @@ loss's gradient on its rows).
 
 Through train.make_loss_fn(cfg, world), as a rank's Trainer builds it:
 every criterion of build_criterion that decomposes (11 names) and the
-mask2former dict; OHEM and berHu (order statistics of the global batch)
-must raise NotImplementedError naming their ROADMAP item. Then the first
+mask2former dict; OHEM and berHu, which need an order statistic of the
+global batch (the k-th smallest target probability, gathered from the
+ranks; the largest residual, an all-reduce MAX whose gradient goes to the
+tied elements of every rank), in five cases: each as the preset runs it,
+OHEM with a rank holding fewer than min_kept valid pixels while the global
+batch holds more, and with fewer than min_kept valid in the global batch,
+and berHu with its largest residual tied across the two ranks. Then the first
 train step of mit_tiny + Mask2Former over the 2 ranks against one process
 (float64). Tolerances: loss rtol 1e-5, gradients 1e-4 of their tensor's
 largest (a tensor whose true gradient is 0, rounding noise only: 1e-4 of
@@ -35,6 +40,26 @@ DECOMPOSING = ["BalanceLoss", "CE_Focal", "CrossEntropyLoss", "DiceCELoss",
                "DiceLoss", "FocalLoss", "FocalLoss2d", "RCELoss",
                "SigmoidFocalLoss", "TopologyAwareCE", "TopologyAwareLoss"]
 ORDER_STATISTIC = ["OhemCrossEntropy", "berHuLoss"]
+# (criterion, TrainConfig overrides) of each order-statistic case. OHEM's
+# threshold 0.05 lies below most target probabilities, so the k-th smallest
+# decides the kept set. Valid pixels (_ragged_labels): ~650 on rank 0 and
+# ~345 on rank 1 of the 1536.
+ORDER_CASES = {
+    "OhemCrossEntropy": ("OhemCrossEntropy",
+                         {"ohem_thresh": 0.05, "ohem_min_kept": 300}),
+    "berHuLoss": ("berHuLoss", {}),
+    "ohem_one_rank_short": ("OhemCrossEntropy",
+                            {"ohem_thresh": 0.05, "ohem_min_kept": 500}),
+    "ohem_global_short": ("OhemCrossEntropy",
+                          {"ohem_thresh": 0.05, "ohem_min_kept": 1200}),
+    "berhu_tie_across_ranks": ("berHuLoss", {}),
+}
+# The pixel that both ranks' first images share in the tie case: logits 9
+# at class 1 and 0 elsewhere, label 0, so its residual at class 0,
+# 1 - p_0 = 0.99988, is the largest of the batch (the next is 0.9993), on
+# both ranks, and its softmax is not saturated: the max's gradient reaches
+# the logits.
+TIE_PIXEL = (0, 0)
 # Biases whose true gradient is 0: in front of a BatchNorm (per-channel
 # constants it subtracts), a key projection's (softmax is shift-invariant
 # along the keys), and the FFM's (tests/test_torch_ddp.py).
@@ -44,9 +69,9 @@ ZERO_GRADIENT = re.compile(
     r"|output_convs\.\d\.0\.bias$")
 
 
-def _cfg(criterion="CrossEntropyLoss", decoder="MLPDecoder"):
+def _cfg(criterion="CrossEntropyLoss", decoder="MLPDecoder", **train):
     """tests/test_torch_ddp.py's geometry: mit_tiny at 32x32, drop rates 0,
-    global batch 8."""
+    global batch 8; `train` overrides TrainConfig fields."""
     return tconfig.mfnet_config().replace(
         model=tconfig.ModelConfig(
             backbone="mit_tiny", decoder=decoder, decoder_embed_dim=64,
@@ -57,7 +82,7 @@ def _cfg(criterion="CrossEntropyLoss", decoder="MLPDecoder"):
                                       class_names=tuple("abcde")),
         train=tconfig.TrainConfig(batch_size=BATCH, nepochs=2,
                                   niters_per_epoch=4, warm_up_epoch=0,
-                                  lr=1e-3, criterion=criterion))
+                                  lr=1e-3, criterion=criterion, **train))
 
 
 def _ragged_labels(rng, shape, classes):
@@ -85,6 +110,17 @@ def _data():
     return logits, labels, m2f, m2f_labels, batch
 
 
+def _tied(logits, labels):
+    """The tie case's data: the first image of each rank (0 and 4) shares
+    TIE_PIXEL's logits and label (see TIE_PIXEL)."""
+    logits, labels = logits.copy(), labels.copy()
+    for b in (0, BATCH // WORLD):
+        logits[(b, *TIE_PIXEL)] = 0.0
+        logits[(b, *TIE_PIXEL, 1)] = 9.0
+        labels[(b, *TIE_PIXEL)] = 0
+    return logits, labels
+
+
 def _losses(world, rows):
     """{name: (this rank's loss, its gradient w.r.t. its rows)} through
     make_loss_fn(cfg, world); the mask2former entry's gradient is the
@@ -103,12 +139,14 @@ def _losses(world, rows):
          "pred_masks": masks}, torch.from_numpy(m2f_labels[rows]))
     loss.backward()
     out["mask2former"] = (float(loss.detach()), masks.grad.numpy().copy())
-    for name in ORDER_STATISTIC:
-        try:
-            make_loss_fn(_cfg(name), world)
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
+    for name, (criterion, train) in ORDER_CASES.items():
+        lg, lb = (_tied(logits, labels) if name == "berhu_tie_across_ranks"
+                  else (logits, labels))
+        x = torch.from_numpy(lg[rows]).requires_grad_()
+        loss = make_loss_fn(_cfg(criterion, **train), world)(
+            x, torch.from_numpy(lb[rows]))
+        loss.backward()
+        out[name] = (float(loss.detach()), x.grad.numpy().copy())
     return out
 
 
@@ -184,12 +222,51 @@ def test_loss_over_ranks_is_the_global_loss(name, ranks, one_process):
     assert abs(ranks[0]["losses"][name][0] - want / WORLD) > 1e-6 * want
 
 
+def _hold_to_one_process(name, ranks, one_process):
+    want, wgrad = one_process["losses"][name]
+    got = sum(r["losses"][name][0] for r in ranks)
+    assert got == pytest.approx(want, rel=1e-5)
+    grad = np.concatenate([r["losses"][name][1] for r in ranks], axis=0)
+    np.testing.assert_allclose(grad, wgrad, rtol=0,
+                               atol=1e-4 * np.abs(wgrad).max())
+
+
 @pytest.mark.parametrize("name", ORDER_STATISTIC)
 def test_order_statistic_criteria_raise_over_ranks(name, ranks,
                                                    one_process):
-    assert one_process["losses"][name] is None
-    for r in ranks:
-        assert "ROADMAP M11 (order statistics" in r["losses"][name]
+    """OHEM and berHu, which raised over several ranks while the port had
+    no order statistics over ranks, build there now, and as the preset
+    runs them the ranks' losses add up to the global batch's loss, their
+    gradients stacked in rank order to its gradient."""
+    _hold_to_one_process(name, ranks, one_process)
+
+
+@pytest.mark.parametrize("name", [n for n in ORDER_CASES
+                                  if n not in ORDER_STATISTIC])
+def test_order_statistic_edge_cases_over_ranks(name, ranks, one_process):
+    """The cases that only the global statistics get right, held to one
+    process on the global batch as above: a rank short of min_kept valid
+    pixels while the batch is not (that rank must not keep all its valid
+    pixels), the global batch short of min_kept (every valid pixel kept),
+    and the largest residual tied across the ranks (each tied element of
+    either rank gets an equal share of the global gradient)."""
+    logits, labels = _data()[:2]
+    valid = (labels != 255).reshape(WORLD, -1).sum(1)
+    if name == "ohem_one_rank_short":
+        assert valid.min() < 500 <= valid.sum()
+    elif name == "ohem_global_short":
+        assert valid.sum() < 1200
+    else:
+        lg, lb = _tied(logits, labels)
+        x = torch.from_numpy(lg)
+        probs = torch.softmax(x, -1) * torch.from_numpy(
+            lb != 255)[..., None]
+        oh = torch.nn.functional.one_hot(
+            torch.from_numpy(np.where(lb != 255, lb, 0)), C)
+        res = (probs - oh * torch.from_numpy(lb != 255)[..., None]).abs()
+        ties = (res == res.max()).reshape(WORLD, -1).sum(1)
+        assert ties.tolist() == [1, 1]
+    _hold_to_one_process(name, ranks, one_process)
 
 
 def test_mask2former_first_step_over_ranks(ranks, one_process):

@@ -33,15 +33,18 @@ SHAPES = [(1, 2, 200, 1300, 32), (2, 2, 333, 333, 32), (1, 1, 130, 1025, 64)]
 # The kernels' cases on the card: ragged tiles, M = 1025, d = 32 / 40 / 128,
 # h > 1, B = 1, a single tile, one long shape, N, M one row either side of
 # the forward's blocks of 192 (d = 128: 128) q rows and kv tiles of 128
-# (d = 128: 64) rows, and kv walks of 33 tiles or more, which the forward
-# splits across a cluster of blocks (d = 128 too).
+# (d = 128: 64) rows, kv walks of 33 tiles or more, which the forward
+# splits across a cluster of blocks (d = 128 too), and SegNeXt's narrow
+# heads (d = 8, 16, 40: the columns past d of the 64-wide panel zeros).
 CUDA_SHAPES = [(1, 2, 200, 130, 32), (2, 1, 77, 1025, 64),
                (1, 3, 1030, 65, 40), (2, 2, 64, 64, 128),
                (1, 1, 130, 300, 64), (2, 5, 1200, 1200, 64),
                (1, 2, 191, 127, 64), (1, 1, 193, 129, 32),
                (2, 3, 385, 257, 64), (1, 1, 257, 385, 128),
                (1, 1, 200, 4100, 64), (2, 2, 130, 4097, 32),
-               (1, 1, 130, 2100, 128), (2, 2, 130, 4097, 128)]
+               (1, 1, 130, 2100, 128), (2, 2, 130, 4097, 128),
+               (2, 8, 1200, 1200, 8), (1, 8, 1100, 1030, 16),
+               (1, 8, 1030, 1100, 40)]
 # bf16, the plain version against the upstream Pallas forward: ragged N and
 # M > 1024 (the JAX wrapper walks kv in 128-row blocks here), d = 32 and 64.
 BF16_SHAPES = [(1, 2, 1030, 1300, 32), (1, 1, 1100, 1025, 64)]
@@ -210,14 +213,18 @@ def test_plain_version_rounds_p_before_pv():
 
 
 def test_supported_is_the_jax_gate():
-    """`supported` is the JAX `flash_supported` without its TPU test, plus
-    the kernels' d <= 128."""
+    """`supported` is the JAX `flash_supported`'s N >= 1024 without its TPU
+    test and without the upstream TPU kernel's d >= 32, d % 8 == 0 (the
+    CUDA kernels take any multiple of 8, and the dispatch pads the other
+    head dims to one), plus the kernels' d <= 128."""
     assert FA.supported((8, 1, 19200, 64), (8, 1, 19200, 64))
     assert FA.supported((8, 5, 1200, 64), (8, 5, 1200, 64))
     assert FA.supported((1, 1, 1024, 32), (1, 1, 5, 32))
     assert not FA.supported((8, 8, 300, 64), (8, 8, 300, 64))   # N < 1024
-    assert not FA.supported((1, 1, 2048, 16), (1, 1, 2048, 16))  # d < 32
-    assert not FA.supported((1, 1, 2048, 36), (1, 1, 2048, 36))  # d % 8
+    # segnext_b's stage 1-3 heads and segnext_tiny's / segnext_large's
+    # padded ones.
+    for d in (8, 16, 40, 4, 12, 20, 36):
+        assert FA.supported((1, 8, 2048, d), (1, 8, 2048, d))
     assert not FA.supported((1, 1, 2048, 256), (1, 1, 2048, 256))
 
 
@@ -243,7 +250,11 @@ class _Spy:
     ((1, 8, 300, 300, 64), True, "sr"),         # mit_b2pp stage 4: K1/K2
     ((1, 1, 1200, 300, 64), True, "sr"),        # SR is tried first
     ((1, 1, 200, 1100, 16), True, "sdpa"),      # passes neither gate
+    ((1, 8, 1200, 1200, 8), True, "flash"),     # SegNeXt's narrow heads
+    ((1, 2, 1100, 1030, 4), True, "flash"),     # padded to d = 8
+    ((1, 2, 1030, 1030, 20), True, "flash"),    # padded to d = 24
     ((1, 1, 1200, 1200, 32), False, "plain"),   # kernels off, long kv
+    ((1, 2, 1100, 1030, 4), False, "plain"),
     ((1, 8, 300, 300, 64), False, "sdpa"),
 ])
 def test_dispatch(monkeypatch, shape, kernels, want):
@@ -260,6 +271,38 @@ def test_dispatch(monkeypatch, shape, kernels, want):
     assert got.shape == (B, N, h * d)
     if want != "sdpa":
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", [4, 12, 20])
+def test_padded_head_dim_is_exact(monkeypatch, d):
+    """A head dim that is not a multiple of 8 reaches the kernel wrapper
+    zero-padded to one, with the scale of the true d: the output and the
+    gradients of q, k and v equal the unpadded `_sdpa` composition's (fp32,
+    1e-5 of each tensor's largest), and the wrapper saw the padded d."""
+    B, h, N, M = 1, 2, 1030, 1100
+    arrays = _inputs(B, h, N, M, d, seed=7)
+    seen = []
+    real = FA.flash_attention
+
+    def spy(q, k, v, scale):
+        seen.append((q.shape[3], scale))
+        return real(q, k, v, scale)
+
+    monkeypatch.setattr(FA, "flash_attention", spy)
+    results = []
+    for kernels in (True, False):
+        q, k, v, g = (torch.from_numpy(a).requires_grad_(i < 3)
+                      for i, a in enumerate(arrays))
+        out = (A.multi_head_attention(q, k, v, d ** -0.5, use_kernels=True)
+               if kernels else A._sdpa(q, k, v, d ** -0.5).transpose(1, 2)
+               .reshape(B, N, h * d))
+        out.backward(g.transpose(1, 2).reshape(B, N, h * d))
+        results.append([out.detach()] + [t.grad for t in (q, k, v)])
+    assert seen == [(d + (-d % 8), d ** -0.5)]
+    for got, want in zip(*results):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
 
 
 def test_kernel_route_never_falls_to_sdpa(monkeypatch):

@@ -102,15 +102,15 @@ def test_flagship_parameter_count_matches_jax():
 
 
 def test_unported_names_raise():
-    """Names of the JAX registry the port does not build yet raise
-    NotImplementedError naming their ROADMAP item; the ASPP variants and
-    the UPernet head now build (tests/test_torch_heads.py), and so do the
-    MLPDecoderpp and mask2former heads on the flagship's mit_b2, with the
-    JAX model's parameter count (by eval_shape)."""
-    for backbone in ("segnext_tiny", "resnet50"):
-        cfg = mfnet_config().replace(model=ModelConfig(backbone=backbone))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu", seed=None)
+    """Every name of the JAX registry builds now (the SegNeXt and ResNet
+    backbones: tests/test_torch_segnext.py, tests/test_torch_resnet.py);
+    the ASPP variants and the UPernet head build (tests/test_torch_heads.py),
+    and so do the MLPDecoderpp and mask2former heads on the flagship's
+    mit_b2, with the JAX model's parameter count (by eval_shape); a name
+    outside the registry raises KeyError."""
+    cfg = mfnet_config().replace(model=ModelConfig(backbone="segnext_xl"))
+    with pytest.raises(KeyError, match="unknown backbone"):
+        build_model(cfg, device="cpu", seed=None)
     x = np.zeros((1, 64, 64, 3), np.float32)
     for decoder in ("MLPDecoderpp", "mask2former"):
         cfg = mfnet_config().replace(model=ModelConfig(decoder=decoder))
