@@ -11,8 +11,10 @@ at the shapes the models give it: the SR-attention forward and backward
 (dqkv, db; with and without the in-kernel dropout, whose mask must be the
 plain version's bit for bit) of the Swin towers, and the long-kv flash
 attention (forward, dk/dv and dq kernels) of the IFFM cross-attention of
-the mit_*pp family and of segnext_b (its narrow heads, d = 8, 16, 40, and
-the padded route of segnext_tiny's d = 4), on the models' layouts,
+the mit_*pp family and of SegNeXt (its narrow heads: segnext_b's d = 8, 16,
+40, segnext_large's 12, 24, 48, and the padded route of d = 4, 12 and 20;
+K1/K2 at segnext_tiny's and segnext_large's stage 4, d = 32 and 96), on the
+models' layouts,
 with their times beside the plain version's, a library call's
 (F.scaled_dot_product_attention, a yardstick only: the port never calls it)
 and the card's bound for the same work. Then it drives the port's paths
@@ -86,6 +88,11 @@ and nyu presets:
     attention kernel): evaluate(), 3 counted steps with no launch, the
     main and aux losses, the device time, and the card's fp32 forward
     (TF32 off, batch 1) held to the CPU's on the same weights;
+  * segnext_tiny and segnext_large: evaluate() and 2 counted steps each,
+    K1/K2 2 and K5 6 launches a forward / backward;
+  * the tools: tools/check_gpu as a program (rc 0, its exact matmul line),
+    ops/resize.resize_nearest on the card equal to the CPU on (8, 480,
+    640) uint8 labels, tools/bench_input's host ms (read, not held);
   * every criterion name of build_criterion and the Mask2Former loss on
     (8, 480, 640, 9) logits (masks (8, 100, 480, 640)) against the same
     function on the CPU: loss and gradient, OHEM and the Mask2Former loss
@@ -471,27 +478,33 @@ def kernel_phase(S):
         if shape in FLAGSHIP:
             flagship_err = max(flagship_err, err)
 
-    rows = []
-    for (B, h, N, M, d) in FLAGSHIP:
-        q, k, v = sr_inputs(g, (B, h, N, M, d), torch.bfloat16)
-        sc = d ** -0.5
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        # plain, kernel, kernel, plain: compare within one window. Device
-        # time per call: windows of 10 calls back to back.
-        with torch.no_grad():
-            p1 = median_ms(S.sr_attention_reference, q, k, v, sc, reps=10)
-            k1 = median_ms(S.sr_attention, q, k, v, sc, reps=10)
-            k2 = median_ms(S.sr_attention, q, k, v, sc, reps=10)
-            p2 = median_ms(S.sr_attention_reference, q, k, v, sc, reps=10)
-            lib = median_ms(lambda: sdpa(q, k, v, scale=sc), reps=10)
-        ops = 4 * B * h * N * M * d
-        bound, by = bound_ms(ops, 2 * (2 * B * h * N * d + 2 * B * h * M * d))
-        rows.append(timing_row([B, h, N, M, d], (k1 + k2) / 2, (p1 + p2) / 2,
-                               lib, bound, by, ops))
-        print(f"time bf16 fwd (B,h,N,M,d)={(B, h, N, M, d)}: kernel "
-              f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA "
-              f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    rows = [time_sr_fwd(S, g, shape) for shape in FLAGSHIP]
     return flagship_err, rows
+
+
+def time_sr_fwd(S, g, shape):
+    """K1's timing row at one bf16 shape: kernel, plain, SDPA, bound."""
+    import torch
+
+    B, h, N, M, d = shape
+    q, k, v = sr_inputs(g, shape, torch.bfloat16)
+    sc = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # plain, kernel, kernel, plain: compare within one window. Device
+    # time per call: windows of 10 calls back to back.
+    with torch.no_grad():
+        p1 = median_ms(S.sr_attention_reference, q, k, v, sc, reps=10)
+        k1 = median_ms(S.sr_attention, q, k, v, sc, reps=10)
+        k2 = median_ms(S.sr_attention, q, k, v, sc, reps=10)
+        p2 = median_ms(S.sr_attention_reference, q, k, v, sc, reps=10)
+        lib = median_ms(lambda: sdpa(q, k, v, scale=sc), reps=10)
+    ops = 4 * B * h * N * M * d
+    bound, by = bound_ms(ops, 2 * (2 * B * h * N * d + 2 * B * h * M * d))
+    print(f"time bf16 fwd (B,h,N,M,d)={shape}: kernel "
+          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA "
+          f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    return timing_row(list(shape), (k1 + k2) / 2, (p1 + p2) / 2, lib, bound,
+                      by, ops)
 
 
 def timing_row(shape, ms, plain_ms, library_ms, bound, by, ops):
@@ -577,39 +590,93 @@ def bwd_kernel_phase(S):
         if shape in FLAGSHIP:
             flagship_err = max(flagship_err, err)
 
-    rows = []
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for (B, h, N, M, d) in FLAGSHIP:
-        q, k, v, w = sr_inputs(gen, (B, h, N, M, d), torch.bfloat16,
-                               cotangent=True)
-        sc = d ** -0.5
-        lse = S._forward(q, k, v, sc, with_lse=True)[1]
-
-        def kernel():
-            S.sr_attention_bwd(q, k, v, w, sc, lse=lse)
-
-        p1 = median_ms(S.sr_attention_bwd_reference, q, k, v, w, sc, reps=5)
-        k1 = median_ms(kernel, reps=5)
-        k2 = median_ms(kernel, reps=5)
-        p2 = median_ms(S.sr_attention_bwd_reference, q, k, v, w, sc, reps=5)
-        # The library's backward: forward + backward through autograd, minus
-        # the forward alone.
-        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
-
-        def fwd_bwd():
-            torch.autograd.grad(sdpa(lq, lk, lv, scale=sc), (lq, lk, lv), w)
-
-        with torch.no_grad():
-            lib_fwd = median_ms(lambda: sdpa(q, k, v, scale=sc), reps=5)
-        lib = median_ms(fwd_bwd, reps=5) - lib_fwd
-        ops = 10 * B * h * N * M * d
-        bound, by = bound_ms(ops, 2 * (3 * B * h * N * d + 4 * B * h * M * d))
-        rows.append(timing_row([B, h, N, M, d], (k1 + k2) / 2, (p1 + p2) / 2,
-                               lib, bound, by, ops))
-        print(f"time bf16 bwd (B,h,N,M,d)={(B, h, N, M, d)}: kernel "
-              f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA "
-              f"backward {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    rows = [time_sr_bwd(S, gen, shape) for shape in FLAGSHIP]
     return flagship_err, rows
+
+
+def time_sr_bwd(S, gen, shape):
+    """K2's timing row at one bf16 shape: kernel, plain, SDPA's backward,
+    bound."""
+    import torch
+
+    B, h, N, M, d = shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, w = sr_inputs(gen, shape, torch.bfloat16, cotangent=True)
+    sc = d ** -0.5
+    lse = S._forward(q, k, v, sc, with_lse=True)[1]
+
+    def kernel():
+        S.sr_attention_bwd(q, k, v, w, sc, lse=lse)
+
+    p1 = median_ms(S.sr_attention_bwd_reference, q, k, v, w, sc, reps=5)
+    k1 = median_ms(kernel, reps=5)
+    k2 = median_ms(kernel, reps=5)
+    p2 = median_ms(S.sr_attention_bwd_reference, q, k, v, w, sc, reps=5)
+    # The library's backward: forward + backward through autograd, minus
+    # the forward alone.
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        torch.autograd.grad(sdpa(lq, lk, lv, scale=sc), (lq, lk, lv), w)
+
+    with torch.no_grad():
+        lib_fwd = median_ms(lambda: sdpa(q, k, v, scale=sc), reps=5)
+    lib = median_ms(fwd_bwd, reps=5) - lib_fwd
+    ops = 10 * B * h * N * M * d
+    bound, by = bound_ms(ops, 2 * (3 * B * h * N * d + 4 * B * h * M * d))
+    print(f"time bf16 bwd (B,h,N,M,d)={shape}: kernel "
+          f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, SDPA "
+          f"backward {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    return timing_row(list(shape), (k1 + k2) / 2, (p1 + p2) / 2, lib, bound,
+                      by, ops)
+
+
+# K1/K2 at the stage-4 IFFM attentions of segnext_tiny (d = 32) and
+# segnext_large (d = 96) at 480x640, batch 8: 8 heads over 15 x 20 tokens
+# (fp32 at batch 1). d = 96 fills two of the tensor-core kernels' 64-wide
+# panels of the head dim, the second half zeros.
+SEGNEXT_SR_SHAPES = [(8, 8, 300, 300, 32), (8, 8, 300, 300, 96)]
+
+
+def segnext_sr_kernel_phase(S):
+    """K1 and K2 at SEGNEXT_SR_SHAPES in bf16 (the tensor-core route, the
+    route checked) and at batch 1 in fp32 (the scalar route) against their
+    plain versions (hold_sr_fwd, hold_sr_bwd: their bounds, the backward's
+    two runs bit-equal, and the forward's); then the bf16 times (kernel,
+    plain, SDPA, bound). Returns ({fwd, bwd: worst bf16 error}, {fwd, bwd:
+    rows})."""
+    import torch
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for shape in SEGNEXT_SR_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            sh = shape if bf16 else (1, *shape[1:])
+            q, k, v, w = sr_inputs(g, sh, dtype, cotangent=True)
+            route = S.route(q, k, v)
+            passes = S._kernel().sr_attention_fwd_tc_passes(sh[3], sh[4])
+            print(f"segnext K1/K2 {str(dtype)[6:]} {sh}: route {route}"
+                  + (f", {passes}-pass forward" if bf16 else ""))
+            check(route == ("tensor_cores" if bf16 else "scalar"),
+                  f"K1/K2 route at {sh} {dtype}: {route}")
+            err = hold_sr_fwd(S, q, k, v, sh, dtype)
+            sc = sh[4] ** -0.5
+            same = torch.equal(S.sr_attention(q, k, v, sc),
+                               S.sr_attention(q, k, v, sc))
+            print(f"  forward: two runs bit-equal: {same}")
+            check(same, f"K1 differs between two runs at {sh} {dtype}")
+            berr = hold_sr_bwd(S, q, k, v, w, sh, dtype)
+            if bf16:
+                worst = {"fwd": max(worst["fwd"], err),
+                         "bwd": max(worst["bwd"], berr)}
+            del q, k, v, w
+    rows = {"fwd": [time_sr_fwd(S, g, sh) for sh in SEGNEXT_SR_SHAPES],
+            "bwd": [time_sr_bwd(S, g, sh) for sh in SEGNEXT_SR_SHAPES]}
+    torch.cuda.empty_cache()
+    print(f"segnext K1/K2 phase: {time.perf_counter() - t0:.1f} s")
+    return worst, rows
 
 
 def window_cases(T):
@@ -3754,10 +3821,13 @@ def ddp_main(n: int, card: str) -> int:
 # ------------------------------------------------ segnext_b and resnet50 --
 
 # K5 at segnext_b's IFFM shapes (T5.SEGNEXT_SHAPES: d = 8, 16, 40, the
-# columns past d of the kernels' 64-wide panels zeros) and the padded
-# route at segnext_tiny's first stage: d = 4 zero-padded to 8 by
-# ops/attention.multi_head_attention. Held by the kernel phase's bounds.
+# columns past d of the kernels' 64-wide panels zeros), at segnext_large's
+# (T5.SEGNEXT_LARGE_SHAPES: d = 12, 24, 48) and on the padded route at
+# segnext_tiny's first and third stages and segnext_large's first: d = 4,
+# 20 and 12 zero-padded to 8, 24 and 16 by ops/attention.
+# multi_head_attention. Held by the kernel phase's bounds.
 SEGNEXT_PADDED = (8, 8, 19200, 19200, 4)
+SEGNEXT_NEW_PADDED = [(8, 8, 19200, 19200, 12), (8, 8, 1200, 1200, 20)]
 # segnext_b: K5 serves the IFFM of stages 1-3 (two calls each), K1/K2 the
 # two short-kv calls of stage 4 (15 x 20 tokens, d = 64). slice_phase and
 # train_phase drive it as mit_b2pp (IFRM/IFFM at every stage): its bf16
@@ -3782,39 +3852,23 @@ SEGNEXT_GRAD_NAMES = [
 RESNET_STEPS, RESNET_CPU_RTOL, RESNET_CPU_AGREE = 3, 1e-4, 0.999
 
 
-def narrow_flash_kernel_phase(FA, T5):
-    """K5's three kernels at segnext_b's shapes in bf16 and (batch 1) fp32
-    and on the padded route at SEGNEXT_PADDED, against their plain versions
-    (hold_flash_case), two runs bit-equal; the padded route through
-    multi_head_attention under autograd bit-equal to the kernels on the
-    padded operands, whose plain version lies within FLASH_REL_L2 of the
-    plain version at d = 4; then the times at segnext_b's shapes (kernel,
-    plain, SDPA, bound, the exponentials' floor). Returns ({kernel: worst
-    error at the bf16 shapes}, {kernel: rows})."""
+def hold_padded_route(FA, T5, shape, dtype, gen):
+    """K5 on the padded route at `shape` (d not a multiple of 8):
+    hold_flash_case on the zero-padded operands; multi_head_attention under
+    autograd bit-equal to the kernels on those operands (output and dq, dk,
+    dv); the kernels' output at d within FLASH_REL_L2 of the plain version
+    at d. Returns hold_flash_case's errors."""
     import torch
     import torch.nn.functional as F
 
     from rgbx_semantic_segmentation_tpu_torch.ops import attention as A
 
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
-    cases = [(s, torch.bfloat16) for s in T5.SEGNEXT_SHAPES] + \
-            [((1, *s[1:]), torch.float32) for s in T5.SEGNEXT_SHAPES]
-    for shape, dtype in cases:
-        q, k, v, w = T5.inputs(shape, dtype, gen)
-        errs = hold_flash_case(FA, f"segnext (B,h,N,M,d)={shape}", q, k, v, w,
-                               shape[4] ** -0.5)
-        if dtype == torch.bfloat16:
-            worst = {key: max(worst[key], e) for key, e in errs.items()}
-        del q, k, v, w
-    B, h, N, M, d = SEGNEXT_PADDED
+    B, h, N, M, d = shape
     sc = d ** -0.5
-    q, k, v, w = T5.inputs(SEGNEXT_PADDED, torch.bfloat16, gen)
+    q, k, v, w = T5.inputs(shape, dtype, gen)
     padded = [F.pad(t, (0, -d % 8)) for t in (q, k, v, w)]
-    errs = hold_flash_case(FA, f"padded route (B,h,N,M,d)={SEGNEXT_PADDED} "
-                           f"-> d = {padded[0].shape[3]}", *padded, sc)
-    worst = {key: max(worst[key], e) for key, e in errs.items()}
+    errs = hold_flash_case(FA, f"padded route (B,h,N,M,d)={shape} -> d = "
+                           f"{padded[0].shape[3]}", *padded, sc)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = A.multi_head_attention(*leaves, sc, use_kernels=True)
     out.backward(w.transpose(1, 2).reshape(B, N, h * d))
@@ -3824,24 +3878,64 @@ def narrow_flash_kernel_phase(FA, T5):
         same = torch.equal(out, kout[..., :d].transpose(1, 2).reshape(
             B, N, h * d)) and all(torch.equal(t.grad, g[..., :d])
                                   for t, g in zip(leaves, grads))
-        plain4 = FA.flash_attention_reference(q, k, v, sc)[0].float()
-        rel = float((kout[..., :d].float() - plain4).norm() / plain4.norm())
-    print(f"padded route through multi_head_attention: output and dq, dk, "
-          f"dv bit-equal to the kernels on the padded operands: {same}; "
-          f"kernel vs plain at d = {d}: rel L2 {rel:.2e} (<= "
-          f"{FLASH_REL_L2:.0e})")
-    check(same and rel <= FLASH_REL_L2, "the padded flash route")
-    del q, k, v, w, padded, leaves, out, kout, lse, grads, plain4
+        plain = FA.flash_attention_reference(q, k, v, sc)[0].float()
+        rel = float((kout[..., :d].float() - plain).norm() / plain.norm())
+    print(f"padded route through multi_head_attention, {str(dtype)[6:]} "
+          f"{shape}: output and dq, dk, dv bit-equal to the kernels on the "
+          f"padded operands: {same}; kernel vs plain at d = {d}: rel L2 "
+          f"{rel:.2e} (<= {FLASH_REL_L2:.0e})")
+    check(same and rel <= FLASH_REL_L2, f"the padded flash route at {shape}")
     torch.cuda.empty_cache()
-    rows = {"fwd": [], "dkv": [], "dq": []}
-    for shape in T5.SEGNEXT_SHAPES:
-        timed = T5.time_shape(shape, gen)
-        T5.print_rows(shape, timed)
-        for which, row in timed.items():
-            rows[which].append(row)
+    return errs
+
+
+def narrow_flash_kernel_phase(FA, T5):
+    """K5's three kernels at segnext_b's and segnext_large's shapes in bf16
+    and (batch 1) fp32, and on the padded route at SEGNEXT_PADDED (bf16) and
+    SEGNEXT_NEW_PADDED (bf16 and fp32 at batch 1), against their plain
+    versions (hold_flash_case), two runs bit-equal; the padded route
+    through multi_head_attention under autograd bit-equal to the kernels on
+    the padded operands, whose plain version lies within FLASH_REL_L2 of the
+    plain version at the true d; then the times at segnext_b's and
+    segnext_large's shapes (kernel, plain, SDPA, bound, the exponentials'
+    floor). Returns ({kernel: worst error at the bf16 shapes}, {kernel:
+    segnext_b rows}, {kernel: segnext_large rows})."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    direct = T5.SEGNEXT_SHAPES + [s for s in T5.SEGNEXT_LARGE_SHAPES
+                                  if s[4] % 8 == 0]
+    cases = [(s, torch.bfloat16) for s in direct] + \
+            [((1, *s[1:]), torch.float32) for s in direct]
+    for shape, dtype in cases:
+        q, k, v, w = T5.inputs(shape, dtype, gen)
+        errs = hold_flash_case(FA, f"segnext (B,h,N,M,d)={shape}", q, k, v, w,
+                               shape[4] ** -0.5)
+        if dtype == torch.bfloat16:
+            worst = {key: max(worst[key], e) for key, e in errs.items()}
+        del q, k, v, w
+    padded = [(SEGNEXT_PADDED, torch.bfloat16)] + \
+        [(s, torch.bfloat16) for s in SEGNEXT_NEW_PADDED] + \
+        [((1, *s[1:]), torch.float32) for s in SEGNEXT_NEW_PADDED]
+    for shape, dtype in padded:
+        errs = hold_padded_route(FA, T5, shape, dtype, gen)
+        if dtype == torch.bfloat16:
+            worst = {key: max(worst[key], e) for key, e in errs.items()}
     torch.cuda.empty_cache()
+    rows = {}
+    for model, shapes in (("segnext_b", T5.SEGNEXT_SHAPES),
+                          ("segnext_large", T5.SEGNEXT_LARGE_SHAPES)):
+        rows[model] = {"fwd": [], "dkv": [], "dq": []}
+        for shape in shapes:
+            timed = T5.time_shape(shape, gen)
+            T5.print_rows(shape, timed)
+            for which, row in timed.items():
+                rows[model][which].append(row)
+        torch.cuda.empty_cache()
     print(f"narrow K5 phase: {time.perf_counter() - t0:.1f} s")
-    return worst, rows
+    return worst, rows["segnext_b"], rows["segnext_large"]
 
 
 def family_cfg(cfg_lib, backbone, decoder=None):
@@ -3851,6 +3945,134 @@ def family_cfg(cfg_lib, backbone, decoder=None):
         model=dataclasses.replace(cfg.model, backbone=backbone,
                                   decoder=decoder or cfg.model.decoder),
         train=dataclasses.replace(cfg.train, warm_up_epoch=0))
+
+
+# The widths segnext_tiny (dims 32/64/160/256) and segnext_large (96/192/
+# 384/768) put on the kernels through the model, 8 IFFM heads at every
+# stage: K5 serves stages 1-3 (two calls each; d = 4, 8, 20 and 12, 24, 48,
+# d = 4, 20, 12 on the padded route), K1/K2 stage 4 (two calls; d = 32 and
+# 96).
+SEGNEXT_WIDTH_MODELS = ("segnext_tiny", "segnext_large")
+SEGNEXT_WIDTH_STEPS = 2
+
+
+def segnext_widths_phase(S, FA, cfg_lib, builder, evaluator_lib, train_lib,
+                         items):
+    """segnext_tiny and segnext_large + MLPDecoder at the preset's 480x640,
+    batch 8, bf16, through the entry points: evaluate() on the 16 images
+    and SEGNEXT_WIDTH_STEPS Trainer.fit_epoch steps, each counting the
+    launches of K1/K2 (2 a forward / a step) and of K5's three kernels (6);
+    mIoU and losses finite. Returns {model: {counter: launches}} over both
+    runs of each model."""
+    import torch
+
+    t0 = time.perf_counter()
+    counters = {"sr_fwd": S.sr_attention, "sr_bwd": S.sr_attention_bwd,
+                "flash_fwd": FA.flash_attention,
+                "flash_dkv": FA.flash_attention_dkv,
+                "flash_dq": FA.flash_attention_dq}
+    out = {}
+    for name in SEGNEXT_WIDTH_MODELS:
+        cfg = family_cfg(cfg_lib, name)
+        model = builder.build_model(cfg, seed=0)
+        ev = evaluator_lib.SegEvaluator(cfg, model)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scores, line = ev.evaluate(items, eval_batch=EVAL_BATCH)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        ev_n = {k: fn.launches for k, fn in counters.items()}
+        forwards = N_IMAGES // EVAL_BATCH
+        want = {"sr_fwd": 2 * forwards, "sr_bwd": 0,
+                "flash_fwd": 6 * forwards, "flash_dkv": 0, "flash_dq": 0}
+        print(f"{name} eval: {N_IMAGES} images in {dt:.2f} s (first call: "
+              f"warm-up included), launches {ev_n} (expected {want}); "
+              f"{line.splitlines()[-1]}")
+        check(ev_n == want and np.isfinite(scores.pixel_acc),
+              f"{name} eval launches {ev_n}")
+        del model, ev
+        torch.cuda.empty_cache()
+
+        trainer = train_lib.Trainer(cfg, seed=0)
+        log = LossLog()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.fit_epoch(cycle(uint8_batches(items, cfg.train.batch_size)),
+                          SEGNEXT_WIDTH_STEPS, log_every=1, logger=log)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        tr_n = {k: fn.launches for k, fn in counters.items()}
+        steps = SEGNEXT_WIDTH_STEPS
+        want = {"sr_fwd": 2 * steps, "sr_bwd": 2 * steps,
+                "flash_fwd": 6 * steps, "flash_dkv": 6 * steps,
+                "flash_dq": 6 * steps}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"{name} train: {steps} steps of batch "
+              f"{cfg.train.batch_size} in {dt:.2f} s (first steps: warm-up "
+              f"included), peak {peak:.2f} GiB, launches {tr_n} (expected "
+              f"{want})")
+        check(tr_n == want and all(np.isfinite(x) for x in log.losses),
+              f"{name} train launches {tr_n}, losses {log.losses}")
+        out[name] = {k: ev_n[k] + tr_n[k] for k in counters}
+        del trainer
+        torch.cuda.empty_cache()
+    print(f"segnext_tiny / segnext_large phase: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tools_phase():
+    """The port's tools on the card: tools/check_gpu as a program (rc 0,
+    its exact matmul line); ops/resize.resize_nearest on CUDA equal to the
+    CPU on (8, 480, 640) uint8 labels, down to 240x320 and up to 960x1280;
+    tools/bench_input at a small n (host time, read, not held). Returns its
+    readings."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.ops.resize import (
+        resize_nearest)
+    from rgbx_semantic_segmentation_tpu_torch.tools import (
+        bench_input, check_gpu)
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "rgbx_semantic_segmentation_tpu_torch.tools.check_gpu"],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    print("check_gpu (rc %d):" % proc.returncode)
+    for ln in proc.stdout.splitlines():
+        print("  " + ln)
+    n = check_gpu.N
+    matmul = re.search(rf"^matmul OK \(([0-9.]+) ms\), sum={n ** 3} == "
+                       rf"{n}\^3$", proc.stdout, re.M)
+    check(proc.returncode == 0 and matmul is not None,
+          f"check_gpu: rc {proc.returncode}, {proc.stderr[-2000:]}")
+
+    gen = torch.Generator().manual_seed(9)
+    labels = torch.randint(0, 256, (8, *HW), generator=gen,
+                           dtype=torch.uint8)
+    equal = {}
+    for size in ((240, 320), (960, 1280)):
+        cpu = resize_nearest(labels, size)
+        card = resize_nearest(labels.cuda(), size)
+        equal[f"{size[0]}x{size[1]}"] = bool(
+            card.dtype == cpu.dtype and torch.equal(card.cpu(), cpu))
+    print(f"resize_nearest (8, 480, 640) uint8 on the card equal to the CPU: "
+          f"{equal}")
+    check(all(equal.values()), f"resize_nearest card vs CPU: {equal}")
+
+    bench = bench_input.run(n=10)
+    print("bench_input (n = 10, 480x640, host time): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in bench.items()))
+    print(f"tools phase: {time.perf_counter() - t0:.1f} s")
+    return {"check_gpu_matmul_ms": float(matmul.group(1)),
+            "resize_nearest_equal": equal, "bench_input": bench}
 
 
 def resnet_phase(S, FA, cfg_lib, builder, evaluator_lib, train_lib, items):
@@ -4144,10 +4366,12 @@ def main() -> int:
               f"{bound:.3f} ms")
     swin_b_kernels = swin_b_kernel_phase(W, T)
     flash_err, flash_rows = flash_kernel_phase(FA, T5)
-    narrow_err, narrow_rows = narrow_flash_kernel_phase(FA, T5)
+    narrow_err, narrow_rows, large_rows = narrow_flash_kernel_phase(FA, T5)
+    sr_narrow_err, sr_narrow_rows = segnext_sr_kernel_phase(S)
     for which, tag in (("fwd", "forward"), ("dkv", "dk/dv"), ("dq", "dq")):
         for model, rows in (("mit_b2pp", flash_rows[which]),
-                            ("segnext_b", narrow_rows[which])):
+                            ("segnext_b", narrow_rows[which]),
+                            ("segnext_large", large_rows[which])):
             print(f"flash attention {tag}, the 6 calls of a {model} step: "
                   f"kernel {per_step(rows, 'ms', T5.CALLS):.3f} ms, plain "
                   f"{per_step(rows, 'plain_ms', T5.CALLS):.3f} ms, SDPA "
@@ -4155,6 +4379,13 @@ def main() -> int:
                   f"{per_step(rows, 'bound_ms', T5.CALLS):.3f} ms, "
                   f"exponentials' floor "
                   f"{per_step(rows, 'exp_floor_ms', T5.CALLS):.3f} ms")
+    for which, rows in sr_narrow_rows.items():
+        for r in rows:
+            print(f"SR attention {which} {r['shape']}: kernel {r['ms']:.4f} "
+                  f"ms, plain {r['plain_ms']:.4f} ms, SDPA "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+                  f"{100 * r['share_of_bound']:.1f}% of the bound")
+    tools = tools_phase()
     cfg = cfg_lib.mfnet_config()
     check(cfg.model.backbone == "mit_b2", "mfnet preset is mit_b2")
     items = synthetic_items(N_IMAGES, HW, cfg.dataset.num_classes)
@@ -4221,6 +4452,8 @@ def main() -> int:
                                 grad_names=SEGNEXT_GRAD_NAMES,
                                 fp32_batch=SEGNEXT_FP32_BATCH, vs_truth=True)
     print(f"segnext_b phases: {time.perf_counter() - t0:.1f} s")
+    widths = segnext_widths_phase(S, FA, cfg_lib, builder, evaluator_lib,
+                                  train_lib, items)
     resnet = resnet_phase(S, FA, cfg_lib, builder, evaluator_lib, train_lib,
                           items)
     criteria = criteria_phase(cfg_lib, train_tf32)
@@ -4282,16 +4515,20 @@ def main() -> int:
          + m2f_cli["launches"]["fwd"] + mlppp_eval["launches"]
          + mlppp_train["fwd_launches"] + ddp["launches"]["fwd"]
          + remat_launches(remat, 0) + lbfgs["k1"]
-         + segnext_eval["launches"] + segnext_train["fwd_launches"], fwd_err,
-         fwd_rows, CALLS_PER_FORWARD, None),
+         + segnext_eval["launches"] + segnext_train["fwd_launches"]
+         + sum(n["sr_fwd"] for n in widths.values()),
+         max(fwd_err, sr_narrow_err["fwd"]), fwd_rows, CALLS_PER_FORWARD,
+         None),
         ("sr_attention_bwd", "sr_attention.py:123",
          train["bwd_launches"] + pp_train["bwd_launches"]
          + cli["launches"]["bwd"] + pst_train["bwd_launches"]
          + pst_cli["launches"]["bwd"] + m2f_train["bwd_launches"]
          + m2f_cli["launches"]["bwd"] + mlppp_train["bwd_launches"]
          + ddp["launches"]["bwd"] + remat_launches(remat, 1) + lbfgs["k2"]
-         + segnext_train["bwd_launches"],
-         bwd_err, bwd_rows, CALLS_PER_FORWARD, None),
+         + segnext_train["bwd_launches"]
+         + sum(n["sr_bwd"] for n in widths.values()),
+         max(bwd_err, sr_narrow_err["bwd"]), bwd_rows, CALLS_PER_FORWARD,
+         None),
         ("window_attention_fwd", "window_attention.py:179",
          swin_eval["launches"] + swin_train["fwd_launches"]
          + swin_b["eval_launches"] + swin_b["fwd_launches"]
@@ -4313,17 +4550,23 @@ def main() -> int:
          flash_err["dkv"], flash_rows["dkv"], T5.CALLS, "flash_attention_bwd"),
         ("flash_attention_bwd_dq", "attention.py:50", flash_train[2],
          flash_err["dq"], flash_rows["dq"], T5.CALLS, "flash_attention_bwd"),
-        # K5 at segnext_b's narrow heads (d = 8, 16, 40 in the 64-wide
-        # panel): the same kernels, the segnext_b phase's launches.
+        # K5 at SegNeXt's narrow heads (d = 8, 16, 40 of segnext_b in the
+        # 64-wide panel; the padded route): the same kernels, the launches
+        # of the segnext_b phases and of segnext_tiny / segnext_large; the
+        # times segnext_b's (segnext_large's under "segnext_large_flash"),
+        # the errors over all of SegNeXt's shapes.
         ("flash_attention_fwd_narrow", "attention.py:50",
-         segnext_eval["flash_launches"] + segnext_train["flash_launches"][0],
+         segnext_eval["flash_launches"] + segnext_train["flash_launches"][0]
+         + sum(n["flash_fwd"] for n in widths.values()),
          narrow_err["fwd"],
          narrow_rows["fwd"], T5.CALLS, "flash_attention_fwd"),
         ("flash_attention_bwd_dkv_narrow", "attention.py:50",
-         segnext_train["flash_launches"][1], narrow_err["dkv"],
+         segnext_train["flash_launches"][1]
+         + sum(n["flash_dkv"] for n in widths.values()), narrow_err["dkv"],
          narrow_rows["dkv"], T5.CALLS, "flash_attention_bwd"),
         ("flash_attention_bwd_dq_narrow", "attention.py:50",
-         segnext_train["flash_launches"][2], narrow_err["dq"],
+         segnext_train["flash_launches"][2]
+         + sum(n["flash_dq"] for n in widths.values()), narrow_err["dq"],
          narrow_rows["dq"], T5.CALLS, "flash_attention_bwd")]
     print(json.dumps({"kernels": [
         with_rates(kernel_entry(name, replaces, launches, err, rows, calls,
@@ -4339,7 +4582,9 @@ def main() -> int:
         "ddp_world1": ddp, "swin_b_kernels": swin_b_kernels,
         "swin_b": swin_b, "remat": remat, "lbfgs": lbfgs,
         "segnext_b_eval": segnext_eval, "segnext_b_train": segnext_train,
-        "resnet50": resnet, "card": card}))
+        "resnet50": resnet, "segnext_widths": widths,
+        "segnext_sr": {"max_abs_err": sr_narrow_err, "rows": sr_narrow_rows},
+        "segnext_large_flash": large_rows, "tools": tools, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

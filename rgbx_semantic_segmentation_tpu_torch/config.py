@@ -95,8 +95,9 @@ class ModelConfig:
     # CUDA kernels keep the fp32 logits and probs on chip and the backward
     # recomputes the probs (see ops/attention.multi_head_attention).
     use_pallas_kernels: bool = True
-    # Activation checkpointing of transformer blocks: not ported yet (the
-    # builder raises NotImplementedError when it is set).
+    # Activation checkpointing of transformer blocks: each MiT and Swin block
+    # runs under torch.utils.checkpoint (ops/layers.checkpointed) in
+    # training. SegNeXt and ResNet ignore it, as the JAX builder does.
     remat: bool = False
 
 

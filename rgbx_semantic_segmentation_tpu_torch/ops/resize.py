@@ -7,7 +7,8 @@ which the heads use as it is), so the bilinear resize is torch's own op; the
 align-corners resize is the JAX version's arithmetic. Both compute as the
 JAX versions do (in the input dtype; the align-corners one in fp32, cast
 back): CUDA autocast would run the upsample in fp32, so it is switched off
-around them."""
+around them. `resize_nearest` is the label-map resize of the JAX package
+(jax.image.resize, method "nearest"), channels-last as there."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -79,3 +80,30 @@ def resize_bicubic_torch(x: torch.Tensor, size: Tuple[int, int]
     with torch.autocast(x.device.type, enabled=False):
         return F.interpolate(x.double(), size=tuple(size), mode="bicubic",
                              align_corners=False).to(x.dtype)
+
+
+def nearest_indices(n_in: int, n_out: int) -> np.ndarray:
+    """Source index of each of `n_out` outputs along an axis of `n_in`:
+    floor((i + 0.5) * scale) with half-pixel centres, in float32 as the
+    compiled jax.image.resize(method="nearest") computes it. It writes
+    (i + 0.5) * n_in / n_out; XLA turns the division by the constant into
+    a product with its reciprocal and folds the two constants, so scale =
+    f32(n_in * f32(1 / n_out)) (dividing instead misses JAX by one index on
+    a few percent of size pairs). Clamped to n_in - 1 as its gather clamps."""
+    f32 = np.float32
+    scale = f32(n_in) * (f32(1) / f32(n_out))
+    src = (np.arange(n_out, dtype=f32) + f32(0.5)) * scale
+    return np.minimum(np.floor(src).astype(np.int64), n_in - 1)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of label maps (B, H, W, ...) to (B, h, w,
+    ...), any trailing dims and any dtype kept: the counterpart of the JAX
+    `resize_nearest`, equal to it bit for bit (an index gather; the indices
+    are `nearest_indices`'). Returns `x` itself when the size is equal."""
+    H, W = x.shape[1:3]
+    if (H, W) == tuple(size):
+        return x
+    rows = torch.from_numpy(nearest_indices(H, size[0])).to(x.device)
+    cols = torch.from_numpy(nearest_indices(W, size[1])).to(x.device)
+    return x.index_select(1, rows).index_select(2, cols)

@@ -61,6 +61,12 @@ CALLS = [2, 2, 2]
 # kernels stage d in a 64-wide panel with zero columns past d.
 SEGNEXT_SHAPES = [(8, 8, 19200, 19200, 8), (8, 8, 4800, 4800, 16),
                   (8, 8, 1200, 1200, 40)]
+# The same for segnext_large (d = 12, 24, 48). d = 12 reaches the kernels
+# zero-padded to 16 (ops/attention.multi_head_attention), and so it is
+# timed: the kernels on the padded operands, the plain version, SDPA and
+# the bound on the true d.
+SEGNEXT_LARGE_SHAPES = [(8, 8, 19200, 19200, 12), (8, 8, 4800, 4800, 24),
+                        (8, 8, 1200, 1200, 48)]
 # Exponentials a second of one H100 SXM: 132 SMs, 16 MUFU.EX2 a clock each,
 # at the 1.98 GHz boost clock. Every kernel takes one exponential per logit
 # (the backward ones recompute p); at a narrow d they, not the products,
@@ -137,14 +143,20 @@ def time_shape(shape, gen):
     "share_of_bound", "tflops"}}. The plain backward
     is one function, so the dk/dv and dq rows share its time and the
     library's backward (SDPA forward + backward through autograd, minus the
-    forward alone)."""
+    forward alone). A head dim that is not a multiple of 8 times the
+    kernels on the operands zero-padded to one, as the model's path calls
+    them (the pad itself not timed); everything else on the true d."""
     B, h, N, M, d = shape
     sc = d ** -0.5
     q, k, v, w = inputs(shape, torch.bfloat16, gen)
+    kq, kk, kv_, kw = ((torch.nn.functional.pad(t, (0, -d % 8))
+                        for t in (q, k, v, w)) if d % 8 else (q, k, v, w))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.no_grad():
-        out, lse = FA._forward(q, k, v, sc)
-        di = (out.float() * w.float()).sum(-1).contiguous()
+        kout, klse = FA._forward(kq, kk, kv_, sc)
+        out, lse = (FA.flash_attention_reference(q, k, v, sc) if d % 8
+                    else (kout, klse))
+        di = (kout.float() * kw.float()).sum(-1).contiguous()
 
         def plain_fwd():
             FA.flash_attention_reference(q, k, v, sc)
@@ -152,15 +164,21 @@ def time_shape(shape, gen):
         def plain_bwd():
             FA.flash_attention_bwd_reference(q, k, v, out, lse, w, sc)
 
+        def dkv():
+            FA.flash_attention_dkv(kq, kk, kv_, kw, klse, di, sc)
+
+        def dq():
+            FA.flash_attention_dq(kq, kk, kv_, kw, klse, di, sc)
+
         p1 = median_ms(plain_fwd, warmup=1, iters=3, reps=1)
-        k1 = median_ms(lambda: FA._forward(q, k, v, sc))
-        k2 = median_ms(lambda: FA._forward(q, k, v, sc))
+        k1 = median_ms(lambda: FA._forward(kq, kk, kv_, sc))
+        k2 = median_ms(lambda: FA._forward(kq, kk, kv_, sc))
         p2 = median_ms(plain_fwd, warmup=1, iters=3, reps=1)
         b1 = median_ms(plain_bwd, warmup=1, iters=3, reps=1)
-        kv1 = median_ms(lambda: FA.flash_attention_dkv(q, k, v, w, lse, di, sc))
-        dq1 = median_ms(lambda: FA.flash_attention_dq(q, k, v, w, lse, di, sc))
-        dq2 = median_ms(lambda: FA.flash_attention_dq(q, k, v, w, lse, di, sc))
-        kv2 = median_ms(lambda: FA.flash_attention_dkv(q, k, v, w, lse, di, sc))
+        kv1 = median_ms(dkv)
+        dq1 = median_ms(dq)
+        dq2 = median_ms(dq)
+        kv2 = median_ms(dkv)
         b2 = median_ms(plain_bwd, warmup=1, iters=3, reps=1)
     lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
 

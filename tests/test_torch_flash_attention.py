@@ -35,7 +35,8 @@ SHAPES = [(1, 2, 200, 1300, 32), (2, 2, 333, 333, 32), (1, 1, 130, 1025, 64)]
 # the forward's blocks of 192 (d = 128: 128) q rows and kv tiles of 128
 # (d = 128: 64) rows, kv walks of 33 tiles or more, which the forward
 # splits across a cluster of blocks (d = 128 too), and SegNeXt's narrow
-# heads (d = 8, 16, 40: the columns past d of the 64-wide panel zeros).
+# heads (d = 8, 16, 40 of segnext_b, 24 and 48 of segnext_large: the
+# columns past d of the 64-wide panel zeros).
 CUDA_SHAPES = [(1, 2, 200, 130, 32), (2, 1, 77, 1025, 64),
                (1, 3, 1030, 65, 40), (2, 2, 64, 64, 128),
                (1, 1, 130, 300, 64), (2, 5, 1200, 1200, 64),
@@ -44,7 +45,12 @@ CUDA_SHAPES = [(1, 2, 200, 130, 32), (2, 1, 77, 1025, 64),
                (1, 1, 200, 4100, 64), (2, 2, 130, 4097, 32),
                (1, 1, 130, 2100, 128), (2, 2, 130, 4097, 128),
                (2, 8, 1200, 1200, 8), (1, 8, 1100, 1030, 16),
-               (1, 8, 1030, 1100, 40)]
+               (1, 8, 1030, 1100, 40), (1, 8, 1030, 1100, 24),
+               (2, 8, 300, 1200, 48)]
+# Head dims that reach the kernels zero-padded to a multiple of 8 on the
+# model's path (ops/attention.multi_head_attention, which sends N >= 1024
+# here): segnext_large's d = 12 and segnext_tiny's d = 20, ragged.
+PADDED_CUDA_SHAPES = [(1, 8, 1030, 1100, 12), (2, 8, 1040, 1030, 20)]
 # bf16, the plain version against the upstream Pallas forward: ragged N and
 # M > 1024 (the JAX wrapper walks kv in 128-row blocks here), d = 32 and 64.
 BF16_SHAPES = [(1, 2, 1030, 1300, 32), (1, 1, 1100, 1025, 64)]
@@ -544,6 +550,37 @@ def test_backward_kernels_match_plain(cuda, B, h, N, M, d, dtype):
     assert got[0].transpose(1, 2).is_contiguous()
     assert got[1].data_ptr() + h * d * got[1].element_size() == \
         got[2].data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,N,M,d", PADDED_CUDA_SHAPES)
+def test_padded_route_on_the_card(cuda, B, h, N, M, d):
+    """bf16 through multi_head_attention under autograd: the output and dq,
+    dk, dv equal bit for bit the kernels' on the zero-padded operands, which
+    are held to their plain version by the bounds of the two tests above
+    (the padded columns of every result exactly 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, w = _model_layout(B, h, N, M, d, torch.bfloat16, cuda, 6)
+    sc = d ** -0.5
+    padded = [torch.nn.functional.pad(t, (0, -d % 8)) for t in (q, k, v, w)]
+    _forward_against_plain(*padded[:3], sc)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = FA.flash_attention.launches
+    out = A.multi_head_attention(*leaves, sc, use_kernels=True)
+    assert FA.flash_attention.launches == before + 1
+    out.backward(w.transpose(1, 2).reshape(B, N, h * d))
+    kout, lse = FA._forward(*padded[:3], sc)
+    grads = FA.flash_attention_bwd(*padded[:3], kout, lse, padded[3], sc)
+    ref = FA.flash_attention_bwd_reference(*padded[:3], kout, lse, padded[3],
+                                           sc)
+    assert torch.equal(out, kout[..., :d].transpose(1, 2).reshape(
+        B, N, h * d))
+    assert not kout[..., d:].any()
+    for name, leaf, a, b in zip(("dq", "dk", "dv"), leaves, grads, ref):
+        assert torch.equal(leaf.grad, a[..., :d]), name
+        assert not a[..., d:].any(), name
+        tol = 2 * float(_ulp(b.float().abs().max()))
+        assert float((a.float() - b.float()).abs().max()) <= tol, name
 
 
 @pytest.mark.cuda

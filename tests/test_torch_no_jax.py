@@ -3,7 +3,8 @@
 interpreter imports it, builds mit_tiny, runs one forward and one train
 step, imports the window-attention op and the Swin encoder and runs a small
 Swin tower forward and backward, builds mit_tinypp (IFRM/IFFM) and runs a
-train step through the flash-attention op, imports the bench tools, runs
+train step through the flash-attention op, imports the bench tools and the
+offline tools (tools/: resize_images ... check_gpu) and runs resize_nearest,
 builds mit_tiny_w_aspp + UPernet (ASPPs, the aux head) and runs a train
 step and a multi-scale, flipped, stride-swapped sliding-window prediction,
 builds mit_tiny + mask2former and runs a train step (its own loss) and an
@@ -82,7 +83,13 @@ for opt_name, policy in (("LBFGS", "WarmUpPolyLR"), ("SGDM", "CyclicLR")):
 assert isinstance(trainer.optimizer, torch.optim.SGD)
 from rgbx_semantic_segmentation_tpu_torch.ops import flash_attention
 from rgbx_semantic_segmentation_tpu_torch.tools import (  # noqa: F401
-    bench_flash_attention, bench_sr_attention, bench_window_attention)
+    bench_flash_attention, bench_input, bench_sr_attention,
+    bench_window_attention, check_gpu, check_labels, clean_logs,
+    compare_labels, copy_split, fetch_mfnet, resize_images, split_rgbt,
+    visualize_labels)
+from rgbx_semantic_segmentation_tpu_torch.ops.resize import resize_nearest
+assert resize_nearest(torch.zeros(1, 4, 6, dtype=torch.uint8),
+                      (2, 3)).shape == (1, 2, 3)
 cfg_pp = cfg.replace(
     dataset=DatasetConfig(num_classes=9, image_height=160, image_width=128),
     model=dataclasses.replace(cfg.model, backbone="mit_tinypp",
@@ -214,4 +221,8 @@ def test_no_jax_import_in_sources():
             "parallel/multihost.py", "models/decoders/mask2former.py",
             "models/decoders/mlp_decoderpp.py", "losses.py",
             "lbfgs.py", "optim.py", "lr_schedules.py"} <= names
+    assert {f"tools/{n}.py" for n in (
+        "bench_input", "check_gpu", "check_labels", "clean_logs",
+        "compare_labels", "copy_split", "fetch_mfnet", "resize_images",
+        "split_rgbt", "visualize_labels")} <= names
     assert len(sources) >= 10

@@ -29,7 +29,11 @@ SHAPES = [
     (1, 5, 96, 24, 32),     # d=32, h=5
     (2, 1, 8, 1, 64),       # M=1
     (1, 8, 75, 19, 64),     # N and M both non-multiples of 8
+    (1, 3, 75, 19, 96),     # d=96 (segnext_large stage 4): two d panels
 ]
+# (B, h, N, M, d) of the stage-4 IFFM attentions of segnext_tiny (d = 32)
+# and segnext_large (d = 96) at 480x640, batch 8.
+SEGNEXT_STAGE4 = [(8, 8, 300, 300, 32), (8, 8, 300, 300, 96)]
 # (B*h, N, M, d) of the four mit_b2 stages at 480x640, batch 8.
 FLAGSHIP = [(8, 19200, 300, 64), (16, 4800, 300, 64), (40, 1200, 300, 64),
             (64, 300, 300, 64)]
@@ -97,7 +101,8 @@ def test_wrapper_rejects_bad_inputs():
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, None),
                                         (torch.float32, 1e-5)])
 @pytest.mark.parametrize("G,N,M,d", FLAGSHIP[1:] + [
-    (B * h, N, M, d) for B, h, N, M, d in SHAPES] + [(4, 333, 1000, 128)])
+    (B * h, N, M, d) for B, h, N, M, d in SHAPES + SEGNEXT_STAGE4] + [
+    (4, 333, 1000, 128)])
 def test_kernel_matches_plain(cuda, G, N, M, d, dtype, atol):
     """The kernel against its plain version on the card. bf16: two ulps at
     the output's magnitude (fp32 summation order may flip one rounding of a
@@ -307,7 +312,8 @@ def _bf16_ulps(ref, ulps):
 
 
 BWD_SHAPES = [(8, 2, 4800, 300, 64), (8, 5, 1200, 300, 64),
-              (8, 8, 300, 300, 64)] + SHAPES + [(1, 4, 333, 1000, 128)]
+              (8, 8, 300, 300, 64)] + SEGNEXT_STAGE4 + SHAPES + [
+                  (1, 4, 333, 1000, 128)]
 
 
 @pytest.mark.cuda
@@ -518,7 +524,7 @@ def test_tensor_cores_short_and_ragged_q(cuda, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [300, 880])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_tensor_cores_head_dims(cuda, d, M):
     q, k, v, w = _model_layout(1, 3, 333, M, d, torch.bfloat16, cuda, 5)
     _check_tc(q, k, v, w, d ** -0.5)
