@@ -117,7 +117,8 @@ and nyu presets:
     runs without remat;
   * L-BFGS (the port's optax.lbfgs with its zoom line search) on mit_b2:
     2 steps, the line search's evaluations a step (K1 and K2 launching
-    32 x (1 + evaluations)), the loss falling along each step, the
+    32 x (1 + evaluations)), the loss falling along each step whose
+    line search reports success (a failed search: a finite step), the
     BatchNorm running statistics equal to one forward's, step ms, the
     optimizer's memory and the peak;
   * data parallelism at world 1: Trainer through the launcher
@@ -127,7 +128,19 @@ and nyu presets:
     resume bound: the card's step is not bit-reproducible), K1 and K2
     launching 32 times a step in the rank; OHEM and berHu through their
     over-ranks functions (NCCL all-gather, all-reduce MAX and its
-    backward) against the same criteria in one process.
+    backward) against the same criteria in one process; then the data x
+    spatial mesh 2d:1,2 with both ranks on this card over gloo (each with
+    half of every image's rows, parallel/spatial.py), 3 steps: K1/K2 32
+    launches a step on each rank, one loss, its first within 5e-3 of the
+    plain Trainer's, its distance from the plain runs read; and its fp32
+    first-step gradient within 4x one card's distance from a float64 step,
+    with dk, dv summed twice over the two ranks (the control) beyond it;
+  * K1/K2 on the spatial axis: on each of the S row blocks of q of the
+    four mit_b2 stage shapes (S = 2 and 4, 8 and 4 images) against the
+    whole image's keys, each block held to the plain versions, the sum of
+    the blocks' partial dk, dv to the whole-image K2's, two runs
+    bit-equal; times (events and device) at the shapes a rank of 2d:2,2
+    and of 2d:1,4 gives them.
 
 `--ddp N` runs only the N-card part, and fails when fewer cards are
 visible: K1-K4 at the shapes a rank hands them (8 / N images) against their
@@ -144,7 +157,13 @@ across the cards; the largest residual tied across ranks in one case)
 against one card on the global batch, and the first-step gradient over the
 N ranks against one card on a
 batch whose ranks ignore different counts of pixels (fp32; bounded by
-one-card readings, which DDP's default per-rank mean must miss).
+one-card readings, which DDP's default per-rank mean must miss); on four
+cards the data x spatial meshes 2d:2,2 and 2d:1,4 too: train_cli over them
+(the bf16 and fp32 epochs, the fp32 loss held as the data-parallel one),
+the first-step gradient and its control as 2d:1,2's in the default run, a
+mit_b2 step in memory under torch.profiler (step ms, peak GiB per rank,
+the NCCL all-gathers' and all-reduces' share of rank 0's device time),
+and the preset's drop masks equal on an image's spatial ranks.
 
 Any failed check raises and the exit code is non-zero. Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -629,6 +648,116 @@ def time_sr_bwd(S, gen, shape):
           f"backward {lib:.4f} ms, bound {bound:.4f} ms ({by})")
     return timing_row(list(shape), (k1 + k2) / 2, (p1 + p2) / 2, lib, bound,
                       by, ops)
+
+
+# K1/K2 on the spatial axis of `--mesh 2d:D,S` (parallel/spatial.py): a
+# rank attends with its own query rows of a stage, N / S of them, to the
+# whole image's keys (ops/sr_attention.sr_attention_sharded), and K2's dk,
+# dv are partial (the all-gather's backward sums them). (images a rank, S):
+# 2d:1,2 and 2d:1,4 hold 8 images a rank, 2d:2,2 4 (2d:2,4 would: 4 at
+# S = 4). Each row block of every flagship stage is held by hold_sr_fwd /
+# hold_sr_bwd; the sum of a stage's S partial dk (dv), in fp32, is held to
+# the whole-image K2's within K2's bound (BWD_BF16_ULPS of its largest);
+# both kernels two runs bit-equal. Timed at the shapes a rank of the
+# four-card meshes gives them (SPATIAL_TIMED): stages whose rows shard
+# (spatial.rows_ok, H = 120 / 60 / 30 / 15) as blocks, the others whole.
+SPATIAL_CASES = [(8, 2), (4, 2), (8, 4), (4, 4)]
+SPATIAL_TIMED = {"2d:2,2": (4, 2), "2d:1,4": (8, 4)}
+STAGE_HEIGHTS = (120, 60, 30, 15)
+
+
+def spatial_rank_shapes(batch, n):
+    """The (B, h, N, M, d) K1/K2 get on a rank holding `batch` images and
+    1 / n of their rows: the flagship stages, sharded until the first whose
+    rows do not (then whole)."""
+    from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
+
+    sp = spatial.SpatialGroup(None, 0, n)
+    shapes, sharded = [], True
+    for (_, h, N, M, d), H in zip(FLAGSHIP, STAGE_HEIGHTS):
+        sharded = sharded and spatial.rows_ok(H, M, sp)
+        shapes.append((batch, h, N // n if sharded else N, M, d))
+    return shapes
+
+
+def spatial_kernel_phase(S):
+    """See SPATIAL_CASES. Returns ({fwd, bwd, sum_dkv: worst error},
+    {mesh: {fwd, bwd: timing rows at the rank's shapes, with device ms}})."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.tools import (
+        bench_sr_attention as B)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bf16 = torch.bfloat16
+    worst = {"fwd": 0.0, "bwd": 0.0, "sum_dkv": 0.0}
+    for batch, n in SPATIAL_CASES:
+        for stage in FLAGSHIP:
+            shape = (batch, *stage[1:])
+            _, h, N, M, d = shape
+            sc = d ** -0.5
+            q, k, v, w = sr_inputs(gen, shape, bf16, cotangent=True)
+            whole = S.sr_attention_bwd(q, k, v, w, sc)
+            per = N // n
+            dk = dv = 0.0
+            for s in range(n):
+                rows = slice(s * per, (s + 1) * per)
+                qs, ws = q[:, :, rows], w[:, :, rows]
+                bshape = (batch, h, per, M, d)
+                check(S.route(qs, k, v) == "tensor_cores",
+                      f"K1/K2 route of a row block {bshape}")
+                worst["fwd"] = max(worst["fwd"], hold_sr_fwd(
+                    S, qs, k, v, bshape, bf16))
+                same = torch.equal(S.sr_attention_sharded(qs, k, v, sc),
+                                   S.sr_attention_sharded(qs, k, v, sc))
+                check(same, f"K1 differs between two runs at {bshape}")
+                worst["bwd"] = max(worst["bwd"], hold_sr_bwd(
+                    S, qs, k, v, ws, bshape, bf16))
+                lse = S._forward(qs, k, v, sc, with_lse=True)[1]
+                _, pk, pv = S.sr_attention_bwd(qs, k, v, ws, sc, lse=lse)
+                dk, dv = dk + pk.float(), dv + pv.float()
+            line = []
+            for name, got, want in (("dk", dk, whole[1]), ("dv", dv,
+                                                           whole[2])):
+                err = float((got - want.float()).abs().max())
+                tol = bf16_atol(want, BWD_BF16_ULPS)
+                line.append(f"{name} {err:.3e} (tol {tol:.3e})")
+                check(err <= tol, f"summed partial {name} at {shape} over "
+                      f"{n} row blocks: {err} > {tol}")
+                worst["sum_dkv"] = max(worst["sum_dkv"], err)
+            print(f"spatial K2 {shape}, {n} row blocks: the sum of the "
+                  "partial dk, dv against the whole image's K2: "
+                  + ", ".join(line))
+            del q, k, v, w, whole
+    rows = {}
+    for mesh, (batch, n) in SPATIAL_TIMED.items():
+        fwd, bwd = [], []
+        for shape in spatial_rank_shapes(batch, n):
+            q, k, v, w = sr_inputs(gen, shape, bf16, cotangent=True)
+            sc = shape[4] ** -0.5
+            lse = S._forward(q, k, v, sc, with_lse=True)[1]
+            with torch.no_grad():
+                f_dev = B.device_ms(lambda: S.sr_attention(q, k, v, sc))
+            b_dev = B.device_ms(lambda: S.sr_attention_bwd(q, k, v, w, sc,
+                                                           lse=lse))
+            fwd.append({**time_sr_fwd(S, gen, shape), "device_ms": f_dev})
+            bwd.append({**time_sr_bwd(S, gen, shape), "device_ms": b_dev})
+            print(f"  device (torch.profiler) at {shape}: K1 {f_dev:.4f} ms,"
+                  f" K2 {b_dev:.4f} ms a call")
+            del q, k, v, w, lse
+        rows[mesh] = {"fwd": fwd, "bwd": bwd}
+        for tag, rr in (("forward", fwd), ("backward", bwd)):
+            print(f"SR attention {tag} on a rank of {mesh} ({batch} images, "
+                  f"1/{n} of their rows), the 32 calls of a step: kernel "
+                  f"{per_step(rr, 'ms'):.3f} ms (device "
+                  f"{per_step(rr, 'device_ms'):.3f}), plain "
+                  f"{per_step(rr, 'plain_ms'):.3f} ms, SDPA "
+                  f"{per_step(rr, 'library_ms'):.3f} ms, bound "
+                  f"{per_step(rr, 'bound_ms'):.3f} ms")
+    torch.cuda.empty_cache()
+    print(f"spatial K1/K2 phase: {time.perf_counter() - t0:.1f} s")
+    return worst, rows
 
 
 # K1/K2 at the stage-4 IFFM attentions of segnext_tiny (d = 32) and
@@ -2366,8 +2495,10 @@ def remat_phase(S, W, cfg_lib, train_lib, items):
 def lbfgs_phase(S, cfg_lib, train_lib, items):
     """mit_b2 with LBFGS (the preset's lr): 2 steps on one batch; the
     line search's evaluations a step, K1 and K2 launching 32 x (1 + those)
-    times a step, the loss falling along each step's line (the accepted
-    point's loss below the step's first, on the step's own masks), the
+    times a step, the loss falling along each step's line where the
+    search reports success (the accepted point's loss below the step's
+    first, on the step's own masks; where it reports failure a finite
+    step), the
     BatchNorm running statistics after each step those one train-mode
     forward with the step's masks gives, step ms and peak memory beside
     the optimizer's memory."""
@@ -2422,16 +2553,28 @@ def lbfgs_phase(S, cfg_lib, train_lib, items):
         evals = info["evaluations"]
         rows.append({"step_ms": a.elapsed_time(b), "evaluations": evals,
                      "stepsize": info["stepsize"], "k1": k1, "k2": k2,
-                     "bn_rel_err": err, "value_after": info["value"]})
+                     "bn_rel_err": err, "value_after": info["value"],
+                     "search_failed": info["failed"]})
         print(f"LBFGS step {step}: loss {losses[-1]:.5f} -> "
               f"{info['value']:.5f} at step size {info['stepsize']:.4g}, "
               f"{evals} line-search evaluations, K1 {k1} / K2 {k2} "
               f"launches (expected {32 * (1 + evals)} each), "
               f"{rows[-1]['step_ms']:.1f} ms (CUDA events); BatchNorm "
               f"statistics against one forward: {err:.2e} of their largest")
-        # the line search's accepted point, on the step's own masks
-        check(info["value"] < losses[-1], f"LBFGS step {step}: the loss "
-              "did not fall")
+        # The line search's accepted point, on the step's own masks. A
+        # search that reports success found sufficient decrease; one that
+        # reports failure (as in optax, the best safe point or else its
+        # last trial comes back: the objective on the card is not
+        # bit-reproducible, so its last intervals can hold no decrease)
+        # promises only a finite step.
+        if info["failed"]:
+            print(f"LBFGS step {step}: line search failed ({evals} "
+                  "evaluations)")
+            check(np.isfinite(info["value"]) and np.isfinite(
+                info["stepsize"]), f"LBFGS step {step}: a finite step")
+        else:
+            check(info["value"] < losses[-1], f"LBFGS step {step}: the "
+                  "loss did not fall")
         check(k1 == k2 == 32 * (1 + evals), "K1/K2 launches a step")
         check(err <= 1e-5, "BatchNorm statistics from one forward only")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2447,6 +2590,7 @@ def lbfgs_phase(S, cfg_lib, train_lib, items):
     torch.cuda.empty_cache()
     return {"steps": rows, "losses": losses, "peak_gib": peak,
             "optimizer_gib": mem, "params_m": n_params / 1e6,
+            "searches_failed": sum(r["search_failed"] for r in rows),
             "k1": sum(r["k1"] for r in rows),
             "k2": sum(r["k2"] for r in rows)}
 
@@ -3200,6 +3344,13 @@ def criteria_phase(cfg_lib, train_tf32):
 # gaps of 2.5x and 4.3x the one-card spread in two calls).
 DDP_STEPS, DDP_NITERS, DDP_SWIN_STEPS = 3, 12, 2
 DDP_LOSS_FACTOR = 4.0
+# The first step's loss of 2d:1,2 on one card against the plain Trainer's
+# (same weights and batch, before any update: the forward's summation
+# orders and bf16 roundings only): the kernel-vs-plain loss bound.
+SPATIAL_LOSS_RTOL = 5e-3
+# The data x spatial meshes of the four-card part (train_cli --mesh):
+# 2 data ranks x 2 row blocks, and 1 x 4.
+SPATIAL_MESHES = ["2d:2,2", "2d:1,4"]
 # The first-step gradient on N ranks against one card: mit_b2 at global
 # batch 8 and drop rates 0, on a batch whose row b ignores ~b/10 of its
 # pixels (the ranks hold different valid counts), the relative L2 distance
@@ -3215,6 +3366,22 @@ DDP_LOSS_FACTOR = 4.0
 # (the synced BatchNorm's E[x^2] - E[x]^2). DDP's default, each rank's own
 # mean with the gradients averaged, must lie beyond the bound.
 DDP_GRAD_FACTOR = 4.0
+# On the data x spatial meshes fp32 sums inside each image change order too
+# (the row blocks' partial sums of the BatchNorm statistics, of the channel
+# gates' pooling, of the cross-attention's k^T v, of the kv branch's weight
+# gradients), which no one-card reading samples (2d:1,2 on one card, fp32:
+# 1.3e-4 from one card's gradient against a reading of 8e-6).
+# There the mesh's gradient is held to the exact one instead: its distance
+# from a float64 one-card step (the plain attention path: the kernels take
+# no float64) at most SPATIAL_GRAD_FACTOR x one card's fp32 distance from
+# it, i.e. as accurate as one card; its distance from one card's fp32
+# gradient is read beside the DDP_GRAD_FACTOR bound. Its control, which
+# must lie beyond that bound, is the same step with JAX's spatial psum of
+# dk, dv taken a second time (_kv_twice): the double count that the
+# mesh's design rule forbids (parallel/spatial.py). The default run makes
+# this check on 2d:1,2 with both ranks on its one card, `--ddp 4` on
+# SPATIAL_MESHES.
+SPATIAL_GRAD_FACTOR = 4.0
 
 
 def rank_kernel_phase(S, W, T, per_rank):
@@ -3325,9 +3492,53 @@ def _ddp_world1_rank(world, cfg, steps):
             "order_statistics_grad_err": order}
 
 
+def _spatial_world_rank(world, cfg, steps):
+    """A rank of the one-card data x spatial world (2d:1,2 over gloo, both
+    ranks on one card): `steps` Trainer steps on its rows of the synthetic
+    batches, with the K1/K2 launches, the step time (events after the
+    first step) and the peak memory of the rank's process."""
+    import torch
+    import torch.distributed as dist
+
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+
+    backend = dist.get_backend()
+    check(backend == "gloo" and world.spatial is not None
+          and world.spatial.size == 2, f"2d:1,2 world on {backend}")
+    batches = uint8_batches(synthetic_items(N_IMAGES, HW,
+                                            cfg.dataset.num_classes), 8)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    S.sr_attention.launches = S.sr_attention_bwd.launches = 0
+    losses, t0 = [], None
+    for i in range(steps):
+        losses.append(trainer.step(batches[i % len(batches)])["loss"])
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    out = {"launches": (S.sr_attention.launches,
+                        S.sr_attention_bwd.launches),
+           "losses": [float(v) for v in losses], "step_ms": step_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if world.is_main():
+        out["payload"] = _trainer_payload(trainer)
+    return out
+
+
 def ddp_world1_phase(S, cfg_lib, train_lib):
     """Trainer through the launcher at world 1 over NCCL against two plain
-    one-process Trainers from the same seed (see DDP_STEPS)."""
+    one-process Trainers from the same seed (see DDP_STEPS); then the same
+    steps on the data x spatial mesh 2d:1,2 with both ranks on this card
+    (gloo: NCCL refuses two ranks on one device), each with half of every
+    image's rows: K1/K2 32 launches a step on each rank at the rank's
+    shapes, one loss on both ranks, the first step's loss within
+    SPATIAL_LOSS_RTOL of the plain Trainer's; its distance from the plain
+    runs is read, not held (bf16: each rank rounds its partial weight
+    gradients, as the data-parallel ranks do). Last, 2d:1,2's fp32
+    first-step gradient and its control (grad_phase)."""
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
@@ -3335,11 +3546,13 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
     cfg = _ddp_cfg(cfg_lib)
     batches = uint8_batches(synthetic_items(N_IMAGES, HW,
                                             cfg.dataset.num_classes), 8)
-    plain, plain_ms = [], []
+    plain, plain_ms, first = [], [], []
     for _ in range(2):
         trainer = train_lib.Trainer(cfg, seed=0)
         for i in range(DDP_STEPS):
-            trainer.step(batches[i % len(batches)])
+            loss = trainer.step(batches[i % len(batches)])["loss"]
+            if i == 0:
+                first.append(float(loss))
             if i == 0:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3373,7 +3586,51 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
               f"{RESUME_FLOOR:g})")
         check(d_ddp <= RESUME_FACTOR * d_two + RESUME_FLOOR,
               f"DDP {name}: {d_ddp} vs {d_two}")
-    return {"launches": {"fwd": rank["launches"][0],
+
+    t0 = time.perf_counter()
+    card = torch.cuda.current_device()
+    sp_ranks = launch.spawn(_spatial_world_rank, [card, card], "cuda",
+                            (cfg, DDP_STEPS), mesh="2d:1,2")
+    sp_wall = time.perf_counter() - t0
+    r0 = sp_ranks[0]
+    print(f"2d:1,2 on one card (gloo, {sp_wall:.1f} s with the process "
+          f"starts): losses {r0['losses']} (plain first step "
+          f"{first}), K1/K2 launches per rank "
+          f"{[r['launches'] for r in sp_ranks]} (expected {want}), step "
+          f"{r0['step_ms']:.1f} ms (the two ranks share the card), peak "
+          f"GiB per rank {[round(r['peak_gib'], 2) for r in sp_ranks]}")
+    check(all(tuple(r["launches"]) == want for r in sp_ranks),
+          "2d:1,2: 32 K1 and K2 launches a step on each rank")
+    check(all(np.isfinite(r0["losses"]))
+          and all(r["losses"] == r0["losses"] for r in sp_ranks),
+          "2d:1,2: one finite loss on both ranks")
+    check(abs(r0["losses"][0] / first[0] - 1) <= SPATIAL_LOSS_RTOL,
+          f"2d:1,2 first loss {r0['losses'][0]} vs one card's {first[0]}")
+    sp_got = _state_groups(r0["payload"])
+    sp_dist = {}
+    for name in sp_got:
+        norm = float(plain[0][name].norm())
+        sp_dist[name] = {
+            "spatial": float((sp_got[name] - plain[0][name]).norm()) / norm,
+            "two_runs": dist[name]["two_runs"]}
+        print(f"  2d:1,2 {name}: rel L2 from a plain run "
+              f"{sp_dist[name]['spatial']:.3e} (two plain runs "
+              f"{dist[name]['two_runs']:.3e}; read, not held)")
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    grad, _ = grad_phase(train_lib, cfg_lib, [card, card], ["2d:1,2"])
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    print(f"  2d:1,2 gradient check on one card: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    spatial_out = {"launches": [list(r["launches"]) for r in sp_ranks],
+                   "losses": r0["losses"], "plain_first_loss": first,
+                   "step_ms": r0["step_ms"], "seconds": sp_wall,
+                   "peak_gib": [r["peak_gib"] for r in sp_ranks],
+                   "rel_l2": sp_dist, "gradient": grad}
+    return {"spatial_2d_1_2": spatial_out,
+            "launches": {"fwd": rank["launches"][0],
                          "bwd": rank["launches"][1]},
             "losses": rank["losses"], "step_ms": rank["step_ms"],
             "plain_step_ms": plain_ms, "rel_l2": dist, "seconds": wall,
@@ -3421,12 +3678,47 @@ def _flat_grads(model):
                       for p in model.parameters()]).cpu()
 
 
-def _ddp_grad_rank(world, cfg, batch):
+def _kv_twice(world):
+    """A known-wrong multi_head_attention for the data x spatial gradient
+    check's control: k and v pass through an identity whose backward sums
+    their gradient over the spatial group, i.e. JAX's psum of dk, dv
+    (ops/sr_attention.py:323-324) taken again on top of the all-gather's
+    backward that already carries it."""
+    import torch
+    import torch.distributed as dist
+
+    from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+        dual_segformer)
+
+    group = world.spatial.group
+    attend = dual_segformer.multi_head_attention
+
+    class SumGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=group)
+            return g
+
+    def wrong(q, k, v, scale, use_kernels=False):
+        return attend(q, SumGrad.apply(k), SumGrad.apply(v), scale,
+                      use_kernels)
+    return wrong
+
+
+def _ddp_grad_rank(world, cfg, batch, control=True):
     """One rank of the gradient check: Trainer.step on the rank's rows of
-    `batch` (the global-mean loss, the summed buckets, the synced
-    BatchNorm); then DDP's default on the same weights and rows (each
-    rank's own mean, the gradients averaged). Rank 0 returns the losses and
-    both gradients."""
+    `batch` (its data rank's images; on a 2d mesh the step keeps its rows
+    of them) with the global-mean loss, the summed buckets, the synced
+    BatchNorm; then, with `control`, a known-wrong step on the same weights
+    and rows: on a 2d mesh the same step with dk, dv summed twice over the
+    spatial group (_kv_twice), else DDP's default (each rank's own mean,
+    the gradients averaged). Rank 0 returns the losses and the
+    gradients."""
     import torch
     from torch.nn.parallel import DistributedDataParallel
 
@@ -3440,7 +3732,8 @@ def _ddp_grad_rank(world, cfg, batch):
 
     torch.backends.cuda.matmul.allow_tf32 = False   # see DDP_GRAD_FACTOR
     torch.backends.cudnn.allow_tf32 = False
-    rows = process_batch_slice(len(batch["label"]), world.rank, world.size)
+    rows = process_batch_slice(len(batch["label"]), world.data_rank,
+                               world.data_size)
     local = {k: v[rows] for k, v in batch.items()}
     trainer = train_lib.Trainer(cfg, seed=0, world=world)
     out = {"loss": float(trainer.step(local)["loss"])}
@@ -3448,6 +3741,22 @@ def _ddp_grad_rank(world, cfg, batch):
         out["grad"] = _flat_grads(trainer.model)
     del trainer
     torch.cuda.empty_cache()
+    if not control:
+        return out
+    if world.spatial is not None:
+        from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+            dual_segformer)
+
+        attend = dual_segformer.multi_head_attention
+        dual_segformer.multi_head_attention = _kv_twice(world)
+        try:
+            trainer = train_lib.Trainer(cfg, seed=0, world=world)
+            out["kv_twice_loss"] = float(trainer.step(local)["loss"])
+            if world.is_main():
+                out["kv_twice_grad"] = _flat_grads(trainer.model)
+        finally:
+            dual_segformer.multi_head_attention = attend
+        return out
     model = convert_sync_batchnorm(build_model(cfg, device=world.device,
                                                seed=0)).train()
     net = DistributedDataParallel(model, device_ids=[world.device.index])
@@ -3461,10 +3770,39 @@ def _ddp_grad_rank(world, cfg, batch):
     return out
 
 
-def grad_phase(train_lib, cfg_lib, devices):
+def float64_grad(train_lib, cfg, batch):
+    """One float64 step of `cfg` on one card on the plain attention path
+    (make_train_step on a float64 model: the losses and the BatchNorms
+    follow the input's dtype): the flat gradient, float64, on the CPU."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import optim
+    from rgbx_semantic_segmentation_tpu_torch.models.builder import (
+        build_model)
+
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                use_pallas_kernels=False))
+    model = build_model(cfg, device="cuda", seed=0).double()
+    step = train_lib.make_train_step(cfg, model,
+                                     optim.build_optimizer(cfg, model),
+                                     seed=0)
+    rgb, mx, label = normalised(cfg, batch, "cuda")
+    step(0, {"rgb": rgb.double(), "modal_x": mx.double(), "label": label})
+    grad = torch.cat([p.grad.detach().flatten()
+                      for p in model.parameters()]).cpu()
+    del model, step
+    torch.cuda.empty_cache()
+    return grad
+
+
+def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check):
     """The first-step gradient over the ranks against one card (see
-    DDP_GRAD_FACTOR). The control's check is returned, for the caller to
-    make last: it needs two ranks."""
+    DDP_GRAD_FACTOR and SPATIAL_GRAD_FACTOR), on each of `meshes` over the
+    devices ('dp': one data rank a card, with DDP's default as the
+    control; '2d:D,S': the data x spatial mesh, with the spatial sum of
+    dk, dv taken twice as the control). The dp control's check is
+    returned, for the caller to make last: it needs two ranks (None
+    without 'dp'). The meshes' bounds and controls go to `hold`."""
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
@@ -3474,7 +3812,6 @@ def grad_phase(train_lib, cfg_lib, devices):
     cfg = _grad_cfg(cfg_lib)
     batch = ragged_ignore(uint8_batches(
         synthetic_items(8, HW, cfg.dataset.num_classes), 8)[0])
-    valid = (batch["label"] != 255).reshape(len(devices), -1).sum(1)
 
     def one_card(b):
         t0 = time.perf_counter()
@@ -3488,19 +3825,71 @@ def grad_phase(train_lib, cfg_lib, devices):
         return loss, grad
 
     ref_loss, ref = one_card(batch)
-    runs = {"again": one_card(batch),
-            "rows reversed": one_card({k: v[::-1].copy()
-                                       for k, v in batch.items()})}
-    world1 = launch.spawn(_ddp_grad_rank, devices[:1], "cuda", (cfg, batch))
-    runs["world of 1"] = (world1[0]["loss"], world1[0]["grad"])
-    ranks = launch.spawn(_ddp_grad_rank, devices, "cuda", (cfg, batch))
-    r0 = ranks[0]
 
     def rel(g):
         return float((g - ref).norm() / ref.norm())
 
-    readings = {k: rel(g) for k, (_, g) in runs.items()}
-    bound = DDP_GRAD_FACTOR * max(readings.values())
+    out = {"losses": {"one card": ref_loss}}
+    if "dp" in meshes:
+        runs = {"again": one_card(batch),
+                "rows reversed": one_card({k: v[::-1].copy()
+                                           for k, v in batch.items()})}
+        world1 = launch.spawn(_ddp_grad_rank, devices[:1], "cuda",
+                              (cfg, batch))
+        runs["world of 1"] = (world1[0]["loss"], world1[0]["grad"])
+        readings = {k: rel(g) for k, (_, g) in runs.items()}
+        bound = DDP_GRAD_FACTOR * max(readings.values())
+        out.update({"readings": readings, "bound": bound})
+        out["losses"].update({k: v[0] for k, v in runs.items()})
+    if any(m != "dp" for m in meshes):
+        t0 = time.perf_counter()
+        truth = float64_grad(train_lib, cfg, batch)
+        one_err = float((ref.double() - truth).norm() / truth.norm())
+        print(f"  one card, float64 step (plain attention): "
+              f"{time.perf_counter() - t0:.1f} s; one card's fp32 gradient "
+              f"{one_err:.3e} from it", flush=True)
+        out["one_card_from_float64"] = one_err
+
+    def exact(g):
+        return float((g.double() - truth).norm() / truth.norm())
+
+    for mesh in meshes:
+        if mesh == "dp":
+            continue
+        t0 = time.perf_counter()
+        ranks = launch.spawn(_ddp_grad_rank, devices, "cuda", (cfg, batch),
+                             mesh=mesh)
+        r0 = ranks[0]
+        got, err = rel(r0["grad"]), exact(r0["grad"])
+        wrong = exact(r0["kv_twice_grad"])
+        limit = SPATIAL_GRAD_FACTOR * one_err
+        beside = ("" if "dp" not in meshes else
+                  f"; read beside {bound:.3e}, {DDP_GRAD_FACTOR:g}x the "
+                  "one-card readings " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in readings.items()))
+        print(f"first-step gradient, mit_b2 fp32, global batch 8, {mesh} "
+              f"({time.perf_counter() - t0:.1f} s with the process starts):"
+              f" {got:.3e} from one card's (loss {r0['loss']:.6f} against "
+              f"{ref_loss:.6f}{beside}); {err:.3e} from the float64 step, "
+              f"bound {limit:.3e} ({SPATIAL_GRAD_FACTOR:g}x one card's "
+              f"{one_err:.3e}); dk, dv summed twice over the spatial group "
+              f"(the control) {wrong:.3e} (loss {r0['kv_twice_loss']:.6f})",
+              flush=True)
+        check(all(r["loss"] == r0["loss"] for r in ranks),
+              f"gradient check, {mesh}: every rank reports the global loss")
+        hold(err <= limit, f"{mesh} gradient {err} from the float64 step, "
+             f"bound {limit}")
+        hold(wrong > limit, f"{mesh} control (dk, dv summed twice) at "
+             f"{wrong} does not miss the bound {limit}")
+        out[mesh] = {"from_one_card": got, "from_float64": err,
+                     "kv_twice_from_float64": wrong}
+        out["losses"][mesh] = r0["loss"]
+        out["losses"][f"{mesh}, kv twice"] = r0["kv_twice_loss"]
+    if "dp" not in meshes:
+        return out, None
+    valid = (batch["label"] != 255).reshape(len(devices), -1).sum(1)
+    ranks = launch.spawn(_ddp_grad_rank, devices, "cuda", (cfg, batch))
+    r0 = ranks[0]
     got, miss = rel(r0["grad"]), rel(r0["rank_mean_grad"])
     n = len(devices)
     print(f"first-step gradient, mit_b2 fp32, global batch 8 (valid pixels "
@@ -3515,10 +3904,9 @@ def grad_phase(train_lib, cfg_lib, devices):
           "gradient check: every rank reports the global loss")
     check(got <= bound, f"{n}-rank gradient {got} from one card's, bound "
           f"{bound}")
-    out = {"readings": readings, "bound": bound, "ranks": got,
-           "rank_mean": miss, "losses": {
-               "one card": ref_loss, **{k: v[0] for k, v in runs.items()},
-               "ranks": r0["loss"], "rank_mean": r0["rank_mean_loss"]}}
+    out.update({"ranks": got, "rank_mean": miss})
+    out["losses"].update({"ranks": r0["loss"],
+                          "rank_mean": r0["rank_mean_loss"]})
     return out, (miss > bound, f"DDP's default (each rank's mean) at "
                                f"{miss} does not miss the bound {bound}")
 
@@ -3653,8 +4041,154 @@ def _ddp_inmem_rank(world, swin_steps):
     return out
 
 
+def _spatial_mask_rank(world):
+    """One Trainer step of the preset (drop-path 0.1, Dropout2d 0.1) on a
+    data x spatial world, recording every keep mask its DropPath and
+    Dropout2d draw (the same draws, from a copy of the generator's state);
+    returns them on the CPU."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.ops import layers
+    from rgbx_semantic_segmentation_tpu_torch.parallel.multihost import (
+        process_batch_slice)
+
+    cfg = cfg_lib.mfnet_config()
+    batch = uint8_batches(synthetic_items(8, HW, cfg.dataset.num_classes),
+                          8)[0]
+    rows = process_batch_slice(8, world.data_rank, world.data_size)
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    masks, forward = [], layers._Stochastic.forward
+
+    def recording(self, x):
+        if self.training and self.rate > 0.0:
+            state = self.generator.get_state()
+            u = torch.rand(self._mask_shape(x), device=x.device,
+                           generator=self.generator)
+            self.generator.set_state(state)
+            masks.append((u < 1.0 - self.rate).cpu())
+        return forward(self, x)
+
+    layers._Stochastic.forward = recording
+    try:
+        trainer.step({k: v[rows] for k, v in batch.items()})
+    finally:
+        layers._Stochastic.forward = forward
+    return {"rank": world.rank, "data_rank": world.data_rank,
+            "masks": masks}
+
+
+def _spatial_inmem_rank(world, steps=2):
+    """The preset's mit_b2 at global batch 8 on a data x spatial world: 2
+    untimed steps, then `steps` under torch.profiler on rank 0 (the NCCL
+    kernels by collective, K1, K2 and the device's busy time a step) with
+    the step time (CUDA events over the steps) and each rank's peak
+    memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+    from rgbx_semantic_segmentation_tpu_torch.parallel.multihost import (
+        process_batch_slice)
+
+    cfg = _ddp_cfg(cfg_lib)
+    batch = uint8_batches(synthetic_items(8, HW, cfg.dataset.num_classes),
+                          8)[0]
+    rows = process_batch_slice(8, world.data_rank, world.data_size)
+    local = {k: v[rows] for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    for _ in range(2):
+        trainer.step(local)
+    torch.cuda.synchronize()
+    S.sr_attention.launches = S.sr_attention_bwd.launches = 0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if world.is_main() else contextlib.nullcontext()) as prof:
+        a.record()
+        for _ in range(steps):
+            trainer.step(local)
+        b.record()
+        torch.cuda.synchronize()
+    out = {"rank": world.rank, "step_ms": a.elapsed_time(b) / steps,
+           "launches": (S.sr_attention.launches,
+                        S.sr_attention_bwd.launches),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if world.is_main():
+        out.update(_nccl_share(prof, steps))
+
+        def ms(pattern):
+            return sum(e.time_range.end - e.time_range.start
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and re.search(pattern, e.name)) / (1e3 * steps)
+
+        out["allgather_ms"] = ms(r"(?i)nccl.*allgather")
+        out["allreduce_ms"] = ms(r"(?i)nccl.*allreduce")
+    return out
+
+
+def spatial_ddp_part(devices):
+    """The data x spatial meshes on the cards beyond the train_cli runs:
+    each mesh's step profiled in memory (see _spatial_inmem_rank) and the
+    preset's drop masks (see _spatial_mask_rank) equal across an image's
+    spatial ranks, different across its data ranks."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.parallel import launch
+
+    out = {}
+    for mesh in SPATIAL_MESHES:
+        ranks = launch.spawn(_spatial_inmem_rank, devices, "cuda", (),
+                             mesh=mesh)
+        r0 = ranks[0]
+        share = r0["nccl_ms"] / r0["busy_ms"]
+        print(f"mit_b2, {mesh}, global batch 8, in memory: step "
+              f"{r0['step_ms']:.1f} ms (events, rank 0; "
+              f"{8e3 / r0['step_ms']:.1f} img/s), peak GiB per rank "
+              f"{[round(r['peak_gib'], 2) for r in ranks]}, K1/K2 launches "
+              f"per rank {[r['launches'] for r in ranks]}; rank 0's device "
+              f"time a step {r0['busy_ms']:.2f} ms: NCCL {r0['nccl_ms']:.2f} "
+              f"ms ({share:.1%}; all-gather {r0['allgather_ms']:.2f}, "
+              f"all-reduce {r0['allreduce_ms']:.2f}), K1 {r0['k1_ms']:.3f}, "
+              f"K2 {r0['k2_ms']:.3f}")
+        want = (64, 64)
+        check(all(tuple(r["launches"]) == want for r in ranks),
+              f"{mesh}: 32 K1 and K2 launches a step on every rank")
+        out[mesh] = {"step_ms": r0["step_ms"], "nccl_share": share,
+                     "peak_gib": [r["peak_gib"] for r in ranks],
+                     **{k: r0[k] for k in ("nccl_ms", "allgather_ms",
+                                           "allreduce_ms", "k1_ms", "k2_ms",
+                                           "busy_ms")}}
+        torch.cuda.empty_cache()
+    ranks = launch.spawn(_spatial_mask_rank, devices, "cuda", (),
+                         mesh="2d:2,2")
+    by_data = {}
+    for r in ranks:
+        by_data.setdefault(r["data_rank"], []).append(r["masks"])
+    equal = all(len(m) == len(ms[0]) and all(torch.equal(a, b) for a, b in
+                                             zip(m, ms[0]))
+                for ms in by_data.values() for m in ms)
+    differ = any(not torch.equal(a, b)
+                 for a, b in zip(by_data[0][0], by_data[1][0]))
+    n_masks = len(by_data[0][0])
+    print(f"2d:2,2, the preset's drop rates: {n_masks} masks a step; equal "
+          f"across an image's spatial ranks: {equal}; the data ranks' "
+          f"differ: {differ}")
+    check(n_masks > 0 and equal and differ, "2d:2,2 drop masks")
+    out["masks"] = {"count": n_masks, "equal": equal, "differ": differ}
+    return out
+
+
 def ddp_main(n: int, card: str) -> int:
-    """The N-card part (`--ddp N`): see DDP_STEPS."""
+    """The N-card part (`--ddp N`): see DDP_STEPS; at N = 4 also the data
+    x spatial meshes (SPATIAL_MESHES: their train_cli runs beside the
+    one-card runs they are held to, the profiled step, the masks, the
+    gradient)."""
     import tempfile
 
     import torch
@@ -3681,8 +4215,20 @@ def ddp_main(n: int, card: str) -> int:
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
     # K1-K4 at a rank's shapes: global batch 8 (mit_b2 and swin_s below)
-    # over the n cards; 32 over 4 gives the default run's 8.
+    # over the n cards; 32 over 4 gives the default run's 8. (K1/K2 at the
+    # spatial meshes' rank shapes: the default run's spatial_kernel_phase.)
     out = {"cards": n, "rank_kernel_err": rank_kernel_phase(S, W, T, 8 // n)}
+    meshes = [m for m in SPATIAL_MESHES
+              if np.prod([int(x) for x in m[3:].split(",")]) == n]
+    # The meshes' loss and gradient checks are made once all of their
+    # readings are printed.
+    failed = []
+
+    def deferred(ok, msg):
+        if not ok:
+            print(f"check failed (raised at the end): {msg}", flush=True)
+            failed.append(msg)
+
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         make_synthetic_dataset(data, num_train=16, num_val=8, hw=HW,
@@ -3692,8 +4238,7 @@ def ddp_main(n: int, card: str) -> int:
                 str(DDP_NITERS)]
         runs = {}
         one_card = ["-d", "0"]
-        for tag, extra, devs, fp32 in (
-                ("1 card, batch 8", one_card, None, False),
+        plan = [("1 card, batch 8", one_card, None, False),
                 ("1 card, batch 8 (again)", one_card, None, False),
                 (f"{n} cards, batch 8", [], devices, False),
                 (f"{n} cards, batch 32", ["--batch_size", "32"], devices,
@@ -3701,7 +4246,12 @@ def ddp_main(n: int, card: str) -> int:
                 ("1 card, batch 8, fp32", one_card, None, True),
                 ("1 card, batch 8, fp32 (again)", one_card, None, True),
                 ("1 card, batch 8, fp32 (third)", one_card, None, True),
-                (f"{n} cards, batch 8, fp32", [], devices, True)):
+                (f"{n} cards, batch 8, fp32", [], devices, True)]
+        for mesh in meshes:
+            plan += [(f"{mesh}, batch 8", ["--mesh", mesh], devices, False),
+                     (f"{mesh}, batch 8, fp32", ["--mesh", mesh], devices,
+                      True)]
+        for tag, extra, devs, fp32 in plan:
             cwd = os.path.join(tmp, f"run{len(runs)}")
             os.makedirs(cwd)
             t1 = time.perf_counter()
@@ -3711,8 +4261,9 @@ def ddp_main(n: int, card: str) -> int:
                     ranks = [_cli_rank(World.solo("cuda:0"), argv + extra,
                                        fp32)]
                 else:
-                    ranks = launch.spawn(_cli_rank, devs, "cuda",
-                                         (argv + extra, fp32))
+                    ranks = launch.spawn(
+                        _cli_rank, devs, "cuda", (argv + extra, fp32),
+                        mesh=extra[1] if extra[:1] == ["--mesh"] else None)
             torch.cuda.empty_cache()
             r0 = ranks[0]
             runs[tag] = {
@@ -3737,22 +4288,31 @@ def ddp_main(n: int, card: str) -> int:
         # gradients to bf16, a perturbation that no one-card run has) and
         # fp32 (held: DDP_LOSS_FACTOR x the largest spread of three one-card
         # runs, whose perturbations are summation orders, as the split's).
-        many = runs[f"{n} cards, batch 8"]
-        for kind, tags in (("bf16", ("", " (again)")),
-                           ("fp32", (", fp32", ", fp32 (again)",
-                                     ", fp32 (third)"))):
-            ones = [runs[f"1 card, batch 8{t}"]["loss"] for t in tags]
-            got = runs[f"{n} cards, batch 8{tags[0]}"]["loss"]
-            spread = max(abs(a - b) for a in ones for b in ones)
-            gap = max(abs(got - a) for a in ones)
-            print(f"epoch loss, {kind}: {n} cards {got:.6f}, one card "
-                  f"{', '.join(f'{v:.6f}' for v in ones)}: largest gap "
-                  f"{gap:.3e}, largest one-card spread {spread:.3e} "
-                  f"(bound {DDP_LOSS_FACTOR:g}x in fp32)")
-        check(gap <= DDP_LOSS_FACTOR * spread,
-              f"fp32 {n}-card loss {got} vs one card's {ones}")
+        for name in [f"{n} cards"] + meshes:
+            for kind, tags in (("bf16", ("", " (again)")),
+                               ("fp32", (", fp32", ", fp32 (again)",
+                                         ", fp32 (third)"))):
+                ones = [runs[f"1 card, batch 8{t}"]["loss"] for t in tags]
+                got = runs[f"{name}, batch 8{tags[0]}"]["loss"]
+                spread = max(abs(a - b) for a in ones for b in ones)
+                gap = max(abs(got - a) for a in ones)
+                print(f"epoch loss, {kind}: {name} {got:.6f}, one card "
+                      f"{', '.join(f'{v:.6f}' for v in ones)}: largest gap "
+                      f"{gap:.3e}, largest one-card spread {spread:.3e} "
+                      f"(bound {DDP_LOSS_FACTOR:g}x in fp32)")
+            (check if name == f"{n} cards" else deferred)(
+                gap <= DDP_LOSS_FACTOR * spread,
+                f"fp32 {name} loss {got} vs one card's {ones}")
+        for mesh in meshes:
+            r, one = runs[f"{mesh}, batch 8"], runs["1 card, batch 8"]
+            print(f"{mesh} against one card (bf16, train_cli steady): "
+                  f"{r['img_per_s']:.1f} against {one['img_per_s']:.1f} "
+                  f"img/s; peak GiB per rank "
+                  f"{[round(g, 2) for g in r['peak_gib']]} against "
+                  f"{one['peak_gib'][0]:.2f}")
         out["train_cli"] = {k: {kk: vv for kk, vv in v.items() if kk != "cwd"}
                             for k, v in runs.items()}
+        many = runs[f"{n} cards, batch 8"]
 
         # eval_cli over the N cards against one card, one image a forward,
         # on the N-card run's checkpoint
@@ -3798,7 +4358,11 @@ def ddp_main(n: int, card: str) -> int:
     out["order_statistics_grad_err"] = hold_order_losses(
         f"{n} cards", ranks, want)
     del ranks, want
-    out["gradient"], control = grad_phase(train_lib, cfg_lib, devices)
+    if meshes:
+        out["spatial"] = spatial_ddp_part(devices)
+    out["gradient"], control = grad_phase(train_lib, cfg_lib, devices,
+                                          ["dp"] + meshes, deferred)
+    check(not failed, "; ".join(failed))
     # Last, the two checks that need two ranks (`--ddp 1` fails them).
     # (the first call: stage 1, its first window attention; rate 0.3)
     masks = [W.keep_mask(torch.tensor([s["seed"]]), 1, 4, 3, 49, 0.3)
@@ -4327,6 +4891,17 @@ def main() -> int:
     if args.ddp:
         return ddp_main(args.ddp, " | ".join(smi.stdout.strip().splitlines()))
 
+    start = time.perf_counter()
+    clock = [start]
+
+    def lap(name):
+        # wall time of each phase and of the run so far (the run must end
+        # within the caller's limit, builds included)
+        now = time.perf_counter()
+        print(f"[phase {name}: {now - clock[0]:.1f} s; {now - start:.1f} s "
+              "in all]", flush=True)
+        clock[0] = now
+
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
@@ -4339,8 +4914,10 @@ def main() -> int:
         print(f"  ptxas: {len(regs)} kernels, registers {regs}, "
               f"{spills} bytes of spills")
 
+    lap("build")
     fwd_err, fwd_rows = kernel_phase(S)
     bwd_err, bwd_rows = bwd_kernel_phase(S)
+    lap("K1/K2")
     for tag, rows in (("forward", fwd_rows), ("backward", bwd_rows)):
         print(f"SR attention {tag}, the 32 calls of a step: kernel "
               f"{per_step(rows, 'ms'):.3f} ms, plain "
@@ -4365,9 +4942,13 @@ def main() -> int:
               f"{per_step(rows, 'library_ms', SWIN_CALLS):.3f} ms, bound "
               f"{bound:.3f} ms")
     swin_b_kernels = swin_b_kernel_phase(W, T)
+    lap("K3/K4")
     flash_err, flash_rows = flash_kernel_phase(FA, T5)
     narrow_err, narrow_rows, large_rows = narrow_flash_kernel_phase(FA, T5)
+    lap("K5")
     sr_narrow_err, sr_narrow_rows = segnext_sr_kernel_phase(S)
+    spatial_err, spatial_rows = spatial_kernel_phase(S)
+    lap("K1/K2 at SegNeXt's widths and on row blocks")
     for which, tag in (("fwd", "forward"), ("dkv", "dk/dv"), ("dq", "dq")):
         for model, rows in (("mit_b2pp", flash_rows[which]),
                             ("segnext_b", narrow_rows[which]),
@@ -4386,20 +4967,26 @@ def main() -> int:
                   f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
                   f"{100 * r['share_of_bound']:.1f}% of the bound")
     tools = tools_phase()
+    lap("tools")
     cfg = cfg_lib.mfnet_config()
     check(cfg.model.backbone == "mit_b2", "mfnet preset is mit_b2")
     items = synthetic_items(N_IMAGES, HW, cfg.dataset.num_classes)
     mit_eval = slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer,
                            items)
     train = train_phase(S, FA, cfg, train_lib, dual_segformer, items)
+    lap("mit_b2 eval and train")
     swin_eval = swin_eval_phase(S, W, T, cfg_lib, builder, evaluator_lib,
                                 dual_swin, items)
     swin_train = swin_train_phase(S, W, T, cfg_lib, train_lib, dual_swin,
                                   items)
+    lap("swin_s eval and train")
     swin_b = swin_b_phase(S, W, T, cfg_lib, builder, evaluator_lib,
                           train_lib, dual_swin, items)
+    lap("swin_b")
     remat = remat_phase(S, W, cfg_lib, train_lib, items)
+    lap("remat")
     lbfgs = lbfgs_phase(S, cfg_lib, train_lib, items)
+    lap("LBFGS")
     pp_eval = slice_phase(S, FA, pp_cfg(cfg_lib), builder, evaluator_lib,
                           dual_segformer, items, sr_calls=PP_SR_CALLS,
                           flash_calls=PP_FLASH_CALLS, fp32_batch=PP_FP32_BATCH,
@@ -4409,7 +4996,9 @@ def main() -> int:
                            flash_calls=PP_FLASH_CALLS,
                            grad_names=PP_GRAD_NAMES, fp32_batch=PP_FP32_BATCH,
                            vs_truth=True)
+    lap("mit_b2pp eval and train")
     cli = cli_phase(S, cfg_lib, train)
+    lap("CLIs")
     pst = cfg_lib.pst900_config()
     check(pst.model.backbone == "mit_b2_w_aspp"
           and pst.model.decoder == "UPernet", "pst900 preset")
@@ -4418,11 +5007,14 @@ def main() -> int:
                            pst_items)
     pst_train = train_phase(S, FA, pst, train_lib, dual_segformer, pst_items,
                             grad_names=PST_GRAD_NAMES, vs_truth=True)
+    lap("pst900 eval and train")
     proto = protocol_phase(S, cfg_lib, builder, evaluator_lib, dual_segformer)
+    lap("nyu protocol")
     pst_cli = preset_cli_phase(
         S, cfg_lib, builder, evaluator_lib, "pst900", held_keys=(
             "backbone.aspp_modules.3.project.0.weight",
             "decode_head.fpn_bottleneck.0.weight", "aux_head.conv.0.weight"))
+    lap("pst900 CLIs")
     m2f = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 decoder="mask2former"))
     m2f_eval = slice_phase(S, FA, m2f, builder, evaluator_lib,
@@ -4433,6 +5025,7 @@ def main() -> int:
         S, cfg_lib, builder, evaluator_lib, "mfnet", decoder="mask2former",
         held_keys=("decode_head.query_embed", "decode_head.scale",
                    "decode_head.layers.8.ffn.3.weight"))
+    lap("mask2former")
     mlppp = cfg.replace(model=dataclasses.replace(cfg.model,
                                                   decoder="MLPDecoderpp"))
     mlppp_eval = slice_phase(S, FA, mlppp, builder, evaluator_lib,
@@ -4440,6 +5033,7 @@ def main() -> int:
     mlppp_train = train_phase(S, FA, mlppp, train_lib, dual_segformer, items,
                               grad_names=MLPPP_GRAD_NAMES,
                               steps=MLPPP_TRAIN_STEPS)
+    lap("MLPDecoderpp")
     t0 = time.perf_counter()
     segnext_cfg = family_cfg(cfg_lib, "segnext_b")
     segnext_eval = slice_phase(S, FA, segnext_cfg, builder, evaluator_lib,
@@ -4452,13 +5046,17 @@ def main() -> int:
                                 grad_names=SEGNEXT_GRAD_NAMES,
                                 fp32_batch=SEGNEXT_FP32_BATCH, vs_truth=True)
     print(f"segnext_b phases: {time.perf_counter() - t0:.1f} s")
+    lap("segnext_b")
     widths = segnext_widths_phase(S, FA, cfg_lib, builder, evaluator_lib,
                                   train_lib, items)
     resnet = resnet_phase(S, FA, cfg_lib, builder, evaluator_lib, train_lib,
                           items)
+    lap("segnext_tiny / segnext_large, resnet50")
     criteria = criteria_phase(cfg_lib, train_tf32)
+    lap("criteria")
     torch.cuda.empty_cache()
     ddp = ddp_world1_phase(S, cfg_lib, train_lib)
+    lap("DDP at world 1, 2d:1,2")
     print(card)
 
     def kernel_entry(name, replaces, launches, err, rows, calls, source=None):
@@ -4567,7 +5165,21 @@ def main() -> int:
         ("flash_attention_bwd_dq_narrow", "attention.py:50",
          segnext_train["flash_launches"][2]
          + sum(n["flash_dq"] for n in widths.values()), narrow_err["dq"],
-         narrow_rows["dq"], T5.CALLS, "flash_attention_bwd")]
+         narrow_rows["dq"], T5.CALLS, "flash_attention_bwd"),
+        # K1/K2 on the spatial axis (the JAX _make_sharded, whose spatial
+        # psum the all-gather's backward carries): the same kernels; the
+        # launches of the one-card 2d:1,2 world (both ranks), the errors
+        # over every row block (and the summed partial dk, dv), the times
+        # at a 2d:2,2 rank's shapes (spatial_rows has 2d:1,4's too).
+        ("sr_attention_fwd_spatial", "sr_attention.py:303",
+         sum(r[0] for r in ddp["spatial_2d_1_2"]["launches"]),
+         spatial_err["fwd"], spatial_rows["2d:2,2"]["fwd"], CALLS_PER_FORWARD,
+         "sr_attention_fwd"),
+        ("sr_attention_bwd_spatial", "sr_attention.py:303",
+         sum(r[1] for r in ddp["spatial_2d_1_2"]["launches"]),
+         max(spatial_err["bwd"], spatial_err["sum_dkv"]),
+         spatial_rows["2d:2,2"]["bwd"], CALLS_PER_FORWARD,
+         "sr_attention_bwd")]
     print(json.dumps({"kernels": [
         with_rates(kernel_entry(name, replaces, launches, err, rows, calls,
                                 source), calls)
@@ -4584,7 +5196,9 @@ def main() -> int:
         "segnext_b_eval": segnext_eval, "segnext_b_train": segnext_train,
         "resnet50": resnet, "segnext_widths": widths,
         "segnext_sr": {"max_abs_err": sr_narrow_err, "rows": sr_narrow_rows},
-        "segnext_large_flash": large_rows, "tools": tools, "card": card}))
+        "segnext_large_flash": large_rows, "tools": tools,
+        "spatial_kernels": {"max_abs_err": spatial_err,
+                            "rows": spatial_rows}, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -232,7 +232,11 @@ class LBFGS(torch.optim.Optimizer):
     `value` the objective there; the line search calls the closure at each
     trial point. After the step the parameters hold the accepted point;
     `.grad` holds the last evaluation's. `last_step` records the line
-    search's step size, its evaluations and the accepted value."""
+    search's step size, its evaluations, the accepted value and whether
+    the search failed (used up its evaluations, or its interval shrank
+    below the step size precision, without a point that meets both
+    conditions; as in optax the step then takes the best point with
+    sufficient decrease, else the last trial)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float):
         super().__init__(params, {"lr": lr})
@@ -320,5 +324,6 @@ class LBFGS(torch.optim.Optimizer):
         self._assign(point(search.stepsize))
         self.last_step = {"stepsize": float(search.stepsize),
                           "evaluations": search.count,
-                          "value": float(search.value)}
+                          "value": float(search.value),
+                          "failed": bool(search.failed)}
         return value

@@ -44,7 +44,9 @@ from rgbx_semantic_segmentation_tpu_torch.models.decoders.upernet import UPerHea
 from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
     dual_resnet, dual_segformer, dual_segnext, dual_swin)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import init_weights
-from rgbx_semantic_segmentation_tpu_torch.ops.resize import resize_bilinear
+from rgbx_semantic_segmentation_tpu_torch.ops.resize import (
+    resize_bilinear, resize_bilinear_rows)
+from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
 
 MIT_FACTORIES = {
     "mit_tiny": dual_segformer.mit_tiny,
@@ -195,6 +197,18 @@ class EncoderDecoder(nn.Module):
         self.every_param_in_loss = (
             read == set(range(len(channels)))
             and getattr(self.backbone, "every_param_in_loss", True))
+        self.spatial: Optional[spatial.SpatialGroup] = None
+
+    def set_spatial(self, sp: Optional[spatial.SpatialGroup]) -> None:
+        """Run on one rank of the spatial axis of `--mesh 2d:D,S` (None:
+        whole images): forward then takes the rank's row block of the
+        images and returns the logits of those rows
+        (parallel/spatial.py). Ported for the MiT towers with FRM/FFM and
+        the MLPDecoder under the cross-entropy loss; the rest raises
+        NotImplementedError naming its ROADMAP item."""
+        if sp is not None:
+            spatial_support(self.cfg)
+        self.spatial = sp
 
     def forward(self, rgb: torch.Tensor, modal_x: torch.Tensor
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
@@ -204,6 +218,8 @@ class EncoderDecoder(nn.Module):
         e = modal_x.permute(0, 3, 1, 2)
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
+            if self.spatial is not None:
+                return self._forward_rows(x, e)
             feats = self.backbone(x, e)
             out = self.decode_head(feats)
             if isinstance(out, dict):
@@ -220,6 +236,47 @@ class EncoderDecoder(nn.Module):
                 return logits.permute(0, 2, 3, 1)
             aux = resize_bilinear(self.aux_head(feats), size)
         return logits.permute(0, 2, 3, 1), aux.permute(0, 2, 3, 1)
+
+    def _forward_rows(self, x, e) -> torch.Tensor:
+        """forward on one rank of the spatial axis (under the autocast of
+        forward): x, e the rank's row block of the NCHW images; the NHWC
+        logits of those rows, each upsampled from the whole 1/4 map with
+        the whole resize's taps."""
+        sp = self.spatial
+        sharded = self.backbone.spatial_layout(x.shape[2] * sp.size,
+                                               x.shape[3], sp)
+        out = self.decode_head(self.backbone(x, e, sp), sp, sharded)
+        if sharded[0]:
+            out = spatial.gather_rows(out, sp, 2)
+        size = (x.shape[2] * sp.size, x.shape[3])
+        logits = resize_bilinear_rows(out, size, spatial.row_range(size[0],
+                                                                   sp))
+        return logits.permute(0, 2, 3, 1)
+
+
+def spatial_support(cfg: Config) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for a config
+    that `--mesh 2d` does not run: it runs the MiT towers (mit_tiny,
+    mit_b0..b5) with FRM/FFM, the MLPDecoder and the cross-entropy loss."""
+    m = cfg.model
+    if m.backbone not in MIT_FACTORIES:
+        item = ("5c" if is_mit_pp(m.backbone) or m.backbone in SWIN_FACTORIES
+                else "5d")
+        raise NotImplementedError(f"--mesh 2d with backbone {m.backbone!r} "
+                                  f"(ROADMAP Queue 1 item {item})")
+    if (m.feature_rectify_module, m.feature_fusion_module) != ("FRM", "FFM"):
+        raise NotImplementedError("--mesh 2d with IFRM/IFFM (ROADMAP Queue 1 "
+                                  "item 5c)")
+    if m.decoder != "MLPDecoder":
+        raise NotImplementedError(f"--mesh 2d with decoder {m.decoder!r} "
+                                  "(ROADMAP Queue 1 item 5d)")
+    if cfg.train.criterion != "CrossEntropyLoss":
+        raise NotImplementedError(f"--mesh 2d with criterion "
+                                  f"{cfg.train.criterion!r} (ROADMAP Queue 1 "
+                                  "item 5d)")
+    if m.remat:
+        raise NotImplementedError("--mesh 2d with remat (ROADMAP Queue 1 "
+                                  "item 5c)")
 
 
 def main_logits(out) -> torch.Tensor:

@@ -12,6 +12,17 @@ with `_` for `.`, so state dicts convert both ways with no key tables.
 Layouts: maps are NCHW (convs), tokens (B, N, C) with N = H*W in row-major
 order — `flatten(2).transpose(1, 2)` of a map gives the JAX NHWC reshape's
 token order.
+
+On the data x spatial mesh (`--mesh 2d:D,S`, parallel/spatial.py) the FRM/
+FFM towers run on the rank's row block of every map (`forward(..., sp)`): a
+stage shards its rows where JAX's Attention does (spatial.rows_ok: H
+divides by S and M >= S) and runs whole on every spatial rank from the
+first stage that does not (gather, compute; the decoder reads its rows;
+its BatchNorms count the S copies once, sync_bn.set_replicas).
+Within a sharded stage the modules take `rows`, the spatial group: the
+convs exchange halo rows (spatial.conv2d_rows), the attention's keys come
+from the gathered map (its SR conv needs whole r-row windows), the
+LayerNorms, linears and the spatial gates act on the own rows.
 """
 from __future__ import annotations
 
@@ -30,6 +41,9 @@ from rgbx_semantic_segmentation_tpu_torch.ops.attention import (
     multi_head_attention)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
     DropPath, Dropout, checkpointed, map_to_tokens, tokens_to_map)
+from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
+from rgbx_semantic_segmentation_tpu_torch.parallel.sync_bn import (
+    set_replicas)
 
 LN_EPS = 1e-6  # MiT LayerNorms (original repo partial(nn.LayerNorm, eps=1e-6))
 
@@ -41,8 +55,12 @@ class DWConv(nn.Module):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 3, padding=1, groups=dim)
 
-    def forward(self, x, H: int, W: int):
-        return map_to_tokens(self.dwconv(tokens_to_map(x, H, W)))
+    def forward(self, x, H: int, W: int, rows=None):
+        """`rows`: the spatial group when x holds the rank's H rows."""
+        x = tokens_to_map(x, H, W)
+        if rows is not None:
+            return map_to_tokens(spatial.conv2d_rows(x, self.dwconv, rows))
+        return map_to_tokens(self.dwconv(x))
 
 
 class Mlp(nn.Module):
@@ -58,8 +76,8 @@ class Mlp(nn.Module):
         self.drop = Dropout(drop)
         self.gelu = "tanh" if gelu_approximate else "none"
 
-    def forward(self, x, H: int, W: int):
-        x = self.dwconv(self.fc1(x), H, W)
+    def forward(self, x, H: int, W: int, rows=None):
+        x = self.dwconv(self.fc1(x), H, W, rows)
         x = self.drop(F.gelu(x, approximate=self.gelu))
         return self.drop(self.fc2(x))
 
@@ -90,12 +108,21 @@ class Attention(nn.Module):
             self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
             self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
-    def forward(self, x, H: int, W: int):
+    def forward(self, x, H: int, W: int, rows=None):
+        """`rows`: the spatial group when x holds the rank's H rows of the
+        map: q from them, k and v from the whole map (gathered; the SR
+        conv needs whole r-row windows), attended by `_attend`: the same
+        kernels at the rank's shapes, whose dk, dv are the rank's partial
+        sums (ops/sr_attention.sr_attention_sharded says where JAX's psum
+        of them went)."""
         B, N, C = x.shape
         h = self.num_heads
         d = C // h
         scale = d ** -0.5
         q = self.q(x).reshape(B, N, h, d).transpose(1, 2)
+        if rows is not None:
+            x = spatial.gather_rows(x, rows, 1)
+            H = H * rows.size
         if self.sr_ratio > 1:
             xk = self.norm(map_to_tokens(self.sr(tokens_to_map(x, H, W))))
         else:
@@ -106,6 +133,10 @@ class Attention(nn.Module):
         k, v = (t.transpose(1, 2)
                 for t in self.kv(xk).reshape(B, M, 2, h, d).unbind(2))
         if self.attn_drop > 0.0 and self.training:
+            if rows is not None:
+                raise NotImplementedError(
+                    "attention dropout under --mesh 2d (no MiT config sets "
+                    "it; ROADMAP Queue 1 item 5c)")
             out = self._attend_with_dropout(q, k, v, scale)
         else:
             out = self._attend(q, k, v, scale)
@@ -152,9 +183,9 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, gelu_approximate)
 
-    def forward(self, x, H: int, W: int):
-        x = x + self.drop_path(self.attn(self.norm1(x), H, W))
-        return x + self.drop_path(self.mlp(self.norm2(x), H, W))
+    def forward(self, x, H: int, W: int, rows=None):
+        x = x + self.drop_path(self.attn(self.norm1(x), H, W, rows))
+        return x + self.drop_path(self.mlp(self.norm2(x), H, W, rows))
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -167,8 +198,11 @@ class OverlapPatchEmbed(nn.Module):
                               padding=patch_size // 2)
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, x):
-        x = self.proj(x)
+    def forward(self, x, rows=None):
+        """`rows`: the spatial group when x holds the rank's row block and
+        the output rows are to be sharded too (halo conv)."""
+        x = self.proj(x) if rows is None else spatial.conv2d_rows(
+            x, self.proj, rows)
         H, W = x.shape[2:]
         return self.norm(map_to_tokens(x)), H, W
 
@@ -200,6 +234,8 @@ class RGBXTransformer(nn.Module):
         # documented fix of the original repo's stage-2 indices).
         dpr = [float(x) for x in np.linspace(0, drop_path_rate, sum(depths))]
         patch_cfg = [(7, 4), (3, 2), (3, 2), (3, 2)]  # (kernel, stride)
+        self.patch_cfg = patch_cfg
+        self.sr_ratios = tuple(sr_ratios)
         cur = 0
         for s in range(4):
             k, st = patch_cfg[s]
@@ -234,25 +270,62 @@ class RGBXTransformer(nn.Module):
             self.single_aspp = EASPP(embed_dims[3], bn_momentum=bn_momentum)
         self.aspp = aspp
 
-    def forward(self, x_rgb, x_e) -> List[torch.Tensor]:
+    def spatial_layout(self, h: int, w: int,
+                       sp: spatial.SpatialGroup) -> List[bool]:
+        """Which stages shard their rows over `sp` for images of h x w: a
+        stage does where JAX's Attention does (spatial.rows_ok), and every
+        stage from the first that does not runs whole on each spatial rank
+        (its input gathered)."""
+        layout, sharded = [], True
+        for (k, st), r in zip(self.patch_cfg, self.sr_ratios):
+            h = (h + 2 * (k // 2) - k) // st + 1
+            w = (w + 2 * (k // 2) - k) // st + 1
+            m = (h // r) * (w // r) if r > 1 else h * w
+            sharded = sharded and spatial.rows_ok(h, m, sp)
+            layout.append(sharded)
+        return layout
+
+    def forward(self, x_rgb, x_e,
+                sp: Optional[spatial.SpatialGroup] = None
+                ) -> List[torch.Tensor]:
+        """The 4 fused maps. With `sp`, the spatial group of `--mesh 2d:D,S`
+        (FRM/FFM towers without ASPP or remat: models/builder.
+        spatial_support), x_rgb and x_e are the rank's row block of the
+        images, and each map is the rank's row block where `spatial_layout`
+        shards its stage, else the whole map."""
+        sharded = [False] * 4
+        if sp is not None:
+            sharded = self.spatial_layout(x_rgb.shape[2] * sp.size,
+                                          x_rgb.shape[3], sp)
         outs = []
         for s in range(4):
             n = s + 1
-            x_rgb, H, W = getattr(self, f"patch_embed{n}")(x_rgb)
-            x_e, _, _ = getattr(self, f"extra_patch_embed{n}")(x_e)
+            rows = sp if sharded[s] else None
+            first_whole = not sharded[s] and (s == 0 or sharded[s - 1])
+            if sp is not None and first_whole:
+                x_rgb = spatial.gather_rows(x_rgb, sp, 2)
+                x_e = spatial.gather_rows(x_e, sp, 2)
+            x_rgb, H, W = getattr(self, f"patch_embed{n}")(x_rgb, rows)
+            x_e, _, _ = getattr(self, f"extra_patch_embed{n}")(x_e, rows)
             for blk, eblk in zip(getattr(self, f"block{n}"),
                                  getattr(self, f"extra_block{n}")):
                 if self.remat:
                     x_rgb = checkpointed(blk, x_rgb, H, W)
                     x_e = checkpointed(eblk, x_e, H, W)
                 else:
-                    x_rgb = blk(x_rgb, H, W)
-                    x_e = eblk(x_e, H, W)
+                    x_rgb = blk(x_rgb, H, W, rows)
+                    x_e = eblk(x_e, H, W, rows)
             x_rgb = getattr(self, f"norm{n}")(x_rgb)
             x_e = getattr(self, f"extra_norm{n}")(x_e)
+            # (IFRM/IFFM, which 2d does not run, take no `rows`)
+            on_rows = {} if rows is None else {"rows": rows}
             m_rgb, m_e = self.FRMs[s](tokens_to_map(x_rgb, H, W),
-                                      tokens_to_map(x_e, H, W))
-            fused = self.FFMs[s](m_rgb, m_e)
+                                      tokens_to_map(x_e, H, W), **on_rows)
+            # a stage run whole on every spatial rank counts its BatchNorms'
+            # copies once
+            set_replicas(self.FFMs[s],
+                         1 if sp is None or sharded[s] else sp.size)
+            fused = self.FFMs[s](m_rgb, m_e, **on_rows)
             if self.aspp == "aspp":
                 fused = self.aspp_modules[s](fused)
             elif self.aspp == "easpp" and s == 3:

@@ -6,6 +6,12 @@ Maps are NCHW, tokens (B, N, C). Submodule paths are the original repo's
 `cross.cross_attn.kv1`, `channel_emb.channel_embed.4`, ...). LayerNorms
 here use torch's default eps 1e-5 (the JAX `layer_norm` default), not the
 MiT blocks' 1e-6.
+
+FRM and FFM also run on one rank's row block of their maps (`rows`, the
+spatial group of `--mesh 2d:D,S`; parallel/spatial.py): the channel gates'
+pooled statistics and the cross-attention's k^T v, which sum over every
+token, are summed (maxed) over the spatial group; the 3x3 depthwise conv
+exchanges halo rows; the rest is per token.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from rgbx_semantic_segmentation_tpu_torch.ops.attention import (
     multi_head_attention)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
     Dropout, map_to_tokens, tokens_to_map)
+from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
 
 
 class ChannelWeights(nn.Module):
@@ -30,11 +37,20 @@ class ChannelWeights(nn.Module):
             nn.Linear(dim * 4, dim * 4 // reduction), nn.ReLU(),
             nn.Linear(dim * 4 // reduction, dim * 2), nn.Sigmoid())
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, rows=None):
         B = x1.shape[0]
         x = torch.cat([x1, x2], dim=1)                       # (B, 2C, H, W)
-        y = torch.cat([x.mean(dim=(2, 3)), x.amax(dim=(2, 3))], dim=1)
-        y = self.mlp(y)                                      # (B, 2C)
+        if rows is None:
+            mean, peak = x.mean(dim=(2, 3)), x.amax(dim=(2, 3))
+        else:
+            # the whole map's mean (the rows' fp32 sums over the group)
+            # and max, on every spatial rank
+            wide = torch.float64 if x.dtype == torch.float64 else torch.float32
+            n = x.shape[2] * x.shape[3] * rows.size
+            mean = (spatial.spatial_sum(x.to(wide).sum(dim=(2, 3)), rows)
+                    / n).to(x.dtype)
+            peak = spatial.spatial_amax(x, rows, (2, 3))
+        y = self.mlp(torch.cat([mean, peak], dim=1))         # (B, 2C)
         C = self.dim
         return y[:, :C].reshape(B, C, 1, 1), y[:, C:].reshape(B, C, 1, 1)
 
@@ -64,8 +80,8 @@ class FeatureRectifyModule(nn.Module):
         self.channel_weights = ChannelWeights(dim, reduction)
         self.spatial_weights = SpatialWeights(dim, reduction)
 
-    def forward(self, x1, x2):
-        cw0, cw1 = self.channel_weights(x1, x2)
+    def forward(self, x1, x2, rows=None):
+        cw0, cw1 = self.channel_weights(x1, x2, rows)
         sw0, sw1 = self.spatial_weights(x1, x2)
         out_x1 = x1 + self.lambda_c * cw1 * x2 + self.lambda_s * sw1 * x2
         out_x2 = x2 + self.lambda_c * cw0 * x1 + self.lambda_s * sw0 * x1
@@ -154,7 +170,10 @@ class CrossAttention(nn.Module):
         self.kv1 = nn.Linear(dim, dim * 2, bias=qkv_bias)
         self.kv2 = nn.Linear(dim, dim * 2, bias=qkv_bias)
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, rows=None):
+        """`rows`: the spatial group when x1, x2 are the rank's tokens; k^T v
+        (a sum over the tokens) is summed over the group before its
+        softmax."""
         B, N, C = x1.shape
         h = self.num_heads
         d = C // h
@@ -169,8 +188,10 @@ class CrossAttention(nn.Module):
         k2, v2 = kv2[:, :, 0].transpose(1, 2), kv2[:, :, 1].transpose(1, 2)
         with torch.autocast(x1.device.type, enabled=False):
             def ctx(k, v):
-                c = torch.matmul(k.float().transpose(-1, -2), v.float()) * scale
-                return torch.softmax(c, dim=-2).to(v.dtype)
+                c = torch.matmul(k.float().transpose(-1, -2), v.float())
+                if rows is not None:
+                    c = spatial.spatial_sum(c, rows)
+                return torch.softmax(c * scale, dim=-2).to(v.dtype)
 
             ctx1, ctx2 = ctx(k1, v1), ctx(k2, v2)
             y1 = torch.matmul(heads(x1).float(), ctx2.float()).to(x1.dtype)
@@ -254,10 +275,10 @@ class CrossPath(nn.Module):
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, rows=None):
         y1, u1 = torch.relu(self.channel_proj1(x1)).chunk(2, dim=-1)
         y2, u2 = torch.relu(self.channel_proj2(x2)).chunk(2, dim=-1)
-        v1, v2 = self.cross_attn(u1, u2)
+        v1, v2 = self.cross_attn(u1, u2, rows)
         y1 = torch.cat([y1, v1], dim=-1)
         y2 = torch.cat([y2, v2], dim=-1)
         return (self.norm1(x1 + self.end_proj1(y1)),
@@ -311,9 +332,18 @@ class ChannelEmbed(nn.Module):
         self.norm = nn.BatchNorm2d(out_channels, eps=bn_eps,
                                    momentum=bn_momentum)
 
-    def forward(self, x, H: int, W: int):
+    def forward(self, x, H: int, W: int, rows=None):
+        """`rows`: the spatial group when x holds the rank's H rows (the
+        depthwise conv exchanges halo rows; the BatchNorms are synced over
+        the world by parallel/sync_bn.py)."""
         x = tokens_to_map(x, H, W)
-        return self.norm(self.residual(x) + self.channel_embed(x))
+        if rows is None:
+            y = self.channel_embed(x)
+        else:
+            e = self.channel_embed
+            y = spatial.conv2d_rows(e[0](x), e[1], rows)
+            y = e[4](e[3](e[2](y)))
+        return self.norm(self.residual(x) + y)
 
 
 class FeatureFusionModule(nn.Module):
@@ -327,10 +357,10 @@ class FeatureFusionModule(nn.Module):
         self.channel_emb = ChannelEmbed(dim * 2, dim, reduction, bn_momentum,
                                         bn_eps)
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, rows=None):
         H, W = x1.shape[2:]
-        t1, t2 = self.cross(map_to_tokens(x1), map_to_tokens(x2))
-        return self.channel_emb(torch.cat([t1, t2], dim=-1), H, W)
+        t1, t2 = self.cross(map_to_tokens(x1), map_to_tokens(x2), rows)
+        return self.channel_emb(torch.cat([t1, t2], dim=-1), H, W, rows)
 
 
 class ImprovedFeatureFusionModule(nn.Module):

@@ -29,6 +29,48 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
                              align_corners=False)
 
 
+def bilinear_taps(n_in: int, n_out: int, dtype=np.float32):
+    """The taps of F.interpolate's bilinear resize (align_corners=False)
+    along one axis of `n_in` -> `n_out`: for each output index the lower
+    and upper source index and the upper one's weight, with torch's
+    arithmetic in `dtype` (its opmath: float64 for float64 maps, else fp32):
+    scale n_in / n_out, source = scale * (i + 0.5) - 0.5 clamped at 0,
+    upper index clamped to n_in - 1."""
+    f = np.dtype(dtype).type
+    scale = f(n_in) / f(n_out)
+    src = np.maximum(scale * (np.arange(n_out, dtype=f) + f(0.5)) - f(0.5),
+                     f(0))
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    return lo, hi, (src - lo).astype(f)
+
+
+def resize_bilinear_rows(x: torch.Tensor, size: Tuple[int, int],
+                         rows: Tuple[int, int]) -> torch.Tensor:
+    """Rows [rows[0], rows[1]) of resize_bilinear(x, size), from the whole
+    map `x`: what one rank of the spatial axis (parallel/spatial.py) needs
+    of an upsample whose output rows it holds. The row taps are
+    `bilinear_taps` of the whole resize restricted to those rows, so block
+    edges get the whole image's weights; rows then columns in fp32 (the
+    columns by F.interpolate at the rows' own height, which leaves them as
+    they are), cast back to x's dtype as resize_bilinear computes."""
+    r0, r1 = rows
+    if tuple(x.shape[2:]) == tuple(size):
+        return x[:, :, r0:r1]
+    wide = x.dtype == torch.float64
+    lo, hi, w = (a[r0:r1] for a in bilinear_taps(
+        x.shape[2], size[0], np.float64 if wide else np.float32))
+    lo, hi = (torch.from_numpy(a).to(x.device) for a in (lo, hi))
+    w = torch.from_numpy(w).to(x.device).view(1, 1, -1, 1)
+    with torch.autocast(x.device.type, enabled=False):
+        xf = x if wide else x.float()
+        y = xf.index_select(2, lo) * (1.0 - w) + xf.index_select(2, hi) * w
+        if y.shape[3] != size[1]:
+            y = F.interpolate(y, size=(r1 - r0, size[1]), mode="bilinear",
+                              align_corners=False)
+    return y.to(x.dtype)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor,
                                   size: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize with align_corners=True (src = dst * (in - 1) /

@@ -410,3 +410,23 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 sr_attention.launches = 0
+
+
+def sr_attention_sharded(q_rows: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, scale: float) -> torch.Tensor:
+    """SR attention of one rank of the spatial axis (`--mesh 2d:D,S`), the
+    counterpart of the JAX `sr_attention_sharded` (ops/sr_attention.py:333,
+    its shard_map at :303-330): q_rows (B, h, N / S, d) are the rank's own
+    query rows, k and v (B, h, M, d) the whole image's keys, which every
+    spatial rank computes from the gathered map. K1 runs on the own rows
+    and K2 returns dq for them and the rank's PARTIAL dk, dv: the sums over
+    its own query rows only. The same kernels (`sr_attention`) at the
+    rank's shapes.
+
+    The JAX wrapper psums dk and dv over 'spatial' inside the op (:323-324).
+    Here that sum is taken one linear map later: k and v come from the
+    all-gathered map (parallel/spatial.gather_rows), whose backward sums
+    the kv branch's gradient over the spatial group. Summing dk/dv here as
+    well would count the kv projection's weight gradient S times once the
+    world's summing all-reduce adds the ranks' partial gradients."""
+    return sr_attention(q_rows, k, v, scale)

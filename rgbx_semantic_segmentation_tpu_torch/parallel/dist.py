@@ -14,20 +14,38 @@ the card's stream.
 
 `--mesh` specs (the JAX make_mesh_from_spec): 'dp' = the largest count of
 the named devices that divides the global batch (make_mesh_for_batch),
-'dp:N' = exactly N of them. '2d:D,S' and 'tp:D,M' are the 2-D meshes, not
-ported (ROADMAP Queue 1 item 5).
+'dp:N' = exactly N of them, '2d:D,S' = D x S of them, data x spatial (JAX
+make_mesh_2d): rank r holds the images of data rank r // S and, of each,
+the row block r % S (parallel/spatial.py). 'tp:D,M', data x model, is not
+ported (ROADMAP Queue 1 item 5b).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import os
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-TWO_D_MESH = "the 2-D data x spatial / data x model mesh (ROADMAP Queue 1 item 5)"
+from rgbx_semantic_segmentation_tpu_torch.parallel.spatial import (
+    SpatialGroup)
+
+TP_MESH = "the 2-D data x model mesh (ROADMAP Queue 1 item 5b)"
+
+
+def mesh_2d(spec: Optional[str]) -> Optional[Tuple[int, int]]:
+    """(D, S) of a '2d:D,S' spec, None for any other spec; ValueError for
+    a '2d' spec that is not two positive counts."""
+    kind, _, dims = (spec or "").partition(":")
+    if kind != "2d":
+        return None
+    parts = dims.split(",")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise ValueError(f"bad mesh spec {spec!r}: 2d:D,S with two positive "
+                         "counts")
+    return int(parts[0]), int(parts[1])
 
 
 def make_world_from_spec(spec: str, batch_size: int,
@@ -35,7 +53,9 @@ def make_world_from_spec(spec: str, batch_size: int,
     """The devices of the ranks that a `--mesh` spec takes from `devices`
     (rank r runs on the r-th): 'dp' the largest count that divides
     `batch_size`, 'dp:N' the first N (ValueError when there are fewer or the
-    batch does not divide); the 2-D specs raise NotImplementedError."""
+    batch does not divide), '2d:D,S' the first D x S (ValueError when there
+    are fewer or the batch does not divide by D); 'tp:D,M' raises
+    NotImplementedError."""
     spec = spec or "dp"
     devices = list(devices)
     if not devices:
@@ -46,8 +66,17 @@ def make_world_from_spec(spec: str, batch_size: int,
             n -= 1
         return devices[:n]
     kind, _, dims = spec.partition(":")
-    if kind in ("2d", "tp"):
-        raise NotImplementedError(f"--mesh {spec}: {TWO_D_MESH}")
+    if kind == "tp":
+        raise NotImplementedError(f"--mesh {spec}: {TP_MESH}")
+    if kind == "2d":
+        d, s = mesh_2d(spec)
+        if d * s > len(devices):
+            raise ValueError(f"bad mesh spec {spec!r}: need {d * s} devices, "
+                             f"{len(devices)} device(s) named")
+        if batch_size % d:
+            raise ValueError(f"--mesh {spec}: global batch {batch_size} does "
+                             f"not divide by {d}")
+        return devices[:d * s]
     if kind != "dp" or not dims.isdigit():
         raise ValueError(f"unknown mesh spec {spec!r} "
                          "(dp | dp:N | 2d:D,S | tp:D,M)")
@@ -88,6 +117,12 @@ class World:
     and the gloo group for host-side values. Collectives on tensors go over
     the default group (NCCL on the card, gloo on the CPU).
 
+    On a '2d:D,S' mesh (S > 1) the rank also has its coordinates, data rank
+    rank // S of `data_size` D and spatial rank rank % S, with the process
+    groups of its data axis (`data_group`) and of its spatial axis
+    (`spatial`, parallel/spatial.SpatialGroup: the S ranks that hold one
+    image's rows). Elsewhere the data rank is the rank, and `spatial` None.
+
     `World.solo(device)` is one process with no process group: its
     collectives are identities and its barrier a no-op, so code written
     for a rank runs unchanged as one process."""
@@ -96,6 +131,14 @@ class World:
     size: int
     device: torch.device
     host_group: object = None
+    data_rank: Optional[int] = None
+    data_size: Optional[int] = None
+    data_group: object = None
+    spatial: Optional[SpatialGroup] = None
+
+    def __post_init__(self):
+        if self.data_rank is None:
+            self.data_rank, self.data_size = self.rank, self.size
 
     @classmethod
     def solo(cls, device="cpu") -> "World":
@@ -132,35 +175,54 @@ class World:
 
 
 def init_process_group(rank: int, size: int, device: torch.device,
-                       init_method: str) -> World:
+                       init_method: str, mesh: Optional[str] = None,
+                       backend: Optional[str] = None) -> World:
     """Join the world as `rank` of `size` on `device`: NCCL on 'cuda' (the
-    card bound first), gloo on 'cpu'. Raises if the group comes up on
-    another backend."""
+    card bound first), gloo on 'cpu', or the `backend` named (gloo on
+    'cuda' for ranks that share a card, which NCCL refuses: launch.spawn
+    picks it). Raises if the
+    group comes up on another backend. With a '2d:D,S' `mesh` (D x S =
+    size) every rank makes the groups of both axes, in one order."""
     device = torch.device(device)
     if device.type == "cuda":
         if device.index is None:
             raise ValueError("a rank's card needs an index: cuda:N")
         torch.cuda.set_device(device)
-        backend = "nccl"
+        backend = backend or "nccl"
     elif device.type == "cpu":
-        backend = "gloo"
+        backend = backend or "gloo"
     else:
         raise ValueError(f"device {device}: cuda or cpu")
+    dims = mesh_2d(mesh)
+    if dims is not None and dims[0] * dims[1] != size:
+        raise ValueError(f"--mesh {mesh} in a world of {size}")
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=size)
     got = dist.get_backend()
     if got != backend:
         raise RuntimeError(f"process group on {got}, {backend} asked for")
-    return World(rank, size, device, dist.new_group(backend="gloo"))
+    world = World(rank, size, device, dist.new_group(backend="gloo"))
+    if dims is not None and dims[1] > 1:
+        D, S = dims
+        spatial = [dist.new_group(list(range(d * S, (d + 1) * S)))
+                   for d in range(D)]
+        data = [dist.new_group(list(range(s, size, S))) for s in range(S)]
+        world = dataclasses.replace(
+            world, data_rank=rank // S, data_size=D,
+            data_group=data[rank % S],
+            spatial=SpatialGroup(spatial[rank // S], rank % S, S))
+    return world
 
 
 @contextlib.contextmanager
 def process_group(rank: int, size: int, device: torch.device,
-                  init_method: str) -> Iterator[World]:
+                  init_method: str, mesh: Optional[str] = None,
+                  backend: Optional[str] = None) -> Iterator[World]:
     """init_process_group for the block; the group is destroyed when it
     ends, however it ends."""
     try:
-        yield init_process_group(rank, size, device, init_method)
+        yield init_process_group(rank, size, device, init_method, mesh,
+                                 backend)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

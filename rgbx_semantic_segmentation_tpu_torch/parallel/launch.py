@@ -38,14 +38,18 @@ PREEMPT_GRACE_S = 120.0
 
 
 def _rank_main(rank: int, fn: Callable, devices: List[int], device_type: str,
-               init_method: str, workdir: str, args: tuple) -> None:
+               init_method: str, workdir: str, args: tuple,
+               mesh: Optional[str] = None) -> None:
+    backend = None
     if device_type == "cuda":
         device = torch.device("cuda", devices[rank])
+        if len(set(devices)) < len(devices):
+            backend = "gloo"   # ranks that share a card: NCCL refuses them
     else:
         device = torch.device("cpu")
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))
-    with dist_lib.process_group(rank, len(devices), device,
-                                init_method) as world:
+    with dist_lib.process_group(rank, len(devices), device, init_method,
+                                mesh, backend) as world:
         try:
             result = fn(_as_rank(world), *args)
         except BaseException:
@@ -107,14 +111,16 @@ def _join(ctx, timeout: Optional[float], workdir: str) -> None:
 
 def spawn(fn: Callable, devices: Sequence[int], device_type: str,
           args: tuple = (), timeout: Optional[float] = None,
-          workdir: Optional[str] = None) -> list:
+          workdir: Optional[str] = None, mesh: Optional[str] = None) -> list:
     """Run `fn(world, *args)` in one new process per entry of `devices`
     (rank r on card devices[r], or on the CPU for device_type 'cpu') and
     return the ranks' return values in rank order. `fn` must be importable
     by name (the processes start from a fresh interpreter) and return what
     torch.save can write. The ranks meet at a file in `workdir` (default: a
     temporary directory). With `timeout` (s) a world not ended by then is
-    killed and TimeoutError raised."""
+    killed and TimeoutError raised. A '2d:D,S' `mesh` gives the world its
+    data and spatial groups (dist.init_process_group). A card named twice in
+    `devices` holds several ranks, whose world runs on gloo."""
     devices = list(devices)
     if device_type == "cuda":
         from rgbx_semantic_segmentation_tpu_torch.native import build
@@ -130,7 +136,7 @@ def spawn(fn: Callable, devices: Sequence[int], device_type: str,
         init = "file://" + os.path.join(tmp, "rendezvous")
         ctx = mp.start_processes(
             _rank_main, args=(fn, devices, device_type, init, tmp,
-                              tuple(args)),
+                              tuple(args), mesh),
             nprocs=len(devices), join=False, start_method="spawn")
         _join(ctx, timeout, tmp)
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
@@ -177,21 +183,23 @@ def _as_rank(world: dist_lib.World) -> dist_lib.World:
 
 
 def run(fn: Callable, device_type: str, devices: Sequence[int],
-        args: tuple = ()):
+        args: tuple = (), mesh: Optional[str] = None):
     """A CLI's entry over `devices` (from cli_devices): `fn(world, *args)`.
     Under torchrun as the rank the environment names, on card LOCAL_RANK;
     otherwise one device runs it in this process as World.solo (the card
-    made current) and several run `spawn`. The return value is rank 0's."""
+    made current) and several run `spawn`; a '2d' `mesh` gives the world
+    its axes. The return value is rank 0's."""
     devices = list(devices)
     if under_torchrun():
         rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         local = int(os.environ.get("LOCAL_RANK", rank))
         device = (torch.device("cuda", local) if device_type == "cuda"
                   else torch.device("cpu"))
-        with dist_lib.process_group(rank, size, device, "env://") as world:
+        with dist_lib.process_group(rank, size, device, "env://",
+                                    mesh) as world:
             return fn(_as_rank(world), *args)
     if len(devices) > 1:
-        return spawn(fn, devices, device_type, args)[0]
+        return spawn(fn, devices, device_type, args, mesh=mesh)[0]
     if device_type == "cuda":
         torch.cuda.set_device(devices[0])   # the kernels launch on it
     device = (torch.device("cuda", devices[0]) if device_type == "cuda"

@@ -17,6 +17,13 @@ the unbiased factor n / (n - 1) of the GLOBAL count n (JAX :95-108). In eval
 mode the running statistics normalise and no collective runs: ranks run
 different numbers of eval forwards.
 
+On the spatial axis of a '2d' mesh (parallel/spatial.py) a BatchNorm of a
+stage that runs whole on every spatial rank sees the same map on S ranks:
+`set_replicas(module, S)` divides its local sums and count by S, so the
+world's sums count each pixel once (the mean and var then match, and so
+does the running var's n / (n - 1)), and each copy's input gradient is its
+1 / S share.
+
 The state dict is nn.BatchNorm2d's (weight, bias, running_mean, running_var,
 num_batches_tracked), so checkpoints and convert.py work both ways.
 """
@@ -48,6 +55,8 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode statistics are those of the global
     batch over the default process group (see the module docstring)."""
 
+    replicas = 1   # ranks that hold the same input (set_replicas)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
@@ -55,8 +64,11 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
         C = x.shape[1]
         xf = x if x.dtype == torch.float64 else x.float()
         count = xf.new_full((1,), xf.numel() // C)
-        sums = _AllReduceSum.apply(torch.cat(
-            [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           count])
+        if self.replicas > 1:
+            local = local / self.replicas
+        sums = _AllReduceSum.apply(local)
         n = sums[2 * C]
         mean = sums[:C] / n
         var = sums[C:2 * C] / n - mean * mean
@@ -70,6 +82,14 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
         y = ((xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
              * self.weight.view(shape) + self.bias.view(shape))
         return y.to(x.dtype)
+
+
+def set_replicas(module: nn.Module, n: int) -> None:
+    """Every SyncBatchNorm2d of `module` takes its input as held by `n`
+    ranks alike (1: each rank its own)."""
+    for m in module.modules():
+        if isinstance(m, SyncBatchNorm2d):
+            m.replicas = n
 
 
 def convert_sync_batchnorm(model: nn.Module) -> nn.Module:

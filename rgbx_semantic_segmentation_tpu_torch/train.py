@@ -28,8 +28,17 @@ where DDP's default averages per-rank means, which differ once the ranks
 hold different counts of ignored pixels); the BatchNorms are
 parallel/sync_bn's (global statistics); every rank builds the same weights
 from the seed and runs the same update on the same gradients. Masks
-differ per rank: the rank folds into the mask generator's seed, and the
-window attention offsets its kernels' seed by the rank.
+differ per data rank: the data rank folds into the mask generator's seed,
+and the window attention offsets its kernels' seed by the rank.
+
+On a '2d:D,S' world (world.spatial, parallel/spatial.py) the S ranks of a
+data rank hold the same images and each takes its row block of them,
+sliced after the copy to the device; the model runs on those rows
+(EncoderDecoder.set_spatial) and the loss is that of the rows, so the same
+global-count loss and summing all-reduce give the global batch's mean and
+gradient. The spatial ranks of an image draw its masks from one seed (the
+data rank's), so drop-path and Dropout2d drop the same samples and
+channels on all of them.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from rgbx_semantic_segmentation_tpu_torch.models.builder import (
     AUX_RATE, build_model)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import set_generator
 from rgbx_semantic_segmentation_tpu_torch.parallel.dist import World
+from rgbx_semantic_segmentation_tpu_torch.parallel.spatial import own_rows
 from rgbx_semantic_segmentation_tpu_torch.parallel.sync_bn import (
     convert_sync_batchnorm)
 
@@ -86,10 +96,10 @@ def make_loss_fn(cfg: Config, world: Optional[World] = None) -> Callable:
 
 
 def step_seed(seed: int, step: int, rank: int = 0) -> int:
-    """Generator seed of one step's drop-path / dropout masks on `rank`: a
-    fixed mixing of (seed, step, rank), so step s of any run with this seed,
-    resumed or not, draws the same masks, and ranks draw different ones
-    (rank 0 draws what a single process draws)."""
+    """Generator seed of one step's drop-path / dropout masks on data rank
+    `rank`: a fixed mixing of (seed, step, rank), so step s of any run with
+    this seed, resumed or not, draws the same masks, and data ranks draw
+    different ones (rank 0 draws what a single process draws)."""
     return (seed * 1000003 + step * 7919 + rank * 2147483647
             + 12345) % (2 ** 63)
 
@@ -110,8 +120,9 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     """Build `train_step(step, batch) -> loss` (a 0-d tensor on the device;
     no host sync). `seed` overrides cfg.train.seed for the mask stream.
     In a `world` with a process group the step runs `model` (its BatchNorms
-    converted) in DistributedDataParallel; the step returns the global
-    batch's loss."""
+    converted) in DistributedDataParallel, on a spatial world on the rank's
+    rows (`model.set_spatial`); the step returns the global batch's
+    loss."""
     device = next(model.parameters()).device
     world = world or World.solo(device)
     loss_fn = make_loss_fn(cfg, world)
@@ -121,6 +132,9 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     base_seed = cfg.train.seed if seed is None else seed
     generator = torch.Generator(device=device)
     set_generator(model, generator, world.rank)
+    sp = world.spatial
+    if sp is not None:
+        model.set_spatial(sp)
     net = model
     if world.distributed:
         # Every rank built the same weights from the seed, so the
@@ -144,15 +158,18 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
         """uint8 batches normalise on the device ((x / 255 - mean) / std);
         fp32 batches pass through (host-normalised)."""
         rgb, mx = to_device(batch["rgb"]), to_device(batch["modal_x"])
+        label = to_device(batch["label"])
+        if sp is not None:   # the rank's rows of its data rank's images
+            rgb, mx, label = (own_rows(t, sp, 1) for t in (rgb, mx, label))
         if rgb.dtype == torch.uint8:
             rgb = (rgb.float() / 255.0 - mean) / std
             mx = (mx.float() / 255.0 - mean) / std
-        return rgb, mx, to_device(batch["label"]).long()
+        return rgb, mx, label.long()
 
     def evaluate(step, rgb, mx, label) -> torch.Tensor:
         """Loss and gradient at the current parameters, with the masks of
         `step`; returns the global batch's loss."""
-        generator.manual_seed(step_seed(base_seed, step, world.rank))
+        generator.manual_seed(step_seed(base_seed, step, world.data_rank))
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(net(rgb, mx), label)
         loss.backward()

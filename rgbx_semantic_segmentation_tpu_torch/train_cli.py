@@ -7,8 +7,12 @@ config's cadence and resume with -c, on the card unless `--device cpu`.
 launch.py; `--mesh dp` takes the largest count of them that divides the
 global batch, `dp:N` exactly N), with the JAX data mesh's semantics: the
 global batch of --batch_size is split over the ranks and a step computes
-what one process computes on it. On the CPU `--device cpu -d 0,1` runs two
-gloo ranks. Under torchrun the command runs as the rank it is given.
+what one process computes on it. `--mesh 2d:D,S` takes D x S of them, data
+x spatial: the global batch is split over D data ranks and each image's
+rows over the S ranks of its data rank (parallel/spatial.py; mit_* with
+FRM/FFM, the MLPDecoder and the cross-entropy loss). On the CPU
+`--device cpu -d 0,1` runs two gloo ranks. Under torchrun the command runs
+as the rank it is given.
 
 Usage:
     python -m rgbx_semantic_segmentation_tpu_torch.train_cli --config mfnet \\
@@ -52,9 +56,10 @@ def parse_args(argv=None):
                              "'0,1' = two CPU ranks)")
     parser.add_argument("--mesh", default="dp",
                         help="dp (the largest count of the -d devices that "
-                             "divides the batch) | dp:N (exactly N); the 2-D "
-                             "meshes 2d:D,S and tp:D,M are ROADMAP Queue 1 "
-                             "item 5")
+                             "divides the batch) | dp:N (exactly N) | 2d:D,S "
+                             "(D x S of them: D data ranks, each image's "
+                             "rows over S); tp:D,M is ROADMAP Queue 1 item "
+                             "5b")
     parser.add_argument("-c", "--continue", dest="resume", action="store_true")
     parser.add_argument("-p", "--profile_dir", default=None,
                         help="write a torch.profiler trace of the last "
@@ -102,7 +107,8 @@ def main(argv=None):
     cfg = build_config(args)
     devices = launch.cli_devices(args.device, args.devices, args.mesh,
                                  cfg.train.batch_size)
-    return launch.run(train, args.device, devices, (args, cfg))
+    return launch.run(train, args.device, devices, (args, cfg),
+                      mesh=args.mesh)
 
 
 def train(world, args, cfg):
@@ -135,8 +141,10 @@ def train(world, args, cfg):
         start_epoch = 1
         if args.resume:
             start_epoch = engine.restore_checkpoint(trainer)
-        loader = TrainLoader(cfg, root=args.dataset_root, rank=world.rank,
-                             world=world.size)
+        # The spatial ranks of a data rank load its images alike (each
+        # decodes them all) and the step keeps their rows.
+        loader = TrainLoader(cfg, root=args.dataset_root,
+                             rank=world.data_rank, world=world.data_size)
         # Scalar logging (lr + epoch loss, matching reference train.py:226-229,
         # 306-307): JSONL always, TensorBoard mirror when available; rank 0.
         writer = (MetricsWriter(os.path.join(cfg.log_dir, cfg.tag()))

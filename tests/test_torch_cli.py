@@ -206,16 +206,25 @@ def test_clis_default_to_the_card(runs, tmp_path, cli):
 
 
 def test_cli_unported_options_raise(runs, tmp_path):
-    """The 2-D meshes still raise (ROADMAP Queue 1 item 5). The
-    --compat-* options now run: at scale 1.5 under a 32x40 crop the 32x32
-    images take the sliding grid (swapped with --compat-stride-swap), and
-    eval_cli -e last gives the confusion matrix of an in-process
-    SegEvaluator with the same flag."""
+    """The data x model mesh still raises (ROADMAP Queue 1 item 5b); the
+    data x spatial mesh is a spec train_cli takes, held to JAX's checks (2
+    devices for 2d:1,2, a global batch that divides by D; its training
+    runs are tests/test_torch_spatial.py's). The --compat-* options now
+    run: at scale 1.5 under a 32x40 crop the 32x32 images take the
+    sliding grid (swapped with --compat-stride-swap), and eval_cli -e last
+    gives the confusion matrix of an in-process SegEvaluator with the same
+    flag."""
     data = runs["data"]
     with cli_env(runs["cfg"], tmp_path):
-        with pytest.raises(NotImplementedError, match="2-D"):
+        with pytest.raises(NotImplementedError, match="item 5b"):
             train_cli.main(["--dataset_root", data, "--mesh", "tp:2,4",
                             "--device", "cpu"])
+        with pytest.raises(ValueError, match="need 2 devices"):
+            train_cli.main(["--dataset_root", data, "--mesh", "2d:1,2",
+                            "--device", "cpu"])
+        with pytest.raises(ValueError, match="does not divide by 3"):
+            train_cli.main(["--dataset_root", data, "--mesh", "2d:3,1",
+                            "--device", "cpu", "-d", "0,1,2"])
     cfg = runs["cfg"].replace(eval=tconfig.EvalConfig(
         eval_scale_array=(1.5,), eval_crop_size=(32, 40)))
     model = build_model(cfg, device="cpu", seed=None)

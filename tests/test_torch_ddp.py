@@ -872,8 +872,9 @@ def test_every_param_in_loss(decoder):
 
 def test_torchrun_mesh_and_devices(monkeypatch):
     """Under torchrun (RANK, WORLD_SIZE set) a CLI's --mesh must take the
-    whole world: the 2-D meshes raise, dp:N raises unless N is WORLD_SIZE,
-    dp raises when the batch does not divide by it; -d is refused."""
+    whole world: 2d:D,S takes D x S ranks (2d:2,2 the 4; 2d:2,4 needs 8),
+    the data x model mesh raises, dp:N raises unless N is WORLD_SIZE, dp
+    raises when the batch does not divide by it; -d is refused."""
     from rgbx_semantic_segmentation_tpu_torch import train_cli
 
     monkeypatch.setenv("RANK", "0")
@@ -887,12 +888,14 @@ def test_torchrun_mesh_and_devices(monkeypatch):
         launch.cli_devices("cpu", "", "dp", 6)
     with pytest.raises(ValueError, match="-d is for"):
         launch.cli_devices("cpu", "0,1", "dp", 8)
-    for spec in ("2d:2,2", "tp:2,4"):
-        with pytest.raises(NotImplementedError, match="2-D"):
-            launch.cli_devices("cpu", "", spec, 8)
-        with pytest.raises(NotImplementedError, match="2-D"):
-            train_cli.main(["--dataset_root", "unused", "--mesh", spec,
-                            "--device", "cpu"])
+    assert launch.cli_devices("cpu", "", "2d:2,2", 8) == []
+    with pytest.raises(ValueError, match="need 8 devices"):
+        launch.cli_devices("cpu", "", "2d:2,4", 8)
+    with pytest.raises(NotImplementedError, match="2-D"):
+        launch.cli_devices("cpu", "", "tp:2,4", 8)
+    with pytest.raises(NotImplementedError, match="2-D"):
+        train_cli.main(["--dataset_root", "unused", "--mesh", "tp:2,4",
+                        "--device", "cpu"])
 
 
 _TORCHRUN_RANK = """
@@ -956,9 +959,10 @@ def test_mesh_spec_raises():
         pdist.make_world_from_spec("dp:3", 8, [0, 1, 2])
     with pytest.raises(ValueError, match="device"):
         pdist.make_world_from_spec("dp:4", 8, [0, 1])
-    for spec in ("2d:2,2", "tp:2,4"):
-        with pytest.raises(NotImplementedError, match="2-D"):
-            pdist.make_world_from_spec(spec, 8, [0, 1, 2, 3])
+    assert pdist.make_world_from_spec("2d:2,2", 8, [0, 1, 2, 3]) == [
+        0, 1, 2, 3]
+    with pytest.raises(NotImplementedError, match="2-D"):
+        pdist.make_world_from_spec("tp:2,4", 8, [0, 1, 2, 3])
     with pytest.raises(ValueError, match="unknown mesh"):
         pdist.make_world_from_spec("fsdp", 8, [0])
     with pytest.raises(ValueError, match="does not divide"):

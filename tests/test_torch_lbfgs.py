@@ -359,3 +359,39 @@ def test_train_cli_resume_with_lbfgs(tmp_path):
     rows = [json.loads(line) for line in open(logs[1] / "metrics.jsonl")]
     assert [r["value"] for r in rows
             if r["tag"] == "train/learning_rate"] == [0.5] * 3
+
+
+def test_failed_line_search_is_reported():
+    """A line search made to fail: the closure reports |w|^2 with its
+    gradient's sign flipped, so every trial along the step's direction
+    climbs. The zoom search uses its 20 evaluations without a point of
+    sufficient decrease and `last_step` says so (the chip smoke test then
+    holds the step to be finite, not to lower the loss); a search on the
+    true gradient succeeds and says that."""
+    w = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64,
+                     requires_grad=True)
+    opt = LBFGS([w], lr=1.0)
+    flip = [True]
+
+    def closure():
+        opt.zero_grad()
+        loss = (w ** 2).sum()
+        loss.backward()
+        if flip[0]:
+            w.grad.neg_()
+        return loss.detach()
+
+    v = closure()
+    opt.step(closure, v)
+    info = opt.last_step
+    assert info["failed"] is True
+    assert info["evaluations"] == 20
+    assert np.isfinite(info["value"]) and info["value"] >= float(v)
+    assert torch.isfinite(w).all()
+
+    flip[0] = False
+    opt = LBFGS([w], lr=1.0)   # no memory of the flipped gradients
+    v = closure()
+    opt.step(closure, v)
+    assert opt.last_step["failed"] is False
+    assert opt.last_step["value"] < float(v)
