@@ -135,6 +135,18 @@ and nyu presets:
     plain Trainer's, its distance from the plain runs read; and its fp32
     first-step gradient within 4x one card's distance from a float64 step,
     with dk, dv summed twice over the two ranks (the control) beyond it;
+    then the data x model mesh tp:1,2 with both ranks on this card over
+    gloo (each with all 8 images and half of every Mix-FFN / Swin MLP
+    hidden width, parallel/tensor.py): 3 mit_b2 steps and 2 swin_s steps
+    at attention dropout 0.3, K1/K2 32 and K3/K4 48 launches a step on
+    each rank, one loss, mit_b2's first within 5e-3 of the plain
+    Trainer's, the whole parameters bit-equal on both ranks after the
+    steps and their gradients within 1e-2 of each other before the ranks
+    agreed on them, a rank's step ms and peak GiB beside one card's, and
+    a warm step's memory (at the end of the forward, the step's peak, what
+    the split layers save) beside one card's; and
+    its fp32 first-step gradient held as 2d:1,2's, with copy_to_model's
+    backward left without its all-reduce (the control) beyond the bound;
   * K1/K2 on the spatial axis: on each of the S row blocks of q of the
     four mit_b2 stage shapes (S = 2 and 4, 8 and 4 images) against the
     whole image's keys, each block held to the plain versions, the sum of
@@ -147,7 +159,8 @@ visible: K1-K4 at the shapes a rank hands them (8 / N images) against their
 plain versions; train_cli over the N cards (one rank a card) at global
 batch 8 and 32 against one card at 8, drop rates 0 (steady img/s, each
 rank's peak memory, its K1/K2 launches; fp32 epochs too, whose loss is
-held within the spread of three one-card runs), eval_cli over the N cards
+held within the spread of three one-card runs, and a float64 one-card
+epoch), eval_cli over the N cards
 (one image a forward) against one card (the same confusion matrix), the
 NCCL all-reduce's share of a mit_b2 step's device time on rank 0
 (torch.profiler), swin_s steps at attention
@@ -159,11 +172,14 @@ N ranks against one card on a
 batch whose ranks ignore different counts of pixels (fp32; bounded by
 one-card readings, which DDP's default per-rank mean must miss); on four
 cards the data x spatial meshes 2d:2,2 and 2d:1,4 too: train_cli over them
-(the bf16 and fp32 epochs, the fp32 loss held as the data-parallel one),
+(the bf16 and fp32 epochs, the fp32 loss held to the float64 epoch's as
+one card's is: MESH_LOSS_FACTOR),
 the first-step gradient and its control as 2d:1,2's in the default run, a
 mit_b2 step in memory under torch.profiler (step ms, peak GiB per rank,
 the NCCL all-gathers' and all-reduces' share of rank 0's device time),
-and the preset's drop masks equal on an image's spatial ranks.
+and the preset's drop masks equal on an image's spatial ranks; and the
+data x model meshes tp:2,2 and tp:1,4: train_cli, the gradient and its
+control as tp:1,2's, the step in memory.
 
 Any failed check raises and the exit code is non-zero. Without a CUDA device
 it fails; it never falls back to the CPU.
@@ -329,7 +345,7 @@ FLASH_RAGGED = [(1, 2, 200, 130, 32), (2, 1, 77, 1025, 64),
                 (2, 2, 130, 4097, 128)]
 FLASH_FWD_ULPS, FLASH_BWD_ULPS, LSE_ATOL = 2, 2, 1e-5
 # Runs of the stage-1 backward that must give the same bits.
-FLASH_REPEATS = 5
+FLASH_REPEATS = 3
 FLASH_FWD_NOISE, FLASH_REL_L2, FLASH_EXACT_FACTOR = 4, 5e-3, 1.25
 # On inputs whose row max lies in the first kv tile the kernel and the plain
 # version round p alike: at most this share of the outputs may differ, and a
@@ -1456,7 +1472,8 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
                 if runs is plain_fwd:
                     stack.enter_context(dual_segformer.plain_attention(model))
                 runs.append(median_ms(model, rgb_t, mx_t,
-                                      iters=10 if flash_calls == 0 else 4))
+                                      warmup=1 if flash_calls else 3,
+                                      iters=6 if flash_calls == 0 else 3))
     fwd_ms, plain_fwd_ms = np.mean(fwd), np.mean(plain_fwd)
     print(f"{tag} forward alone, batch {EVAL_BATCH} bf16 (CUDA events, host "
           f"dispatch included): {fwd[0]:.3f}/{fwd[1]:.3f} ms "
@@ -1675,7 +1692,7 @@ def one_step_losses_and_grads(train_lib, encoder, cfg, batch, names,
     return out
 
 
-def profile_steps(trainer, data, steps=2, top=12):
+def profile_steps(trainer, data, steps=1, top=12):
     """Device kernels and device time of one step, by the profiler (its
     host overhead makes its wall time meaningless; the counts and device
     times hold). Returns (kernels per step, device ms per step, {the port's
@@ -1866,9 +1883,9 @@ def train_phase(S, FA, cfg, train_lib, dual_segformer, items, sr_calls=32,
         check(len(lambdas) == 8 and set(lambdas) <= set(moved) and not still,
               "the IFRM/IFFM parameters and both lambdas of every stage moved")
 
-    # Kernel path against plain path, same trainer: windows of 2 steps,
+    # Kernel path against plain path, same trainer: windows of a step,
     # kernel, plain, plain, kernel; peak memory of the plain path.
-    def steps_ms(n=2):
+    def steps_ms(n=1):
         x = torch.cuda.Event(enable_timing=True)
         y = torch.cuda.Event(enable_timing=True)
         x.record()
@@ -3341,9 +3358,21 @@ def criteria_phase(cfg_lib, train_tf32):
 # DDP_LOSS_FACTOR x the largest spread of three one-card fp32 runs; the
 # bf16 one is read beside two one-card runs, not held: each rank rounds its
 # partial weight gradients to bf16, which no one-card run does (4-card
-# gaps of 2.5x and 4.3x the one-card spread in two calls).
+# gaps of 2.5x and 4.3x the one-card spread in two calls). The fp32 epochs
+# keep PyTorch's TF32 default (cuDNN TF32 on).
 DDP_STEPS, DDP_NITERS, DDP_SWIN_STEPS = 3, 12, 2
 DDP_LOSS_FACTOR = 4.0
+# On the meshes the one-card spread does not sample the roundings a mesh
+# brings (two four-card runs, H100: tp:1,4 4.86e-5 from one card's loss
+# against that bound's 4.2e-5, TF32 on, where cuDNN picks its algorithms
+# by shape and a tp rank's depthwise convs have 1/M of the channels; with
+# TF32 off the one-card runs agree to an ulp, tp:1,4 lay one ulp from them
+# and tp:2,2, the data split's sums, 1.43e-5). So a mesh's fp32 epoch loss
+# is held to the exact one instead, as its gradient is: its distance from
+# the same epoch in float64 on one card (the plain attention path; the
+# kernels take no float64) at most MESH_LOSS_FACTOR x the largest distance
+# of the three one-card fp32 epochs from it, i.e. as accurate as one card.
+MESH_LOSS_FACTOR = 4.0
 # The first step's loss of 2d:1,2 on one card against the plain Trainer's
 # (same weights and batch, before any update: the forward's summation
 # orders and bf16 roundings only): the kernel-vs-plain loss bound.
@@ -3382,6 +3411,24 @@ DDP_GRAD_FACTOR = 4.0
 # this check on 2d:1,2 with both ranks on its one card, `--ddp 4` on
 # SPATIAL_MESHES.
 SPATIAL_GRAD_FACTOR = 4.0
+# The data x model meshes (parallel/tensor.py): tp:1,2 with both ranks on
+# the default run's one card (gloo), tp:2,2 and tp:1,4 on four cards. Their
+# fp32 first-step gradient is held as the spatial meshes' (the model
+# group's sums of the split layers' partial products and of their input's
+# gradient change the summation order inside each image); the control is
+# the same step with copy_to_model's backward left without its all-reduce
+# over the model group (each rank then keeps only its hidden slice's part
+# of the gradient below a split layer).
+TP_MESH_ONE_CARD = "tp:1,2"
+TP_MESHES = ["tp:2,2", "tp:1,4"]
+TP_STEPS, TP_SWIN_STEPS = 3, 2
+# On the card the model ranks' gradients of a whole parameter differ in
+# their last bits (atomics), and the step hands model rank 0's to the
+# others (parallel/tensor.agree). What they differed by before that, the
+# relative L2 distance over all the whole parameters' gradients, is held
+# below TP_AGREE_BOUND: rounding noise, where another mask or kernel seed
+# on one rank would part them by O(1).
+TP_AGREE_BOUND = 1e-2
 
 
 def rank_kernel_phase(S, W, T, per_rank):
@@ -3444,8 +3491,8 @@ def _ddp_cfg(cfg_lib, batch=8):
 
 def _ddp_world1_rank(world, cfg, steps):
     """The rank of the world-1 DDP phase: `steps` Trainer steps on the
-    synthetic batches, with the K1/K2 launches and the step time (events
-    after the first step)."""
+    synthetic batches, with the K1/K2 launches, the step time (events
+    after the first step) and a warm step's memory_probe after them."""
     import torch
     import torch.distributed as dist
 
@@ -3473,6 +3520,7 @@ def _ddp_world1_rank(world, cfg, steps):
     step_ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
     launches = (S.sr_attention.launches, S.sr_attention_bwd.launches)
     payload = _trainer_payload(trainer)
+    memory = memory_probe(trainer, batches[steps % len(batches)])
     del trainer
     torch.cuda.empty_cache()
     # OHEM and berHu through their over-ranks functions (NCCL all-gather,
@@ -3488,8 +3536,70 @@ def _ddp_world1_rank(world, cfg, steps):
         order_losses(World.solo(world.device), cfg_lib, rows, 1))
     return {"backend": backend, "device": str(world.device),
             "launches": launches, "losses": [float(v) for v in losses],
+            "memory": memory,
             "step_ms": step_ms, "payload": payload,
             "order_statistics_grad_err": order}
+
+
+def memory_probe(trainer, batch):
+    """One more (warm) Trainer step on `batch`, its memory read around it
+    in GiB: allocated before it (`base`), at the end of the model's forward
+    (`forward_end`) and the most by then (`forward_peak`), the step's peak
+    (`step_peak`); and `split_saved`, what the Mix-FFN / Swin MLP layers
+    (the ones a 'tp' mesh splits) keep for the backward: the distinct
+    storages their autograd saves."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+        dual_segformer, dual_swin)
+
+    gib = 2 ** 30
+    saved, entered, at_end, hooks = {}, [], {}, []
+
+    def pack(t):
+        st = t.untyped_storage()
+        saved[st.data_ptr()] = st.nbytes()
+        return t
+
+    def enter(module, inputs):
+        ctx = torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t)
+        ctx.__enter__()
+        entered.append(ctx)
+
+    def leave(module, inputs, output):
+        entered.pop().__exit__(None, None, None)
+
+    def forward_end(module, inputs, output):
+        torch.cuda.synchronize()
+        at_end["forward_end"] = torch.cuda.memory_allocated() / gib
+        at_end["forward_peak"] = torch.cuda.max_memory_allocated() / gib
+
+    model = trainer.model
+    for m in model.modules():
+        if isinstance(m, (dual_segformer.Mlp, dual_swin.SwinMlp)):
+            hooks += [m.register_forward_pre_hook(enter),
+                      m.register_forward_hook(leave)]
+    hooks.append(model.register_forward_hook(forward_end))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / gib
+    try:
+        trainer.step(batch)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"base": base, **at_end,
+            "step_peak": torch.cuda.max_memory_allocated() / gib,
+            "split_saved": sum(saved.values()) / gib}
+
+
+def print_memory_probe(tag, probe):
+    print(f"  {tag}, a warm step's memory (GiB): before "
+          f"{probe['base']:.3f}, end of forward {probe['forward_end']:.3f}"
+          f" (most by then {probe['forward_peak']:.3f}), step peak "
+          f"{probe['step_peak']:.3f}; the Mix-FFN / MLP layers save "
+          f"{probe['split_saved']:.3f}")
 
 
 def _spatial_world_rank(world, cfg, steps):
@@ -3528,6 +3638,180 @@ def _spatial_world_rank(world, cfg, steps):
     return out
 
 
+def _whole_digest(model):
+    """sha256 of each parameter and buffer that is whole on every model
+    rank of a data x model world (a split parameter's slices differ by
+    design)."""
+    import hashlib
+
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.parallel import tensor
+
+    split = tensor.split_params(model)
+    return {k: hashlib.sha256(v.detach().cpu().reshape(-1).contiguous().view(
+        torch.uint8).numpy().tobytes()).hexdigest()
+        for k, v in model.state_dict().items() if k not in split}
+
+
+def _tp_world_rank(world, cfg, swin, steps, swin_steps):
+    """A rank of the one-card data x model world (tp:1,2 over gloo, both
+    ranks on one card, each with all 8 images and half of every Mix-FFN /
+    Swin MLP hidden width): `steps` mit_b2 Trainer steps (K1/K2 launches,
+    step time by events after the first step, the peak memory of the
+    rank's process), then `swin_steps` swin_s steps at its attention
+    dropout 0.3 (K3/K4 launches); the digests of the whole parameters
+    after each, which must be equal on both ranks, and the largest
+    relative distance of this rank's whole-parameter gradients from model
+    rank 0's before the step agreed on them (see TP_AGREE_BOUND)."""
+    import torch
+    import torch.distributed as dist
+
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+    from rgbx_semantic_segmentation_tpu_torch.ops import window_attention as W
+    from rgbx_semantic_segmentation_tpu_torch.parallel import tensor
+
+    agree, gaps = tensor.agree, []
+
+    def whole_grads(model):
+        split = tensor.split_params(model)
+        return torch.cat([p.grad.float().flatten()
+                          for n, p in model.named_parameters()
+                          if n not in split and p.grad is not None])
+
+    def spy(model, mg, extra=()):
+        before = whole_grads(model)
+        agree(model, mg, extra)
+        after = whole_grads(model)
+        gaps.append(float((before - after).norm() / after.norm()))
+
+    backend = dist.get_backend()
+    check(backend == "gloo" and world.model is not None
+          and world.model.size == 2, f"tp:1,2 world on {backend}")
+    batches = uint8_batches(synthetic_items(N_IMAGES, HW,
+                                            cfg.dataset.num_classes), 8)
+    out = {}
+    for tag, c, n, counters, calls in (
+            ("mit_b2", cfg, steps, (S.sr_attention, S.sr_attention_bwd), 32),
+            ("swin_s", swin, swin_steps,
+             (W.window_attention, W.window_attention_bwd), 48)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = train_lib.Trainer(c, seed=0, world=world)
+        for fn in counters:
+            fn.launches = 0
+        losses, t0 = [], None
+        gaps.clear()
+        tensor.agree = spy
+        try:
+            for i in range(n):
+                losses.append(trainer.step(batches[i % len(batches)])["loss"])
+                if i == 0:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+            torch.cuda.synchronize()
+        finally:
+            tensor.agree = agree
+        out[tag] = {
+            "launches": tuple(fn.launches for fn in counters),
+            "expected": (calls * n, calls * n),
+            "losses": [float(v) for v in losses],
+            "step_ms": (time.perf_counter() - t0) * 1e3 / max(n - 1, 1),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "split": len(trainer.model.tp_dims),
+            "digest": _whole_digest(trainer.model), "gap": max(gaps)}
+        if tag == "mit_b2":
+            out[tag]["memory"] = memory_probe(trainer, batches[n % len(
+                batches)])
+        del trainer
+    return out
+
+
+def hold_tp_world(ranks, wall, plain_first, plain_ms, plain_peak,
+                  plain_memory, world1_memory):
+    """The data x model mesh tp:1,2 with both ranks on this card (gloo;
+    `ranks`: _tp_world_rank's results, `wall` their world's seconds):
+    mit_b2 for TP_STEPS steps and swin_s for TP_SWIN_STEPS steps at its
+    attention dropout 0.3: K1/K2 32 and K3/K4 48 launches a step on each
+    rank, one finite loss on both ranks, mit_b2's first within
+    SPATIAL_LOSS_RTOL of the plain Trainer's (`plain_first`), the whole
+    parameters bit-equal on both ranks after the steps, their gradients
+    within TP_AGREE_BOUND of each other before the ranks agreed on them; a
+    rank's step ms and peak GiB beside one card's (`plain_ms`,
+    `plain_peak`), and a warm mit_b2 step's memory_probe beside one
+    card's (`plain_memory`) and the world-1 rank's (`world1_memory`: DDP
+    and the synced BatchNorms, whose fp32 saved tensors every world
+    has)."""
+    out = {"seconds": wall}
+    for tag in ("mit_b2", "swin_s"):
+        rs = [r[tag] for r in ranks]
+        r0 = rs[0]
+        same = all(r["digest"] == r0["digest"] for r in rs)
+        print(f"{TP_MESH_ONE_CARD} on one card, {tag} (gloo, {wall:.1f} s "
+              f"for both models with the process starts): losses "
+              f"{r0['losses']}, launches per rank "
+              f"{[r['launches'] for r in rs]} (expected {r0['expected']}), "
+              f"{r0['split']} split tensors, whole parameters bit-equal on "
+              f"both ranks: {same} (their gradients before the ranks agreed "
+              f"on them {max(r['gap'] for r in rs):.3e} apart, bound "
+              f"{TP_AGREE_BOUND:g}); step {r0['step_ms']:.1f} ms (the two "
+              f"ranks share the card with the other worlds), peak GiB per "
+              f"rank "
+              f"{[round(r['peak_gib'], 2) for r in rs]}")
+        check(all(tuple(r["launches"]) == r0["expected"] for r in rs),
+              f"{TP_MESH_ONE_CARD} {tag}: launches on each rank")
+        check(all(np.isfinite(r0["losses"]))
+              and all(r["losses"] == r0["losses"] for r in rs),
+              f"{TP_MESH_ONE_CARD} {tag}: one finite loss on both ranks")
+        check(r0["split"] > 0 and same,
+              f"{TP_MESH_ONE_CARD} {tag}: split, whole parameters bit-equal")
+        check(max(r["gap"] for r in rs) <= TP_AGREE_BOUND,
+              f"{TP_MESH_ONE_CARD} {tag}: the ranks' gradients before they "
+              "agreed")
+        out[tag] = {k: r0[k] for k in ("launches", "losses", "step_ms",
+                                       "split")}
+        out[tag]["launches_per_rank"] = [list(r["launches"]) for r in rs]
+        out[tag]["peak_gib"] = [r["peak_gib"] for r in rs]
+        out[tag]["bit_equal"] = same
+        out[tag]["gradient_gap"] = max(r["gap"] for r in rs)
+    mit = out["mit_b2"]
+    print(f"{TP_MESH_ONE_CARD} mit_b2 against one card (bf16, batch 8): "
+          f"step {mit['step_ms']:.1f} against {plain_ms:.1f} ms, peak GiB "
+          f"per rank {[round(g, 2) for g in mit['peak_gib']]} against "
+          f"{plain_peak:.2f}")
+    check(abs(mit["losses"][0] / plain_first - 1) <= SPATIAL_LOSS_RTOL,
+          f"{TP_MESH_ONE_CARD} first loss {mit['losses'][0]} vs one card's "
+          f"{plain_first}")
+    print_memory_probe("one card", plain_memory)
+    print_memory_probe("world 1 (DDP, synced BatchNorms)", world1_memory)
+    for i, r in enumerate(ranks):
+        print_memory_probe(f"{TP_MESH_ONE_CARD} rank {i}", r["mit_b2"][
+            "memory"])
+    mit["memory"] = [r["mit_b2"]["memory"] for r in ranks]
+    out.update({"plain_step_ms": plain_ms, "plain_peak_gib": plain_peak,
+                "plain_memory": plain_memory, "world1_memory": world1_memory})
+    return out
+
+
+def _spawn_together(launch, worlds):
+    """launch.spawn of each of `worlds` ({tag: (fn, devices, args, mesh)}),
+    all started at once from threads: ({tag: the ranks' results}, {tag:
+    the world's seconds, its process starts included})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(fn, devices, args, mesh):
+        t0 = time.perf_counter()
+        return (launch.spawn(fn, devices, "cuda", args, mesh=mesh),
+                time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(len(worlds)) as pool:
+        futures = {tag: pool.submit(run, *w) for tag, w in worlds.items()}
+        done = {tag: f.result() for tag, f in futures.items()}
+    return ({t: d[0] for t, d in done.items()},
+            {t: d[1] for t, d in done.items()})
+
+
 def ddp_world1_phase(S, cfg_lib, train_lib):
     """Trainer through the launcher at world 1 over NCCL against two plain
     one-process Trainers from the same seed (see DDP_STEPS); then the same
@@ -3537,8 +3821,10 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
     shapes, one loss on both ranks, the first step's loss within
     SPATIAL_LOSS_RTOL of the plain Trainer's; its distance from the plain
     runs is read, not held (bf16: each rank rounds its partial weight
-    gradients, as the data-parallel ranks do). Last, 2d:1,2's fp32
-    first-step gradient and its control (grad_phase)."""
+    gradients, as the data-parallel ranks do). Then the data x model mesh
+    tp:1,2 on this card (hold_tp_world). The three worlds run at once
+    (_spawn_together). Last, 2d:1,2's and tp:1,2's fp32 first-step
+    gradients and their controls (grad_phase), their worlds at once."""
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
@@ -3546,8 +3832,9 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
     cfg = _ddp_cfg(cfg_lib)
     batches = uint8_batches(synthetic_items(N_IMAGES, HW,
                                             cfg.dataset.num_classes), 8)
-    plain, plain_ms, first = [], [], []
-    for _ in range(2):
+    plain, plain_ms, first, plain_peak = [], [], [], []
+    for run in range(2):
+        torch.cuda.reset_peak_memory_stats()
         trainer = train_lib.Trainer(cfg, seed=0)
         for i in range(DDP_STEPS):
             loss = trainer.step(batches[i % len(batches)])["loss"]
@@ -3558,20 +3845,33 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
                 t0 = time.perf_counter()
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3 / (DDP_STEPS - 1))
+        plain_peak.append(torch.cuda.max_memory_allocated() / 2 ** 30)
         plain.append(_state_groups(_trainer_payload(trainer)))
+        if run == 0:
+            plain_memory = memory_probe(trainer, batches[DDP_STEPS % len(
+                batches)])
         del trainer
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    rank = launch.spawn(_ddp_world1_rank, [torch.cuda.current_device()],
-                        "cuda", (cfg, DDP_STEPS))[0]
-    wall = time.perf_counter() - t0
+    # The three worlds share the card at once (their checks do not depend
+    # on it; their step times, read beside the plain Trainer's, do).
+    card = torch.cuda.current_device()
+    worlds = {
+        "world 1": (_ddp_world1_rank, [card], (cfg, DDP_STEPS), None),
+        "2d:1,2": (_spatial_world_rank, [card, card], (cfg, DDP_STEPS),
+                   "2d:1,2"),
+        TP_MESH_ONE_CARD: (_tp_world_rank, [card, card],
+                           (cfg, swin_cfg(cfg_lib), TP_STEPS, TP_SWIN_STEPS),
+                           TP_MESH_ONE_CARD)}
+    results, walls = _spawn_together(launch, worlds)
+    rank, wall = results["world 1"][0], walls["world 1"]
     check(rank["backend"] == "nccl", "DDP phase: NCCL")
     want = (32 * DDP_STEPS, 32 * DDP_STEPS)
     print(f"DDP world 1 ({rank['device']}, NCCL, {wall:.1f} s with the "
           f"process start): losses {rank['losses']}, K1 {rank['launches'][0]}"
           f", K2 {rank['launches'][1]} launches (expected {want}); step "
-          f"{rank['step_ms']:.1f} ms against the plain Trainer's "
-          f"{plain_ms[0]:.1f}, {plain_ms[1]:.1f} ms")
+          f"{rank['step_ms']:.1f} ms (the card shared with the other "
+          f"worlds) against the plain Trainer's {plain_ms[0]:.1f}, "
+          f"{plain_ms[1]:.1f} ms")
     check(tuple(rank["launches"]) == want, f"DDP launches {rank['launches']}")
     check(all(np.isfinite(rank["losses"])), "DDP losses finite")
     got = _state_groups(rank["payload"])
@@ -3587,11 +3887,7 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
         check(d_ddp <= RESUME_FACTOR * d_two + RESUME_FLOOR,
               f"DDP {name}: {d_ddp} vs {d_two}")
 
-    t0 = time.perf_counter()
-    card = torch.cuda.current_device()
-    sp_ranks = launch.spawn(_spatial_world_rank, [card, card], "cuda",
-                            (cfg, DDP_STEPS), mesh="2d:1,2")
-    sp_wall = time.perf_counter() - t0
+    sp_ranks, sp_wall = results["2d:1,2"], walls["2d:1,2"]
     r0 = sp_ranks[0]
     print(f"2d:1,2 on one card (gloo, {sp_wall:.1f} s with the process "
           f"starts): losses {r0['losses']} (plain first step "
@@ -3616,20 +3912,26 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
         print(f"  2d:1,2 {name}: rel L2 from a plain run "
               f"{sp_dist[name]['spatial']:.3e} (two plain runs "
               f"{dist[name]['two_runs']:.3e}; read, not held)")
+    torch.cuda.empty_cache()
+    tp_out = hold_tp_world(results[TP_MESH_ONE_CARD],
+                           walls[TP_MESH_ONE_CARD], first[0], plain_ms[0],
+                           max(plain_peak), plain_memory, rank["memory"])
     t0 = time.perf_counter()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    grad, _ = grad_phase(train_lib, cfg_lib, [card, card], ["2d:1,2"])
+    grad, _ = grad_phase(train_lib, cfg_lib, [card, card],
+                         ["2d:1,2", TP_MESH_ONE_CARD], together=True)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
-    print(f"  2d:1,2 gradient check on one card: "
+    print(f"  2d:1,2 and {TP_MESH_ONE_CARD} gradient checks on one card: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tp_out["gradient"] = {k: v for k, v in grad.items() if k != "2d:1,2"}
     spatial_out = {"launches": [list(r["launches"]) for r in sp_ranks],
                    "losses": r0["losses"], "plain_first_loss": first,
                    "step_ms": r0["step_ms"], "seconds": sp_wall,
                    "peak_gib": [r["peak_gib"] for r in sp_ranks],
                    "rel_l2": sp_dist, "gradient": grad}
-    return {"spatial_2d_1_2": spatial_out,
+    return {"spatial_2d_1_2": spatial_out, "tp_1_2": tp_out,
             "launches": {"fwd": rank["launches"][0],
                          "bwd": rank["launches"][1]},
             "losses": rank["losses"], "step_ms": rank["step_ms"],
@@ -3710,15 +4012,41 @@ def _kv_twice(world):
     return wrong
 
 
+def _model_grads(model):
+    """The flat fp32 gradient of `model` on the CPU, a split model's
+    (`--mesh tp`) gathered whole: every rank must call it."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.parallel import tensor
+
+    if not tensor.split_params(model):
+        return _flat_grads(model)
+    return torch.cat([g.detach().float().flatten() for g in
+                      tensor.full_grads(model).values()]).cpu()
+
+
+def _without_model_sum():
+    """A known-wrong copy_to_model for the data x model gradient check's
+    control: its backward without the all-reduce over the model group."""
+    from rgbx_semantic_segmentation_tpu_torch.parallel import tensor
+
+    class Local(tensor._CopyToModel):
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+    return Local
+
+
 def _ddp_grad_rank(world, cfg, batch, control=True):
     """One rank of the gradient check: Trainer.step on the rank's rows of
     `batch` (its data rank's images; on a 2d mesh the step keeps its rows
     of them) with the global-mean loss, the summed buckets, the synced
     BatchNorm; then, with `control`, a known-wrong step on the same weights
     and rows: on a 2d mesh the same step with dk, dv summed twice over the
-    spatial group (_kv_twice), else DDP's default (each rank's own mean,
-    the gradients averaged). Rank 0 returns the losses and the
-    gradients."""
+    spatial group (_kv_twice), on a tp mesh with copy_to_model's backward
+    left without its all-reduce (_without_model_sum), else DDP's default
+    (each rank's own mean, the gradients averaged). Rank 0 returns the
+    losses and the gradients."""
     import torch
     from torch.nn.parallel import DistributedDataParallel
 
@@ -3737,11 +4065,26 @@ def _ddp_grad_rank(world, cfg, batch, control=True):
     local = {k: v[rows] for k, v in batch.items()}
     trainer = train_lib.Trainer(cfg, seed=0, world=world)
     out = {"loss": float(trainer.step(local)["loss"])}
+    grad = _model_grads(trainer.model)
     if world.is_main():
-        out["grad"] = _flat_grads(trainer.model)
-    del trainer
+        out["grad"] = grad
+    del trainer, grad
     torch.cuda.empty_cache()
     if not control:
+        return out
+    if world.model is not None:
+        from rgbx_semantic_segmentation_tpu_torch.parallel import tensor
+
+        right = tensor._CopyToModel
+        tensor._CopyToModel = _without_model_sum()
+        try:
+            trainer = train_lib.Trainer(cfg, seed=0, world=world)
+            out["control_loss"] = float(trainer.step(local)["loss"])
+            grad = _model_grads(trainer.model)
+            if world.is_main():
+                out["control_grad"] = grad
+        finally:
+            tensor._CopyToModel = right
         return out
     if world.spatial is not None:
         from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
@@ -3751,9 +4094,9 @@ def _ddp_grad_rank(world, cfg, batch, control=True):
         dual_segformer.multi_head_attention = _kv_twice(world)
         try:
             trainer = train_lib.Trainer(cfg, seed=0, world=world)
-            out["kv_twice_loss"] = float(trainer.step(local)["loss"])
+            out["control_loss"] = float(trainer.step(local)["loss"])
             if world.is_main():
-                out["kv_twice_grad"] = _flat_grads(trainer.model)
+                out["control_grad"] = _flat_grads(trainer.model)
         finally:
             dual_segformer.multi_head_attention = attend
         return out
@@ -3795,14 +4138,18 @@ def float64_grad(train_lib, cfg, batch):
     return grad
 
 
-def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check):
+def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check,
+               together=False):
     """The first-step gradient over the ranks against one card (see
     DDP_GRAD_FACTOR and SPATIAL_GRAD_FACTOR), on each of `meshes` over the
     devices ('dp': one data rank a card, with DDP's default as the
     control; '2d:D,S': the data x spatial mesh, with the spatial sum of
-    dk, dv taken twice as the control). The dp control's check is
-    returned, for the caller to make last: it needs two ranks (None
-    without 'dp'). The meshes' bounds and controls go to `hold`."""
+    dk, dv taken twice as the control; 'tp:D,M': the data x model mesh,
+    with copy_to_model's backward left without its all-reduce as the
+    control). The dp control's check is returned, for the caller to make
+    last: it needs two ranks (None without 'dp'). The meshes' bounds and
+    controls go to `hold`. `together`: the meshes' worlds run at once (the
+    default run's two worlds on its one card)."""
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
@@ -3853,38 +4200,46 @@ def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check):
     def exact(g):
         return float((g.double() - truth).norm() / truth.norm())
 
-    for mesh in meshes:
-        if mesh == "dp":
-            continue
+    worlds = {m: (_ddp_grad_rank, devices, (cfg, batch), m) for m in meshes
+              if m != "dp"}
+    if together:
+        results, walls = _spawn_together(launch, worlds)
+    for mesh in worlds:
         t0 = time.perf_counter()
-        ranks = launch.spawn(_ddp_grad_rank, devices, "cuda", (cfg, batch),
-                             mesh=mesh)
+        if together:
+            ranks, seconds = results[mesh], walls[mesh]
+        else:
+            ranks = launch.spawn(_ddp_grad_rank, devices, "cuda",
+                                 (cfg, batch), mesh=mesh)
+            seconds = time.perf_counter() - t0
         r0 = ranks[0]
         got, err = rel(r0["grad"]), exact(r0["grad"])
-        wrong = exact(r0["kv_twice_grad"])
+        wrong = exact(r0["control_grad"])
+        control = ("dk, dv summed twice over the spatial group"
+                   if mesh.startswith("2d") else
+                   "copy_to_model's backward without its all-reduce")
         limit = SPATIAL_GRAD_FACTOR * one_err
         beside = ("" if "dp" not in meshes else
                   f"; read beside {bound:.3e}, {DDP_GRAD_FACTOR:g}x the "
                   "one-card readings " + ", ".join(
                       f"{k} {v:.3e}" for k, v in readings.items()))
         print(f"first-step gradient, mit_b2 fp32, global batch 8, {mesh} "
-              f"({time.perf_counter() - t0:.1f} s with the process starts):"
+              f"({seconds:.1f} s with the process starts):"
               f" {got:.3e} from one card's (loss {r0['loss']:.6f} against "
               f"{ref_loss:.6f}{beside}); {err:.3e} from the float64 step, "
               f"bound {limit:.3e} ({SPATIAL_GRAD_FACTOR:g}x one card's "
-              f"{one_err:.3e}); dk, dv summed twice over the spatial group "
-              f"(the control) {wrong:.3e} (loss {r0['kv_twice_loss']:.6f})",
-              flush=True)
+              f"{one_err:.3e}); {control} (the control) {wrong:.3e} (loss "
+              f"{r0['control_loss']:.6f})", flush=True)
         check(all(r["loss"] == r0["loss"] for r in ranks),
               f"gradient check, {mesh}: every rank reports the global loss")
         hold(err <= limit, f"{mesh} gradient {err} from the float64 step, "
              f"bound {limit}")
-        hold(wrong > limit, f"{mesh} control (dk, dv summed twice) at "
-             f"{wrong} does not miss the bound {limit}")
+        hold(wrong > limit, f"{mesh} control ({control}) at {wrong} does "
+             f"not miss the bound {limit}")
         out[mesh] = {"from_one_card": got, "from_float64": err,
-                     "kv_twice_from_float64": wrong}
+                     "control_from_float64": wrong}
         out["losses"][mesh] = r0["loss"]
-        out["losses"][f"{mesh}, kv twice"] = r0["kv_twice_loss"]
+        out["losses"][f"{mesh}, control"] = r0["control_loss"]
     if "dp" not in meshes:
         return out, None
     valid = (batch["label"] != 255).reshape(len(devices), -1).sum(1)
@@ -3911,13 +4266,16 @@ def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check):
                                f"{miss} does not miss the bound {bound}")
 
 
-def _cli_rank(world, argv, fp32=False):
+def _cli_rank(world, argv, precision="bf16"):
     """One rank of train_cli (train_cli.train, as its launcher runs it; the
-    one process as World.solo), the preset at drop rates 0 (and with
-    `fp32` without its bf16 autocast), with the K1/K2 launches, the peak
-    memory, the steps' host stamps and losses read around it."""
+    one process as World.solo), the preset at drop rates 0, in `precision`:
+    'bf16' (the preset's autocast), 'fp32' (without it) or 'float64' (the
+    plain attention path, the model in float64 and its inputs cast to
+    float64 at its entry); with the K1/K2 launches, the peak memory, the
+    steps' host stamps and losses read around it."""
     import torch
 
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
     from rgbx_semantic_segmentation_tpu_torch import train_cli
     from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
     from rgbx_semantic_segmentation_tpu_torch.train import Trainer
@@ -3928,9 +4286,19 @@ def _cli_rank(world, argv, fp32=False):
     cfg = train_cli.build_config(args)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, drop_path_rate=0.0, decoder_dropout_ratio=0.0,
-        use_mixed_precision=cfg.model.use_mixed_precision and not fp32))
+        use_mixed_precision=(cfg.model.use_mixed_precision
+                             and precision == "bf16"),
+        use_pallas_kernels=(cfg.model.use_pallas_kernels
+                            and precision != "float64")))
     stamps, losses = [], []
     step, fit_epoch = Trainer.step, Trainer.fit_epoch
+    build = train_lib.build_model
+
+    def build_float64(*a, **kw):
+        model = build(*a, **kw).double()
+        model.register_forward_pre_hook(
+            lambda _, inputs: tuple(t.double() for t in inputs))
+        return model
 
     def timed_step(self, batch):
         stamps.append(time.perf_counter())
@@ -3946,10 +4314,13 @@ def _cli_rank(world, argv, fp32=False):
     S.sr_attention.launches = S.sr_attention_bwd.launches = 0
     torch.cuda.reset_peak_memory_stats()
     Trainer.step, Trainer.fit_epoch = timed_step, timed_fit_epoch
+    if precision == "float64":
+        train_lib.build_model = build_float64
     try:
         records = train_cli.train(world, args, cfg)
     finally:
         Trainer.step, Trainer.fit_epoch = step, fit_epoch
+        train_lib.build_model = build
     n, bs = len(stamps) - 1, cfg.train.batch_size
     return {"rank": world.rank,
             "records": records, "losses": [float(v) for v in losses],
@@ -4080,7 +4451,8 @@ def _spatial_mask_rank(world):
 
 
 def _spatial_inmem_rank(world, steps=2):
-    """The preset's mit_b2 at global batch 8 on a data x spatial world: 2
+    """The preset's mit_b2 at global batch 8 on a data x spatial or data x
+    model world: 2
     untimed steps, then `steps` under torch.profiler on rank 0 (the NCCL
     kernels by collective, K1, K2 and the device's busy time a step) with
     the step time (CUDA events over the steps) and each rank's peak
@@ -4132,17 +4504,18 @@ def _spatial_inmem_rank(world, steps=2):
     return out
 
 
-def spatial_ddp_part(devices):
-    """The data x spatial meshes on the cards beyond the train_cli runs:
-    each mesh's step profiled in memory (see _spatial_inmem_rank) and the
-    preset's drop masks (see _spatial_mask_rank) equal across an image's
-    spatial ranks, different across its data ranks."""
+def mesh_ddp_part(devices, meshes):
+    """The data x spatial and data x model `meshes` on the cards beyond
+    the train_cli runs: each mesh's step profiled in memory (see
+    _spatial_inmem_rank) and, with 2d:2,2 among them, the preset's drop
+    masks (see _spatial_mask_rank) equal across an image's spatial ranks,
+    different across its data ranks."""
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
 
     out = {}
-    for mesh in SPATIAL_MESHES:
+    for mesh in meshes:
         ranks = launch.spawn(_spatial_inmem_rank, devices, "cuda", (),
                              mesh=mesh)
         r0 = ranks[0]
@@ -4165,6 +4538,8 @@ def spatial_ddp_part(devices):
                                            "allreduce_ms", "k1_ms", "k2_ms",
                                            "busy_ms")}}
         torch.cuda.empty_cache()
+    if "2d:2,2" not in meshes:
+        return out
     ranks = launch.spawn(_spatial_mask_rank, devices, "cuda", (),
                          mesh="2d:2,2")
     by_data = {}
@@ -4184,155 +4559,12 @@ def spatial_ddp_part(devices):
     return out
 
 
-def ddp_main(n: int, card: str) -> int:
-    """The N-card part (`--ddp N`): see DDP_STEPS; at N = 4 also the data
-    x spatial meshes (SPATIAL_MESHES: their train_cli runs beside the
-    one-card runs they are held to, the profiled step, the masks, the
-    gradient)."""
-    import tempfile
-
-    import torch
-
-    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
-    from rgbx_semantic_segmentation_tpu_torch import eval_cli
-    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
-    from rgbx_semantic_segmentation_tpu_torch.data.synthetic import (
-        make_synthetic_dataset)
-    from rgbx_semantic_segmentation_tpu_torch.native import build
-    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
-    from rgbx_semantic_segmentation_tpu_torch.ops import window_attention as W
+def _dp_inmem_part(devices, n, cfg_lib):
+    """The data-parallel part in memory (_ddp_inmem_rank): rank 0's NCCL
+    share of a mit_b2 step at global batch 32, swin_s's K3/K4 launches a
+    rank at rate 0.3, OHEM and berHu over the N cards against one card."""
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
     from rgbx_semantic_segmentation_tpu_torch.parallel.dist import World
-    from rgbx_semantic_segmentation_tpu_torch.tools import (
-        bench_window_attention as T)
-
-    have = torch.cuda.device_count()
-    if have < n:
-        print(f"chip_smoke --ddp {n}: {have} card(s) visible", file=sys.stderr)
-        return 1
-    devices = list(range(n))
-    t0 = time.perf_counter()
-    build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    # K1-K4 at a rank's shapes: global batch 8 (mit_b2 and swin_s below)
-    # over the n cards; 32 over 4 gives the default run's 8. (K1/K2 at the
-    # spatial meshes' rank shapes: the default run's spatial_kernel_phase.)
-    out = {"cards": n, "rank_kernel_err": rank_kernel_phase(S, W, T, 8 // n)}
-    meshes = [m for m in SPATIAL_MESHES
-              if np.prod([int(x) for x in m[3:].split(",")]) == n]
-    # The meshes' loss and gradient checks are made once all of their
-    # readings are printed.
-    failed = []
-
-    def deferred(ok, msg):
-        if not ok:
-            print(f"check failed (raised at the end): {msg}", flush=True)
-            failed.append(msg)
-
-    with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        make_synthetic_dataset(data, num_train=16, num_val=8, hw=HW,
-                               num_classes=9, seed=0)
-        argv = ["--config", "mfnet", "--dataset_root", data,
-                "--train_source", "train.txt", "--epochs", "1", "--niters",
-                str(DDP_NITERS)]
-        runs = {}
-        one_card = ["-d", "0"]
-        plan = [("1 card, batch 8", one_card, None, False),
-                ("1 card, batch 8 (again)", one_card, None, False),
-                (f"{n} cards, batch 8", [], devices, False),
-                (f"{n} cards, batch 32", ["--batch_size", "32"], devices,
-                 False),
-                ("1 card, batch 8, fp32", one_card, None, True),
-                ("1 card, batch 8, fp32 (again)", one_card, None, True),
-                ("1 card, batch 8, fp32 (third)", one_card, None, True),
-                (f"{n} cards, batch 8, fp32", [], devices, True)]
-        for mesh in meshes:
-            plan += [(f"{mesh}, batch 8", ["--mesh", mesh], devices, False),
-                     (f"{mesh}, batch 8, fp32", ["--mesh", mesh], devices,
-                      True)]
-        for tag, extra, devs, fp32 in plan:
-            cwd = os.path.join(tmp, f"run{len(runs)}")
-            os.makedirs(cwd)
-            t1 = time.perf_counter()
-            with contextlib.chdir(cwd):
-                if devs is None:
-                    torch.cuda.set_device(0)
-                    ranks = [_cli_rank(World.solo("cuda:0"), argv + extra,
-                                       fp32)]
-                else:
-                    ranks = launch.spawn(
-                        _cli_rank, devs, "cuda", (argv + extra, fp32),
-                        mesh=extra[1] if extra[:1] == ["--mesh"] else None)
-            torch.cuda.empty_cache()
-            r0 = ranks[0]
-            runs[tag] = {
-                "img_per_s": r0["steady_img_per_s"], "loss":
-                r0["records"][0]["loss"], "losses": r0["losses"],
-                "peak_gib": [r["peak_gib"] for r in ranks],
-                "launches": [r["launches"] for r in ranks],
-                "seconds": time.perf_counter() - t1, "cwd": cwd}
-            print(f"train_cli, {tag}: steady over steps 2..{r0['steps']} "
-                  f"{r0['steady_img_per_s']:.1f} img/s, epoch loss "
-                  f"{r0['records'][0]['loss']:.5f}, peak GiB per rank "
-                  f"{[round(r['peak_gib'], 2) for r in ranks]}, K1/K2 "
-                  f"launches per rank {[r['launches'] for r in ranks]} "
-                  f"({runs[tag]['seconds']:.1f} s)")
-            want = (32 * DDP_NITERS, 32 * DDP_NITERS)
-            check(all(tuple(r["launches"]) == want for r in ranks)
-                  and len(ranks) == (1 if devs is None else n),
-                  f"{tag}: 32 K1 and K2 launches a step on every rank")
-            check(all(r["losses"] == r0["losses"] for r in ranks),
-                  f"{tag}: every rank reports the global loss")
-        # bf16 (read, not held: each rank rounds its partial weight
-        # gradients to bf16, a perturbation that no one-card run has) and
-        # fp32 (held: DDP_LOSS_FACTOR x the largest spread of three one-card
-        # runs, whose perturbations are summation orders, as the split's).
-        for name in [f"{n} cards"] + meshes:
-            for kind, tags in (("bf16", ("", " (again)")),
-                               ("fp32", (", fp32", ", fp32 (again)",
-                                         ", fp32 (third)"))):
-                ones = [runs[f"1 card, batch 8{t}"]["loss"] for t in tags]
-                got = runs[f"{name}, batch 8{tags[0]}"]["loss"]
-                spread = max(abs(a - b) for a in ones for b in ones)
-                gap = max(abs(got - a) for a in ones)
-                print(f"epoch loss, {kind}: {name} {got:.6f}, one card "
-                      f"{', '.join(f'{v:.6f}' for v in ones)}: largest gap "
-                      f"{gap:.3e}, largest one-card spread {spread:.3e} "
-                      f"(bound {DDP_LOSS_FACTOR:g}x in fp32)")
-            (check if name == f"{n} cards" else deferred)(
-                gap <= DDP_LOSS_FACTOR * spread,
-                f"fp32 {name} loss {got} vs one card's {ones}")
-        for mesh in meshes:
-            r, one = runs[f"{mesh}, batch 8"], runs["1 card, batch 8"]
-            print(f"{mesh} against one card (bf16, train_cli steady): "
-                  f"{r['img_per_s']:.1f} against {one['img_per_s']:.1f} "
-                  f"img/s; peak GiB per rank "
-                  f"{[round(g, 2) for g in r['peak_gib']]} against "
-                  f"{one['peak_gib'][0]:.2f}")
-        out["train_cli"] = {k: {kk: vv for kk, vv in v.items() if kk != "cwd"}
-                            for k, v in runs.items()}
-        many = runs[f"{n} cards, batch 8"]
-
-        # eval_cli over the N cards against one card, one image a forward,
-        # on the N-card run's checkpoint
-        with contextlib.chdir(many["cwd"]):
-            ev = {}
-            for tag, extra in (("1 card", ["-d", "0"]),
-                               (f"{n} cards", ["-d", ",".join(
-                                   map(str, devices))])):
-                t1 = time.perf_counter()
-                res = eval_cli.main(["--config", "mfnet", "--dataset_root",
-                                     data, "-e", "last", "--eval_batch", "1"]
-                                    + extra)
-                ev[tag] = (res["epoch 1"][1], time.perf_counter() - t1)
-        same = bool(np.array_equal(ev["1 card"][0], ev[f"{n} cards"][0]))
-        print(f"eval_cli --eval_batch 1: confusion matrix over {n} cards "
-              f"equal to one card's: {same} (sum {int(ev['1 card'][0].sum())}"
-              f"; {ev['1 card'][1]:.1f} s and {ev[f'{n} cards'][1]:.1f} s)")
-        check(same and ev["1 card"][0].sum() > 0, "eval_cli over the cards")
-        out["eval_cli"] = {"equal": same, "seconds": {
-            k: v[1] for k, v in ev.items()}}
 
     ranks = launch.spawn(_ddp_inmem_rank, devices, "cuda", (DDP_SWIN_STEPS,))
     r0 = ranks[0]
@@ -4355,25 +4587,219 @@ def ddp_main(n: int, card: str) -> int:
     want = order_losses(World.solo("cuda:0"), cfg_lib, slice(0, 8), n)
     print(f"OHEM and berHu over {n} cards against one card on the global "
           f"(8, 480, 640, 9) batch ({time.perf_counter() - t1:.1f} s):")
-    out["order_statistics_grad_err"] = hold_order_losses(
-        f"{n} cards", ranks, want)
-    del ranks, want
+    return {"order_statistics_grad_err": hold_order_losses(
+                f"{n} cards", ranks, want),
+            "profile_rank0": {**{k: r0[k] for k in ("nccl_ms", "k1_ms",
+                                                     "k2_ms", "busy_ms")},
+                              "nccl_share": share},
+            "swin": swin}
+
+
+def _eval_cli_over_cards(eval_cli, cwd, data, n, devices):
+    """eval_cli over the N cards against one card, one image a forward, on
+    the N-card run's checkpoint (in `cwd`): the same confusion matrix."""
+    with contextlib.chdir(cwd):
+        ev = {}
+        for tag, extra in (("1 card", ["-d", "0"]),
+                           (f"{n} cards", ["-d", ",".join(
+                               map(str, devices))])):
+            t1 = time.perf_counter()
+            res = eval_cli.main(["--config", "mfnet", "--dataset_root",
+                                 data, "-e", "last", "--eval_batch", "1"]
+                                + extra)
+            ev[tag] = (res["epoch 1"][1], time.perf_counter() - t1)
+    same = bool(np.array_equal(ev["1 card"][0], ev[f"{n} cards"][0]))
+    print(f"eval_cli --eval_batch 1: confusion matrix over {n} cards "
+          f"equal to one card's: {same} (sum {int(ev['1 card'][0].sum())}"
+          f"; {ev['1 card'][1]:.1f} s and {ev[f'{n} cards'][1]:.1f} s)")
+    check(same and ev["1 card"][0].sum() > 0, "eval_cli over the cards")
+    return {"equal": same, "seconds": {k: v[1] for k, v in ev.items()}}
+
+
+def cli_runs(plan, argv, devices, n, tmp):
+    """train_cli (_cli_rank) for each (tag, extra argv, devices or None
+    for one card, precision) of `plan`, each in its own directory under
+    `tmp`: {tag: rank 0's steady img/s, epoch loss, losses, every rank's
+    peak GiB and K1/K2 launches, seconds, directory}. Every rank launches
+    K1/K2 32 times a step (none in float64) and reports the global loss."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.parallel import launch
+    from rgbx_semantic_segmentation_tpu_torch.parallel.dist import World
+
+    runs = {}
+    for tag, extra, devs, precision in plan:
+        cwd = os.path.join(tmp, f"run{len(runs)}")
+        os.makedirs(cwd)
+        t1 = time.perf_counter()
+        with contextlib.chdir(cwd):
+            if devs is None:
+                torch.cuda.set_device(0)
+                ranks = [_cli_rank(World.solo("cuda:0"), argv + extra,
+                                   precision)]
+            else:
+                ranks = launch.spawn(
+                    _cli_rank, devs, "cuda", (argv + extra, precision),
+                    mesh=extra[1] if extra[:1] == ["--mesh"] else None)
+        torch.cuda.empty_cache()
+        r0 = ranks[0]
+        runs[tag] = {
+            "img_per_s": r0["steady_img_per_s"], "loss":
+            r0["records"][0]["loss"], "losses": r0["losses"],
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "launches": [r["launches"] for r in ranks],
+            "seconds": time.perf_counter() - t1, "cwd": cwd}
+        print(f"train_cli, {tag}: steady over steps 2..{r0['steps']} "
+              f"{r0['steady_img_per_s']:.1f} img/s, epoch loss "
+              f"{r0['records'][0]['loss']:.7f}, peak GiB per rank "
+              f"{[round(r['peak_gib'], 2) for r in ranks]}, K1/K2 "
+              f"launches per rank {[r['launches'] for r in ranks]} "
+              f"({runs[tag]['seconds']:.1f} s)", flush=True)
+        calls = 0 if precision == "float64" else 32 * DDP_NITERS
+        check(all(tuple(r["launches"]) == (calls, calls) for r in ranks)
+              and len(ranks) == (1 if devs is None else n),
+              f"{tag}: {calls // DDP_NITERS} K1 and K2 launches a step on "
+              "every rank")
+        check(all(r["losses"] == r0["losses"] for r in ranks),
+              f"{tag}: every rank reports the global loss")
+    return runs
+
+
+def hold_epoch_losses(runs, names, n, deferred):
+    """The epoch losses of `names` (the N-card run and the meshes) against
+    one card's: bf16 read beside two one-card runs, not held (each rank
+    rounds its partial weight gradients to bf16, which no one-card run
+    does); fp32 held, the N-card run within DDP_LOSS_FACTOR x the largest
+    spread of three one-card runs (raised at once), a mesh within
+    MESH_LOSS_FACTOR x one card's distance from the float64 epoch (passed
+    to `deferred`). Returns each mesh's fp32 reading."""
+    out = {}
+    ones = [runs[f"1 card, batch 8{t}"]["loss"]
+            for t in (", fp32", ", fp32 (again)", ", fp32 (third)")]
+    exact = runs["1 card, batch 8, float64"]["loss"]
+    one64 = max(abs(a - exact) for a in ones)
+    spread = max(abs(a - b) for a in ones for b in ones)
+    for name in names:
+        bf = [runs[f"1 card, batch 8{t}"]["loss"] for t in ("", " (again)")]
+        got = runs[f"{name}, batch 8"]["loss"]
+        print(f"epoch loss, bf16: {name} {got:.7f}, one card "
+              f"{', '.join(f'{v:.7f}' for v in bf)}: largest gap "
+              f"{max(abs(got - a) for a in bf):.3e} (read, not held)")
+        got = runs[f"{name}, batch 8, fp32"]["loss"]
+        gap = max(abs(got - a) for a in ones)
+        print(f"epoch loss, fp32: {name} {got:.7f}, one card "
+              f"{', '.join(f'{v:.7f}' for v in ones)}: largest gap "
+              f"{gap:.3e}, largest one-card spread {spread:.3e}; float64 "
+              f"{exact:.7f}: {name} {abs(got - exact):.3e} from it, one "
+              f"card at most {one64:.3e}")
+        if name == f"{n} cards":
+            check(gap <= DDP_LOSS_FACTOR * spread,
+                  f"fp32 {name} loss {got} vs one card's {ones} (bound "
+                  f"{DDP_LOSS_FACTOR:g}x their spread)")
+            continue
+        deferred(abs(got - exact) <= MESH_LOSS_FACTOR * one64,
+                 f"fp32 {name} loss {got}: {abs(got - exact)} from the "
+                 f"float64 epoch's {exact}, bound {MESH_LOSS_FACTOR:g}x "
+                 f"one card's {one64}")
+        out[name] = {"from_one_card": gap, "from_float64": abs(got - exact),
+                     "one_card_from_float64": one64}
+    return out
+
+
+def ddp_main(n: int, card: str) -> int:
+    """The N-card part (`--ddp N`): see DDP_STEPS; at N = 4 also the data
+    x spatial and data x model meshes (SPATIAL_MESHES, TP_MESHES: their
+    train_cli runs beside the one-card runs they are held to, the
+    profiled step, the masks, the gradient)."""
+    import tempfile
+
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
+    from rgbx_semantic_segmentation_tpu_torch import eval_cli
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.data.synthetic import (
+        make_synthetic_dataset)
+    from rgbx_semantic_segmentation_tpu_torch.native import build
+    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+    from rgbx_semantic_segmentation_tpu_torch.ops import window_attention as W
+    from rgbx_semantic_segmentation_tpu_torch.tools import (
+        bench_window_attention as T)
+
+    have = torch.cuda.device_count()
+    if have < n:
+        print(f"chip_smoke --ddp {n}: {have} card(s) visible", file=sys.stderr)
+        return 1
+    meshes = [m for m in SPATIAL_MESHES + TP_MESHES
+              if np.prod([int(x) for x in m[3:].split(",")]) == n]
+    devices = list(range(n))
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    # K1-K4 at a rank's shapes: global batch 8 (mit_b2 and swin_s below)
+    # over the n cards; 32 over 4 gives the default run's 8. (K1/K2 at the
+    # spatial meshes' rank shapes: the default run's spatial_kernel_phase;
+    # on the tp meshes a rank runs them at a data rank's images.)
+    out = {"cards": n, "rank_kernel_err": rank_kernel_phase(S, W, T, 8 // n)}
+    # The meshes' loss and gradient checks are made once all of their
+    # readings are printed.
+    failed = []
+
+    def deferred(ok, msg):
+        if not ok:
+            print(f"check failed (raised at the end): {msg}", flush=True)
+            failed.append(msg)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        make_synthetic_dataset(data, num_train=16, num_val=8, hw=HW,
+                               num_classes=9, seed=0)
+        argv = ["--config", "mfnet", "--dataset_root", data,
+                "--train_source", "train.txt", "--epochs", "1", "--niters",
+                str(DDP_NITERS)]
+        one_card = ["-d", "0"]
+        plan = [("1 card, batch 8", one_card, None, "bf16"),
+                ("1 card, batch 8 (again)", one_card, None, "bf16"),
+                (f"{n} cards, batch 8", [], devices, "bf16"),
+                (f"{n} cards, batch 32", ["--batch_size", "32"], devices,
+                 "bf16"),
+                ("1 card, batch 8, fp32", one_card, None, "fp32"),
+                ("1 card, batch 8, fp32 (again)", one_card, None, "fp32"),
+                ("1 card, batch 8, fp32 (third)", one_card, None, "fp32"),
+                ("1 card, batch 8, float64", one_card, None, "float64"),
+                (f"{n} cards, batch 8, fp32", [], devices, "fp32")]
+        for mesh in meshes:
+            plan += [(f"{mesh}, batch 8", ["--mesh", mesh], devices, "bf16"),
+                     (f"{mesh}, batch 8, fp32", ["--mesh", mesh], devices,
+                      "fp32")]
+        runs = cli_runs(plan, argv, devices, n, tmp)
+        out["epoch_loss"] = hold_epoch_losses(runs, [f"{n} cards"] + meshes,
+                                              n, deferred)
+        for mesh in meshes:
+            r, one = runs[f"{mesh}, batch 8"], runs["1 card, batch 8"]
+            print(f"{mesh} against one card (bf16, train_cli steady): "
+                  f"{r['img_per_s']:.1f} against {one['img_per_s']:.1f} "
+                  f"img/s; peak GiB per rank "
+                  f"{[round(g, 2) for g in r['peak_gib']]} against "
+                  f"{one['peak_gib'][0]:.2f}")
+        out["train_cli"] = {k: {kk: vv for kk, vv in v.items() if kk != "cwd"}
+                            for k, v in runs.items()}
+        out["eval_cli"] = _eval_cli_over_cards(
+            eval_cli, runs[f"{n} cards, batch 8"]["cwd"], data, n, devices)
+
+    out.update(_dp_inmem_part(devices, n, cfg_lib))
     if meshes:
-        out["spatial"] = spatial_ddp_part(devices)
-    out["gradient"], control = grad_phase(train_lib, cfg_lib, devices,
-                                          ["dp"] + meshes, deferred)
+        out["meshes"] = mesh_ddp_part(devices, meshes)
+    out["gradient"], control = grad_phase(
+        train_lib, cfg_lib, devices, ["dp"] + meshes, deferred)
     check(not failed, "; ".join(failed))
     # Last, the two checks that need two ranks (`--ddp 1` fails them).
     # (the first call: stage 1, its first window attention; rate 0.3)
     masks = [W.keep_mask(torch.tensor([s["seed"]]), 1, 4, 3, 49, 0.3)
-             for s in swin[:2]]
+             for s in out["swin"][:2]]
     check(len(masks) == 2 and not torch.equal(masks[0], masks[-1]),
           "swin_s: ranks 0 and 1 draw different masks")
     check(*control)
-    out["profile_rank0"] = {**{k: r0[k] for k in ("nccl_ms", "k1_ms",
-                                                   "k2_ms", "busy_ms")},
-                            "nccl_share": share}
-    out["swin"] = swin
     print(card)
     print(json.dumps({"ddp": out, "card": card}))
     print(json.dumps({"ok": True, "device": {
@@ -5056,7 +5482,7 @@ def main() -> int:
     lap("criteria")
     torch.cuda.empty_cache()
     ddp = ddp_world1_phase(S, cfg_lib, train_lib)
-    lap("DDP at world 1, 2d:1,2")
+    lap("DDP at world 1, 2d:1,2, tp:1,2")
     print(card)
 
     def kernel_entry(name, replaces, launches, err, rows, calls, source=None):
@@ -5102,6 +5528,13 @@ def main() -> int:
     # (`_flash_attention`) reaches: jax/experimental/pallas/ops/tpu/
     # flash_attention.py :758 (forward), :1121 (dk/dv), :1456 (dq).
     flash_eval = pp_eval["flash_launches"]
+    # K1-K4 on both ranks of the tp:1,2 world: the default shapes (each
+    # model rank runs the attention whole on all 8 images).
+    tp = ddp["tp_1_2"]
+
+    def tp_launches(model, i):
+        return sum(r[i] for r in tp[model]["launches_per_rank"])
+
     flash_train = pp_train["flash_launches"]
     entries = [
         ("sr_attention_fwd", "sr_attention.py:104",
@@ -5112,7 +5545,7 @@ def main() -> int:
          + m2f_eval["launches"] + m2f_train["fwd_launches"]
          + m2f_cli["launches"]["fwd"] + mlppp_eval["launches"]
          + mlppp_train["fwd_launches"] + ddp["launches"]["fwd"]
-         + remat_launches(remat, 0) + lbfgs["k1"]
+         + remat_launches(remat, 0) + lbfgs["k1"] + tp_launches("mit_b2", 0)
          + segnext_eval["launches"] + segnext_train["fwd_launches"]
          + sum(n["sr_fwd"] for n in widths.values()),
          max(fwd_err, sr_narrow_err["fwd"]), fwd_rows, CALLS_PER_FORWARD,
@@ -5123,18 +5556,19 @@ def main() -> int:
          + pst_cli["launches"]["bwd"] + m2f_train["bwd_launches"]
          + m2f_cli["launches"]["bwd"] + mlppp_train["bwd_launches"]
          + ddp["launches"]["bwd"] + remat_launches(remat, 1) + lbfgs["k2"]
-         + segnext_train["bwd_launches"]
+         + tp_launches("mit_b2", 1) + segnext_train["bwd_launches"]
          + sum(n["sr_bwd"] for n in widths.values()),
          max(bwd_err, sr_narrow_err["bwd"]), bwd_rows, CALLS_PER_FORWARD,
          None),
         ("window_attention_fwd", "window_attention.py:179",
          swin_eval["launches"] + swin_train["fwd_launches"]
          + swin_b["eval_launches"] + swin_b["fwd_launches"]
-         + remat_launches(remat, 2),
+         + remat_launches(remat, 2) + tp_launches("swin_s", 0),
          max(wfwd_err, swin_b_kernels["fwd_max_abs_err"]), wfwd_rows,
          SWIN_CALLS, None),
         ("window_attention_bwd", "window_attention.py:205",
-         swin_train["bwd_launches"] + remat_launches(remat, 3), wbwd_err,
+         swin_train["bwd_launches"] + remat_launches(remat, 3)
+         + tp_launches("swin_s", 1), wbwd_err,
          wbwd_rows, SWIN_CALLS, None),
         # K4's route for bf16 windows 56 < N <= 144 (swin_b's window 12):
         # the same entry and wrapper, its launches those of the swin_b phase.

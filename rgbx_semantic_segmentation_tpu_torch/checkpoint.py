@@ -14,6 +14,11 @@ it (train.py). A file is written under a temporary name and renamed into
 place, so a process killed mid-write leaves no torn checkpoint. Being the
 reference's format, the same loader (convert.load_torch_checkpoint) reads a
 port checkpoint and a reference .pth alike.
+
+On the data x model mesh the file is the one one process writes: the
+model ranks' slices are gathered whole before rank 0 writes
+(parallel/tensor.py), and a restore on a split model slices the whole
+tensors back, so a run resumes on any mesh from a file of any other.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import List, Optional
 
 import torch
 
+from rgbx_semantic_segmentation_tpu_torch.parallel import tensor
 from rgbx_semantic_segmentation_tpu_torch.utils.fs import link_file
 
 _EPOCH_FILE = re.compile(r"^epoch-(\d+)\.pth$")
@@ -50,11 +56,14 @@ class CheckpointManager:
         epoch-last.pth at it; returns the file's path. Blocks until the file
         is in place (torch.save copies device tensors to the host). Rank 0
         of the trainer's world writes (the bare model: no DDP prefix; the
-        ranks' states are equal) and every rank waits for it."""
+        ranks' states are equal; a split model's slices gathered whole, in
+        which every rank takes part) and every rank waits for it."""
         path = self.path(epoch)
+        model = tensor.full_state_dict(trainer.model)
+        optimizer = tensor.full_optimizer_state(trainer.optimizer,
+                                                trainer.model)
         if trainer.world.is_main():
-            payload = {"model": trainer.model.state_dict(),
-                       "optimizer": trainer.optimizer.state_dict(),
+            payload = {"model": model, "optimizer": optimizer,
                        "epoch": int(epoch),
                        "iteration": int(trainer.global_step)}
             tmp = f"{path}.{os.getpid()}.tmp"
@@ -100,10 +109,12 @@ class CheckpointManager:
         moments to their parameters' device, while AdamW's step counters
         stay fp32 scalars on the CPU, as AdamW keeps them. Every rank of a
         data-parallel run restores the same file onto its own device; the
-        file does not record the world size it was written by."""
+        file does not record the world size it was written by. A split
+        model (`--mesh tp`) keeps its slices of the whole tensors."""
         payload = self.load(epoch)
         trainer.model.load_state_dict(payload["model"], strict=True)
-        trainer.optimizer.load_state_dict(payload["optimizer"])
+        trainer.optimizer.load_state_dict(tensor.local_optimizer_state(
+            payload["optimizer"], trainer.optimizer, trainer.model))
         trainer.global_step = int(payload["iteration"])
         return int(payload["epoch"]) + 1
 

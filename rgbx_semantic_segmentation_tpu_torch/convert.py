@@ -248,7 +248,9 @@ def load_dualpath_pretrained(path: str, model: torch.nn.Module,
     """Full pretrained-backbone load: .pth -> dual-path duplication -> load
     into `model.backbone` with strict=False (the FRM/FFM and whatever else
     the file lacks stay at init). Returns (missing, unexpected) keys of the
-    backbone and logs their counts."""
+    backbone and logs their counts. A model split over the model ranks
+    (`--mesh tp`) keeps its slices of the file's whole tensors
+    (parallel/tensor.shard_module)."""
     sd = _DUPLICATORS[family](load_torch_checkpoint(path))
     result = model.backbone.load_state_dict(sd, strict=False)
     if logger is not None:

@@ -7,10 +7,10 @@ State, checkpoint save/restore). An Engine runs on one device, or as one
 rank of a data-parallel world (parallel/dist.py; the CLIs start the ranks
 through parallel/launch.py): the logger speaks and the profiler traces on
 rank 0, checkpoints are written by rank 0, every rank handles the stop
-signals and the ranks agree on a stop. `--mesh` takes 'dp', 'dp:N' and
-'2d:D,S' (the launcher gives such a world its spatial groups); 'tp:D,M'
-raises (ROADMAP Queue 1 item 5b). Profiling uses torch.profiler where the
-JAX engine uses jax.profiler.
+signals and the ranks agree on a stop. `--mesh` takes 'dp', 'dp:N',
+'2d:D,S' and 'tp:D,M' (the launcher gives such a world its spatial or
+model groups; a 'tp' world's checkpoint is gathered whole, checkpoint.py).
+Profiling uses torch.profiler where the JAX engine uses jax.profiler.
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ class Engine:
             ...
 
     `args` may carry `device` ("cuda" default, or "cpu"), `devices` (one
-    CUDA index), `mesh` (one device's: "dp", "dp:1", "2d:1,1") and
+    CUDA index), `mesh` (one device's: "dp", "dp:1", "2d:1,1", "tp:1,1") and
     `profile_dir`. With a `world`
     (parallel/launch.run gives every CLI one) the engine is that rank's, on
     the world's device: the launcher has applied `devices` and `mesh`.

@@ -25,6 +25,12 @@ that the state dict carries it into a checkpoint. The line search's scalar
 arithmetic runs on the host, in the parameters' dtype (numpy), as optax's
 runs in theirs; each evaluation reads the objective's value and its slope
 on the host.
+
+On the data x model mesh (`set_tensor_parallel`) each rank's flat vector
+holds its slices of the split parameters: every dot product and the norm
+are then the global ones, the split parameters' part summed over the
+model group and the whole parameters' part counted once, so that the
+model ranks take one step.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # optax.lbfgs's defaults (alias.py: scale_by_zoom_linesearch(
 # max_linesearch_steps=20, initial_guess_strategy="one")) and those of the
@@ -243,6 +250,36 @@ class LBFGS(torch.optim.Optimizer):
         if len(self.param_groups) != 1:
             raise ValueError("LBFGS takes one param group")
         self.last_step: Optional[dict] = None
+        self._model_group = None
+        self._runs: List[tuple] = []   # (start, end, split) of the flat vector
+
+    def set_tensor_parallel(self, model) -> None:
+        """Take the dot products of the flat vectors over `model`'s model
+        group (a model split by EncoderDecoder.set_tensor_parallel): the
+        split parameters' part summed over the group, the rest once."""
+        split = {id(p) for n, p in model.named_parameters()
+                 if n in model.tp_dims}
+        runs, at = [], 0
+        for p in self._params():
+            kind = id(p) in split
+            if runs and runs[-1][2] == kind:
+                runs[-1] = (runs[-1][0], at + p.numel(), kind)
+            else:
+                runs.append((at, at + p.numel(), kind))
+            at += p.numel()
+        self._model_group, self._runs = model.model_group, runs
+
+    def _dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """<a, b> of two flat vectors, over the model group when split."""
+        if self._model_group is None:
+            return torch.dot(a, b)
+        zero = a.new_zeros(())
+        parts = {False: zero, True: zero}
+        for start, end, kind in self._runs:
+            parts[kind] = parts[kind] + torch.dot(a[start:end], b[start:end])
+        split = parts[True].clone()
+        dist.all_reduce(split, group=self._model_group.group)
+        return parts[False] + split
 
     def _params(self) -> List[torch.nn.Parameter]:
         return self.param_groups[0]["params"]
@@ -281,27 +318,29 @@ class LBFGS(torch.optim.Optimizer):
         if count > 0:
             torch.sub(x, st["params"], out=dw_mem[prev])
             torch.sub(g, st["updates"], out=du_mem[prev])
-            dot = torch.dot(du_mem[prev], dw_mem[prev])
+            dot = self._dot(du_mem[prev], dw_mem[prev])
             rho[prev] = torch.where(dot == 0.0, 0.0, 1.0 / dot)
             # 2. the initial scale <dw, du> / <du, du>
-            den = torch.dot(du_mem[prev], du_mem[prev])
+            den = self._dot(du_mem[prev], du_mem[prev])
             scale = torch.where(den > 0.0, dot / den, 1.0)
         else:
             dw_mem[prev].zero_()
             du_mem[prev].zero_()
             rho[prev] = 0.0
-            scale = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+            norm = (torch.linalg.vector_norm(g) if self._model_group is None
+                    else torch.sqrt(self._dot(g, g)))
+            scale = torch.clamp(1.0 / norm, max=1.0)
 
         # 3. the two-loop recursion, newest pair first on the way in
         order = [(idx + j) % m for j in range(m)]
         vec = g.clone()
         alphas = {}
         for i in reversed(order):
-            alphas[i] = rho[i] * torch.dot(dw_mem[i], vec)
+            alphas[i] = rho[i] * self._dot(dw_mem[i], vec)
             vec.addcmul_(du_mem[i], alphas[i], value=-1.0)
         vec.mul_(scale)
         for i in order:
-            beta = rho[i] * torch.dot(du_mem[i], vec)
+            beta = rho[i] * self._dot(du_mem[i], vec)
             vec.addcmul_(dw_mem[i], alphas[i] - beta)
         direction = vec.mul_(-lr)
         st["count"] = count + 1
@@ -316,11 +355,11 @@ class LBFGS(torch.optim.Optimizer):
             self._assign(point(stepsize))
             with torch.enable_grad():
                 v = closure()
-            slope = torch.dot(self._flat_grad(), direction)
+            slope = self._dot(self._flat_grad(), direction)
             return float(v), float(slope)
 
         search = ZoomLinesearch(f).run(evaluate, float(value),
-                                       float(torch.dot(direction, g)))
+                                       float(self._dot(direction, g)))
         self._assign(point(search.stepsize))
         self.last_step = {"stepsize": float(search.stepsize),
                           "evaluations": search.count,

@@ -20,7 +20,9 @@ target probabilities gathered from every rank (`gather`, all_gather_ranks),
 and berHu the largest residual, an all-reduce MAX whose gradient goes, as
 JAX's `max` VJP sends it, in equal shares to every element equal to the
 global max on any rank (`global_max`, max_over_ranks). build_criterion
-binds both to the default process group over more than one rank.
+binds both, over more than one rank, to the process group of the batch
+(the default group, or on the data x model mesh the data group: its model
+ranks hold the same images, which must count once).
 """
 from __future__ import annotations
 
@@ -45,12 +47,13 @@ def _global(t: torch.Tensor, denom_reduce: Reduce) -> torch.Tensor:
     return t if denom_reduce is None else denom_reduce(t)
 
 
-def all_gather_ranks(t: torch.Tensor) -> torch.Tensor:
+def all_gather_ranks(t: torch.Tensor, group=None) -> torch.Tensor:
     """The ranks' 1-D `t`s (each the same length: the ranks hold equal
-    shares of the global batch) concatenated in rank order over the
-    default process group. No gradient flows through it."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t.contiguous())
+    shares of the global batch) concatenated in rank order over `group`
+    (None: the default process group). No gradient flows through it."""
+    parts = [torch.empty_like(t)
+             for _ in range(dist.get_world_size(group=group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
 
 
@@ -63,27 +66,29 @@ class _MaxOverRanks(torch.autograd.Function):
     the parameter gradients then adds each rank's part once."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
         m = x.max().clone()
-        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
         ties = x == m
         count = ties.sum().to(x.dtype)
-        dist.all_reduce(count)
+        dist.all_reduce(count, group=group)
         ctx.save_for_backward(ties, count)
+        ctx.group = group
         return m
 
     @staticmethod
     def backward(ctx, g):
         ties, count = ctx.saved_tensors
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return ties.to(g.dtype) * (g / count)
+        dist.all_reduce(g, group=ctx.group)
+        return ties.to(g.dtype) * (g / count), None
 
 
-def max_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """The global max of `x` over the ranks of the default process group,
-    differentiable as JAX's `max` of the global batch (_MaxOverRanks)."""
-    return _MaxOverRanks.apply(x)
+def max_over_ranks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The global max of `x` over the ranks of `group` (None: the default
+    process group), differentiable as JAX's `max` of the global batch
+    (_MaxOverRanks)."""
+    return _MaxOverRanks.apply(x, group)
 
 
 def _upcast(x: torch.Tensor) -> torch.Tensor:
@@ -545,17 +550,21 @@ def topology_aware_loss(logits, labels, ignore_index: int = 255,
 # ------------------------------------------------------------ factory --
 
 def build_criterion(cfg, world_size: int = 1,
-                    denom_reduce: Reduce = None) -> Callable[
+                    denom_reduce: Reduce = None, group=None) -> Callable[
                         [torch.Tensor, torch.Tensor], torch.Tensor]:
     """loss_fn(logits, labels) -> scalar from a Config: the criterion
     selection of the JAX build_criterion, every name of it. `denom_reduce`
     (see the module docstring) binds the global normalisers of a rank of
-    `world_size`; over more than one rank OHEM and berHu also take their
-    order statistic of the global batch over the default process group
-    (all_gather_ranks, max_over_ranks)."""
+    `world_size` ranks of the batch; over more than one such rank OHEM and
+    berHu also take their order statistic of the global batch over `group`
+    (None: the default process group; all_gather_ranks, max_over_ranks)."""
     name = cfg.train.criterion
     ignore = cfg.dataset.background
     ranks = world_size > 1
+    gather, global_max = all_gather_ranks, max_over_ranks
+    if group is not None:
+        gather = functools.partial(all_gather_ranks, group=group)
+        global_max = functools.partial(max_over_ranks, group=group)
     glob = {"ignore_index": ignore, "denom_reduce": denom_reduce}
     focal = dict(glob, gamma=cfg.model.fl_gamma, alpha=cfg.model.fl_alpha)
     if name == "CrossEntropyLoss":
@@ -578,10 +587,10 @@ def build_criterion(cfg, world_size: int = 1,
         return functools.partial(prob_ohem_cross_entropy, **glob,
                                  thresh=cfg.train.ohem_thresh,
                                  min_kept=cfg.train.ohem_min_kept,
-                                 gather=all_gather_ranks if ranks else None)
+                                 gather=gather if ranks else None)
     if name == "berHuLoss":
         return functools.partial(berhu_seg_loss, **glob,
-                                 global_max=max_over_ranks if ranks else None)
+                                 global_max=global_max if ranks else None)
     if name == "CE_Focal":
         # CE + 0.2 x focal (the original's tuple criterion and its fixed
         # second-term weight).

@@ -46,7 +46,7 @@ from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import init_weights
 from rgbx_semantic_segmentation_tpu_torch.ops.resize import (
     resize_bilinear, resize_bilinear_rows)
-from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
+from rgbx_semantic_segmentation_tpu_torch.parallel import spatial, tensor
 
 MIT_FACTORIES = {
     "mit_tiny": dual_segformer.mit_tiny,
@@ -198,6 +198,33 @@ class EncoderDecoder(nn.Module):
             read == set(range(len(channels)))
             and getattr(self.backbone, "every_param_in_loss", True))
         self.spatial: Optional[spatial.SpatialGroup] = None
+        # The data x model mesh (set_tensor_parallel): the model group and
+        # {parameter name: dim} of the split parameters.
+        self.model_group: Optional[tensor.ModelGroup] = None
+        self.tp_dims: Dict[str, int] = {}
+
+    def set_tensor_parallel(self, mg: tensor.ModelGroup) -> None:
+        """Run on one rank of the model axis of `--mesh tp:D,M`: each
+        Mix-FFN (MiT, mit_*pp) and Swin MLP keeps its slice of the hidden
+        width (parallel/tensor.py); every other parameter stays whole, and
+        families with no such layer (SegNeXt, ResNet) run as M replicas, as
+        under JAX's _tp_spec. Call it once, on the whole model, before an
+        optimizer takes the parameters. Raises if a parameter that the
+        rules split (tensor.split_dim) lies outside the split layers."""
+        if self.model_group is not None:
+            raise RuntimeError("the model is split already")
+        want = {n for n, p in self.named_parameters()
+                if tensor.split_dim(n, p.shape, mg.size) is not None}
+        dims = {}
+        for name, m in self.named_modules():
+            if isinstance(m, (dual_segformer.Mlp, dual_swin.SwinMlp)):
+                dims.update({f"{name}.{k}": d for k, d in
+                             m.set_tensor_parallel(mg).items()})
+        if set(dims) != want:
+            raise RuntimeError(f"tensor parallel split rules name "
+                               f"{sorted(want - set(dims))[:4]} outside the "
+                               "split layers")
+        self.model_group, self.tp_dims = mg, dims
 
     def set_spatial(self, sp: Optional[spatial.SpatialGroup]) -> None:
         """Run on one rank of the spatial axis of `--mesh 2d:D,S` (None:

@@ -27,7 +27,7 @@ LayerNorms, linears and the spatial gates act on the own rows.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,7 +41,7 @@ from rgbx_semantic_segmentation_tpu_torch.ops.attention import (
     multi_head_attention)
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
     DropPath, Dropout, checkpointed, map_to_tokens, tokens_to_map)
-from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
+from rgbx_semantic_segmentation_tpu_torch.parallel import spatial, tensor
 from rgbx_semantic_segmentation_tpu_torch.parallel.sync_bn import (
     set_replicas)
 
@@ -65,7 +65,9 @@ class DWConv(nn.Module):
 
 class Mlp(nn.Module):
     """Mix-FFN: fc1 -> 3x3 DWConv -> GELU -> fc2. gelu_approximate selects
-    the tanh form (the JAX flagship default) over erf."""
+    the tanh form (the JAX flagship default) over erf. On the data x model
+    mesh the hidden width splits over the model ranks
+    (set_tensor_parallel)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  drop: float = 0.0, gelu_approximate: bool = False):
@@ -75,11 +77,30 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden_features, in_features)
         self.drop = Dropout(drop)
         self.gelu = "tanh" if gelu_approximate else "none"
+        self.tp: Optional[tensor.ModelGroup] = None
+
+    def set_tensor_parallel(self, mg: tensor.ModelGroup) -> Dict[str, int]:
+        """Keep the rank's slice of the hidden width (parallel/tensor.py;
+        the whole layer when the width does not divide); returns {local
+        name: dim} of the split parameters."""
+        dims = tensor.shard_module(self, mg)
+        if dims:
+            self.tp = mg
+            conv = self.dwconv.dwconv
+            conv.in_channels = conv.out_channels = conv.groups = (
+                conv.weight.shape[0])
+        return dims
 
     def forward(self, x, H: int, W: int, rows=None):
-        x = self.dwconv(self.fc1(x), H, W, rows)
-        x = self.drop(F.gelu(x, approximate=self.gelu))
-        return self.drop(self.fc2(x))
+        tp = self.tp
+        if tp is None:
+            x = self.dwconv(self.fc1(x), H, W, rows)
+            x = self.drop(F.gelu(x, approximate=self.gelu))
+            return self.drop(self.fc2(x))
+        x = self.dwconv(self.fc1(tensor.copy_to_model(x, tp)), H, W)
+        x = self.drop(F.gelu(x, approximate=self.gelu),
+                      split=(tp.rank, tp.size))
+        return self.drop(tensor.split_fc2(self.fc2, x, tp))
 
 
 class Attention(nn.Module):

@@ -27,7 +27,7 @@ activation checkpointing (ops/layers.checkpointed).
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +40,7 @@ from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
     DropPath, Dropout, checkpointed, map_to_tokens, tokens_to_map)
 from rgbx_semantic_segmentation_tpu_torch.ops.resize import (
     resize_bicubic_torch)
+from rgbx_semantic_segmentation_tpu_torch.parallel import tensor
 
 # The JAX Swin's LayerNorms take flax's default eps (the original torch repo
 # used nn.LayerNorm's 1e-5); the port holds to the JAX package.
@@ -92,16 +93,32 @@ def _shift_attn_mask(Hp: int, Wp: int, ws: int, shift: int) -> np.ndarray:
 
 
 class SwinMlp(nn.Module):
-    """fc1 -> GELU (erf) -> fc2."""
+    """fc1 -> GELU (erf) -> fc2. On the data x model mesh the hidden width
+    splits over the model ranks (set_tensor_parallel)."""
 
     def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
         self.drop = Dropout(drop)
+        self.tp: Optional[tensor.ModelGroup] = None
+
+    def set_tensor_parallel(self, mg: tensor.ModelGroup) -> Dict[str, int]:
+        """Keep the rank's slice of the hidden width (parallel/tensor.py;
+        the whole layer when the width does not divide); returns {local
+        name: dim} of the split parameters."""
+        dims = tensor.shard_module(self, mg)
+        if dims:
+            self.tp = mg
+        return dims
 
     def forward(self, x):
-        return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
+        tp = self.tp
+        if tp is None:
+            return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
+        x = F.gelu(self.fc1(tensor.copy_to_model(x, tp)))
+        x = self.drop(x, split=(tp.rank, tp.size))
+        return self.drop(tensor.split_fc2(self.fc2, x, tp))
 
 
 class WindowAttention(nn.Module):

@@ -108,12 +108,24 @@ class _Stochastic(nn.Module):
     def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         raise NotImplementedError
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """`split` = (r, n): x is slice r of n equal slices of its last dim
+        (a hidden width split over the model ranks, parallel/tensor.py);
+        the mask is drawn at the whole width and sliced, so each rank keeps
+        its slice of what one process draws, and the generator moves as
+        one process's."""
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand(self._mask_shape(x), device=x.device,
-                       generator=self.generator)
+        shape = self._mask_shape(x)
+        if split is None:
+            u = torch.rand(shape, device=x.device, generator=self.generator)
+        else:
+            r, n = split
+            w = shape[-1]
+            u = torch.rand(shape[:-1] + (w * n,), device=x.device,
+                           generator=self.generator)[..., r * w:(r + 1) * w]
         return x * ((u < keep).to(x.dtype) / keep)
 
     def extra_repr(self) -> str:

@@ -4,6 +4,7 @@ parallel/): one process per device under torch.distributed, with the JAX
 
 `dist` holds the world (process group, rank, the `--mesh` spec), `launch`
 the entry that starts one process per device, `sync_bn` the BatchNorm whose
-statistics are global over the batch, and `multihost` each rank's slice of
-the global batch.
+statistics are global over the batch, `multihost` each rank's slice of
+the global batch, `spatial` the row blocks of the data x spatial mesh and
+`tensor` the hidden-width split of the data x model mesh.
 """

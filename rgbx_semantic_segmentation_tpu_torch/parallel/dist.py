@@ -16,8 +16,10 @@ the card's stream.
 the named devices that divides the global batch (make_mesh_for_batch),
 'dp:N' = exactly N of them, '2d:D,S' = D x S of them, data x spatial (JAX
 make_mesh_2d): rank r holds the images of data rank r // S and, of each,
-the row block r % S (parallel/spatial.py). 'tp:D,M', data x model, is not
-ported (ROADMAP Queue 1 item 5b).
+the row block r % S (parallel/spatial.py), 'tp:D,M' = D x M of them, data
+x model (JAX make_mesh_dp_tp): rank r holds the images of data rank r // M
+and, of each Mix-FFN / Swin MLP, the hidden slice r % M
+(parallel/tensor.py).
 """
 from __future__ import annotations
 
@@ -31,21 +33,34 @@ import torch.distributed as dist
 
 from rgbx_semantic_segmentation_tpu_torch.parallel.spatial import (
     SpatialGroup)
+from rgbx_semantic_segmentation_tpu_torch.parallel.tensor import ModelGroup
 
-TP_MESH = "the 2-D data x model mesh (ROADMAP Queue 1 item 5b)"
+
+def _two_counts(spec: Optional[str], kind: str
+                ) -> Optional[Tuple[int, int]]:
+    """(D, X) of a '<kind>:D,X' spec, None for any other spec; ValueError
+    for such a spec that is not two positive counts."""
+    got, _, dims = (spec or "").partition(":")
+    if got != kind:
+        return None
+    parts = dims.split(",")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise ValueError(f"bad mesh spec {spec!r}: {kind}:D,"
+                         f"{'S' if kind == '2d' else 'M'} with two positive "
+                         "counts")
+    return int(parts[0]), int(parts[1])
 
 
 def mesh_2d(spec: Optional[str]) -> Optional[Tuple[int, int]]:
     """(D, S) of a '2d:D,S' spec, None for any other spec; ValueError for
     a '2d' spec that is not two positive counts."""
-    kind, _, dims = (spec or "").partition(":")
-    if kind != "2d":
-        return None
-    parts = dims.split(",")
-    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
-        raise ValueError(f"bad mesh spec {spec!r}: 2d:D,S with two positive "
-                         "counts")
-    return int(parts[0]), int(parts[1])
+    return _two_counts(spec, "2d")
+
+
+def mesh_tp(spec: Optional[str]) -> Optional[Tuple[int, int]]:
+    """(D, M) of a 'tp:D,M' spec, None for any other spec; ValueError for
+    a 'tp' spec that is not two positive counts."""
+    return _two_counts(spec, "tp")
 
 
 def make_world_from_spec(spec: str, batch_size: int,
@@ -54,8 +69,8 @@ def make_world_from_spec(spec: str, batch_size: int,
     (rank r runs on the r-th): 'dp' the largest count that divides
     `batch_size`, 'dp:N' the first N (ValueError when there are fewer or the
     batch does not divide), '2d:D,S' the first D x S (ValueError when there
-    are fewer or the batch does not divide by D); 'tp:D,M' raises
-    NotImplementedError."""
+    are fewer or the batch does not divide by D), 'tp:D,M' likewise the
+    first D x M."""
     spec = spec or "dp"
     devices = list(devices)
     if not devices:
@@ -66,10 +81,8 @@ def make_world_from_spec(spec: str, batch_size: int,
             n -= 1
         return devices[:n]
     kind, _, dims = spec.partition(":")
-    if kind == "tp":
-        raise NotImplementedError(f"--mesh {spec}: {TP_MESH}")
-    if kind == "2d":
-        d, s = mesh_2d(spec)
+    if kind in ("2d", "tp"):
+        d, s = _two_counts(spec, kind)
         if d * s > len(devices):
             raise ValueError(f"bad mesh spec {spec!r}: need {d * s} devices, "
                              f"{len(devices)} device(s) named")
@@ -115,13 +128,22 @@ def world_devices(device_type: str, spec: str) -> List[int]:
 class World:
     """One rank's view of the run: its rank, the world's size, its device,
     and the gloo group for host-side values. Collectives on tensors go over
-    the default group (NCCL on the card, gloo on the CPU).
+    the default group (NCCL on the card, gloo on the CPU); the training
+    step's sums over the batch go over `batch_group` (`batch_sum`).
 
     On a '2d:D,S' mesh (S > 1) the rank also has its coordinates, data rank
     rank // S of `data_size` D and spatial rank rank % S, with the process
     groups of its data axis (`data_group`) and of its spatial axis
     (`spatial`, parallel/spatial.SpatialGroup: the S ranks that hold one
-    image's rows). Elsewhere the data rank is the rank, and `spatial` None.
+    image's rows). On a 'tp:D,M' mesh (M > 1) the data rank is rank // M
+    and `model` the rank's ModelGroup (parallel/tensor.py: the M ranks that
+    hold the same images and split the Mix-FFN / MLP hidden widths, model
+    rank rank % M); `data_group` then holds the D ranks of one model rank,
+    and every sum of the training step over the batch (`batch_sum`, the
+    losses' counts, the synced BatchNorm, DDP's buckets) goes over it: the M ranks of a data
+    rank hold the same images, which a sum over all ranks would count M
+    times. Elsewhere the data rank is the rank, and `spatial` and `model`
+    None.
 
     `World.solo(device)` is one process with no process group: its
     collectives are identities and its barrier a no-op, so code written
@@ -135,6 +157,7 @@ class World:
     data_size: Optional[int] = None
     data_group: object = None
     spatial: Optional[SpatialGroup] = None
+    model: Optional[ModelGroup] = None
 
     def __post_init__(self):
         if self.data_rank is None:
@@ -153,16 +176,34 @@ class World:
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def batch_group(self):
+        """The process group of sums over the global batch: the data group
+        on a 'tp' mesh, else the default group (None)."""
+        return self.data_group if self.model is not None else None
+
+    @property
+    def batch_ranks(self) -> int:
+        """The number of ranks in `batch_group`."""
+        return self.data_size if self.model is not None else self.size
+
     def barrier(self) -> None:
         """Wait for every rank (on the host)."""
         if self.distributed:
             dist.barrier(group=self.host_group)
 
     def all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
-        """Sum `tensor` over the ranks in place and return it. On the card
+        """Sum `tensor` over every rank in place and return it. On the card
         the host does not wait: the stream does."""
         if self.distributed:
             dist.all_reduce(tensor)
+        return tensor
+
+    def batch_sum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Sum `tensor` over the ranks of `batch_group` in place and return
+        it: all_reduce, but on a 'tp' mesh each image counted once."""
+        if self.distributed:
+            dist.all_reduce(tensor, group=self.batch_group)
         return tensor
 
     def host_max(self, value: int) -> int:
@@ -181,8 +222,9 @@ def init_process_group(rank: int, size: int, device: torch.device,
     card bound first), gloo on 'cpu', or the `backend` named (gloo on
     'cuda' for ranks that share a card, which NCCL refuses: launch.spawn
     picks it). Raises if the
-    group comes up on another backend. With a '2d:D,S' `mesh` (D x S =
-    size) every rank makes the groups of both axes, in one order."""
+    group comes up on another backend. With a '2d:D,S' or 'tp:D,M' `mesh`
+    (D x S or D x M = size) every rank makes the groups of both axes, in
+    one order."""
     device = torch.device(device)
     if device.type == "cuda":
         if device.index is None:
@@ -193,9 +235,10 @@ def init_process_group(rank: int, size: int, device: torch.device,
         backend = backend or "gloo"
     else:
         raise ValueError(f"device {device}: cuda or cpu")
-    dims = mesh_2d(mesh)
-    if dims is not None and dims[0] * dims[1] != size:
-        raise ValueError(f"--mesh {mesh} in a world of {size}")
+    dims, tp = mesh_2d(mesh), mesh_tp(mesh)
+    for axes in (dims, tp):
+        if axes is not None and axes[0] * axes[1] != size:
+            raise ValueError(f"--mesh {mesh} in a world of {size}")
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=size)
     got = dist.get_backend()
@@ -211,6 +254,15 @@ def init_process_group(rank: int, size: int, device: torch.device,
             world, data_rank=rank // S, data_size=D,
             data_group=data[rank % S],
             spatial=SpatialGroup(spatial[rank // S], rank % S, S))
+    if tp is not None and tp[1] > 1:
+        D, M = tp
+        model = [dist.new_group(list(range(d * M, (d + 1) * M)))
+                 for d in range(D)]
+        data = [dist.new_group(list(range(m, size, M))) for m in range(M)]
+        world = dataclasses.replace(
+            world, data_rank=rank // M, data_size=D,
+            data_group=data[rank % M],
+            model=ModelGroup(model[rank // M], rank % M, M, rank // M * M))
     return world
 
 

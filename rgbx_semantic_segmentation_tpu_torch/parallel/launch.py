@@ -118,9 +118,10 @@ def spawn(fn: Callable, devices: Sequence[int], device_type: str,
     by name (the processes start from a fresh interpreter) and return what
     torch.save can write. The ranks meet at a file in `workdir` (default: a
     temporary directory). With `timeout` (s) a world not ended by then is
-    killed and TimeoutError raised. A '2d:D,S' `mesh` gives the world its
-    data and spatial groups (dist.init_process_group). A card named twice in
-    `devices` holds several ranks, whose world runs on gloo."""
+    killed and TimeoutError raised. A '2d:D,S' or 'tp:D,M' `mesh` gives
+    the world its data and spatial (model) groups (dist.init_process_group).
+    A card named twice in `devices` holds several ranks, whose world runs on
+    gloo (`tp:1,2` on one card, as `2d:1,2`)."""
     devices = list(devices)
     if device_type == "cuda":
         from rgbx_semantic_segmentation_tpu_torch.native import build
@@ -187,8 +188,8 @@ def run(fn: Callable, device_type: str, devices: Sequence[int],
     """A CLI's entry over `devices` (from cli_devices): `fn(world, *args)`.
     Under torchrun as the rank the environment names, on card LOCAL_RANK;
     otherwise one device runs it in this process as World.solo (the card
-    made current) and several run `spawn`; a '2d' `mesh` gives the world
-    its axes. The return value is rank 0's."""
+    made current) and several run `spawn`; a '2d' or 'tp' `mesh` gives the
+    world its axes. The return value is rank 0's."""
     devices = list(devices)
     if under_torchrun():
         rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])

@@ -24,6 +24,10 @@ world's sums count each pixel once (the mean and var then match, and so
 does the running var's n / (n - 1)), and each copy's input gradient is its
 1 / S share.
 
+On the data x model mesh (`--mesh tp:D,M`) the M model ranks of a data
+rank hold the same images: the sums go over the data group alone
+(`set_group`), where each image counts once.
+
 The state dict is nn.BatchNorm2d's (weight, bias, running_mean, running_var,
 num_batches_tracked), so checkpoints and convert.py work both ways.
 """
@@ -36,26 +40,30 @@ from torch import nn
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks; the gradient is summed over the ranks too."""
+    """Sum over the ranks of `group`; the gradient is summed over them
+    too."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         x = x.clone()
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 class SyncBatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode statistics are those of the global
-    batch over the default process group (see the module docstring)."""
+    batch over the default process group, or over `group` (see the module
+    docstring)."""
 
     replicas = 1   # ranks that hold the same input (set_replicas)
+    group = None   # the process group of the sums (set_group; None: default)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -68,7 +76,7 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
                            count])
         if self.replicas > 1:
             local = local / self.replicas
-        sums = _AllReduceSum.apply(local)
+        sums = _AllReduceSum.apply(local, self.group)
         n = sums[2 * C]
         mean = sums[:C] / n
         var = sums[C:2 * C] / n - mean * mean
@@ -90,6 +98,14 @@ def set_replicas(module: nn.Module, n: int) -> None:
     for m in module.modules():
         if isinstance(m, SyncBatchNorm2d):
             m.replicas = n
+
+
+def set_group(module: nn.Module, group) -> None:
+    """Every SyncBatchNorm2d of `module` sums its statistics over `group`
+    (None: the default process group)."""
+    for m in module.modules():
+        if isinstance(m, SyncBatchNorm2d):
+            m.group = group
 
 
 def convert_sync_batchnorm(model: nn.Module) -> nn.Module:

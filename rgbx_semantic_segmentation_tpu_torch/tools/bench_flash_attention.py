@@ -170,16 +170,18 @@ def time_shape(shape, gen):
         def dq():
             FA.flash_attention_dq(kq, kk, kv_, kw, klse, di, sc)
 
-        p1 = median_ms(plain_fwd, warmup=1, iters=3, reps=1)
+        # The plain versions take 0.07-2 s a call at these shapes: one
+        # window after one warm call each.
+        p1 = median_ms(plain_fwd, warmup=1, iters=1, reps=1)
         k1 = median_ms(lambda: FA._forward(kq, kk, kv_, sc))
         k2 = median_ms(lambda: FA._forward(kq, kk, kv_, sc))
-        p2 = median_ms(plain_fwd, warmup=1, iters=3, reps=1)
-        b1 = median_ms(plain_bwd, warmup=1, iters=3, reps=1)
+        p2 = median_ms(plain_fwd, warmup=1, iters=1, reps=1)
+        b1 = median_ms(plain_bwd, warmup=1, iters=1, reps=1)
         kv1 = median_ms(dkv)
         dq1 = median_ms(dq)
         dq2 = median_ms(dq)
         kv2 = median_ms(dkv)
-        b2 = median_ms(plain_bwd, warmup=1, iters=3, reps=1)
+        b2 = median_ms(plain_bwd, warmup=1, iters=1, reps=1)
     lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
 
     def fwd_bwd():

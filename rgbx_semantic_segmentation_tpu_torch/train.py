@@ -39,6 +39,21 @@ global-count loss and summing all-reduce give the global batch's mean and
 gradient. The spatial ranks of an image draw its masks from one seed (the
 data rank's), so drop-path and Dropout2d drop the same samples and
 channels on all of them.
+
+On a 'tp:D,M' world (world.model, parallel/tensor.py) the M ranks of a
+data rank hold the same images whole, and each Mix-FFN / Swin MLP holds its
+slice of the hidden width (EncoderDecoder.set_tensor_parallel, before the
+optimizer takes the parameters). Every sum over the batch then goes over
+the data group (World.batch_group): the losses' counts and order
+statistics, the synced BatchNorms, the step's loss and DDP's buckets; the
+gradients of the whole parameters are already equal on the model ranks
+(the split layers' copy_to_model sums their input's gradient), so no sum
+over the model group follows; model rank 0's gradients of the whole
+parameters and its loss are handed to the others (tensor.agree: on the
+card the ranks' atomics differ in the last bits). The model ranks draw the
+data rank's masks (and the window kernels take its seed), so they keep
+equal weights.
+LBFGS takes its dot products over the model group too (lbfgs.py).
 """
 from __future__ import annotations
 
@@ -61,7 +76,8 @@ from rgbx_semantic_segmentation_tpu_torch.ops.layers import set_generator
 from rgbx_semantic_segmentation_tpu_torch.parallel.dist import World
 from rgbx_semantic_segmentation_tpu_torch.parallel.spatial import own_rows
 from rgbx_semantic_segmentation_tpu_torch.parallel.sync_bn import (
-    convert_sync_batchnorm)
+    convert_sync_batchnorm, set_group)
+from rgbx_semantic_segmentation_tpu_torch.parallel import tensor
 
 def make_loss_fn(cfg: Config, world: Optional[World] = None) -> Callable:
     """The criterion on the model's output: on an (logits, aux) pair
@@ -76,10 +92,11 @@ def make_loss_fn(cfg: Config, world: Optional[World] = None) -> Callable:
     world = world or World.solo()
 
     def global_sum(t: torch.Tensor) -> torch.Tensor:
-        return world.all_reduce(t.detach().clone())
+        return world.batch_sum(t.detach().clone())
 
     criterion = (None if cfg.model.decoder == "mask2former" else
-                 losses_lib.build_criterion(cfg, world.size, global_sum))
+                 losses_lib.build_criterion(cfg, world.batch_ranks,
+                                            global_sum, world.batch_group))
 
     def loss_fn(outputs, labels):
         if isinstance(outputs, dict):
@@ -105,9 +122,10 @@ def step_seed(seed: int, step: int, rank: int = 0) -> int:
 
 
 def _sum_hook(group, bucket):
-    """DDP comm hook: SUM a gradient bucket over the ranks (DDP's default
-    divides by the world size). With the global-count loss of make_loss_fn
-    the sum is the gradient of the global mean."""
+    """DDP comm hook: SUM a gradient bucket over the ranks of `group` (the
+    hook's state; DDP's default divides by the world size). With the
+    global-count loss of make_loss_fn the sum is the gradient of the
+    global mean."""
     fut = dist.all_reduce(bucket.buffer(), group=group,
                           async_op=True).get_future()
     return fut.then(lambda f: f.value()[0])
@@ -120,9 +138,10 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     """Build `train_step(step, batch) -> loss` (a 0-d tensor on the device;
     no host sync). `seed` overrides cfg.train.seed for the mask stream.
     In a `world` with a process group the step runs `model` (its BatchNorms
-    converted) in DistributedDataParallel, on a spatial world on the rank's
-    rows (`model.set_spatial`); the step returns the global batch's
-    loss."""
+    converted) in DistributedDataParallel over the world's batch group,
+    on a spatial world on the rank's rows (`model.set_spatial`); the step
+    returns the global batch's loss. On a 'tp' world `model` is split
+    already (Trainer) or runs whole on every model rank."""
     device = next(model.parameters()).device
     world = world or World.solo(device)
     loss_fn = make_loss_fn(cfg, world)
@@ -131,19 +150,23 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
     trainable = [p for g in optimizer.param_groups for p in g["params"]]
     base_seed = cfg.train.seed if seed is None else seed
     generator = torch.Generator(device=device)
-    set_generator(model, generator, world.rank)
+    set_generator(model, generator, world.data_rank)
     sp = world.spatial
     if sp is not None:
         model.set_spatial(sp)
+    if lbfgs and tensor.split_params(model):
+        optimizer.set_tensor_parallel(model)
     net = model
     if world.distributed:
+        set_group(model, world.batch_group)
         # Every rank built the same weights from the seed, so the
         # construction's broadcast from rank 0 changes nothing (nor do the
         # buffer broadcasts: the BN running statistics are global).
         net = DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda" else None,
-            find_unused_parameters=not model.every_param_in_loss)
-        net.register_comm_hook(None, _sum_hook)
+            find_unused_parameters=not model.every_param_in_loss,
+            process_group=world.batch_group)
+        net.register_comm_hook(world.batch_group, _sum_hook)
     mean = torch.tensor(cfg.dataset.norm_mean, dtype=torch.float32,
                         device=device)
     std = torch.tensor(cfg.dataset.norm_std, dtype=torch.float32,
@@ -176,7 +199,10 @@ def make_train_step(cfg: Config, model: torch.nn.Module,
         for p in trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return world.all_reduce(loss.detach().clone())
+        loss = world.batch_sum(loss.detach().clone())
+        if world.model is not None:
+            tensor.agree(model, world.model, [loss])
+        return loss
 
     def train_step(step: int, batch: Dict) -> torch.Tensor:
         rgb, mx, label = prep(batch)
@@ -206,9 +232,10 @@ class Trainer:
     `device` (None: the card; see device.resolve_device), or, with a
     `world`, one rank of a data-parallel run on the world's device (the JAX
     Trainer on a 1-D data mesh; see the module docstring; the synced
-    BatchNorms and DDP only where a process group joins the ranks). `model`
-    is the bare module (no DDP wrapper): its state dict is the
-    checkpoint's."""
+    BatchNorms and DDP only where a process group joins the ranks; on a
+    'tp' world the model split over the model ranks). `model` is the bare
+    module (no DDP wrapper): its state dict is the checkpoint's, gathered
+    whole on a 'tp' world (parallel/tensor.full_state_dict)."""
 
     def __init__(self, cfg: Config, device=None, seed: Optional[int] = None,
                  init_values: bool = True, world: Optional[World] = None):
@@ -226,6 +253,8 @@ class Trainer:
         seed = cfg.train.seed if seed is None else seed
         self.model = build_model(cfg, device=self.device,
                                  seed=seed if init_values else None)
+        if world.model is not None:
+            self.model.set_tensor_parallel(world.model)
         if world.distributed:
             convert_sync_batchnorm(self.model)
         self.optimizer = optim.build_optimizer(cfg, self.model)

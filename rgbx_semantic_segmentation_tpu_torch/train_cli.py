@@ -10,7 +10,11 @@ global batch of --batch_size is split over the ranks and a step computes
 what one process computes on it. `--mesh 2d:D,S` takes D x S of them, data
 x spatial: the global batch is split over D data ranks and each image's
 rows over the S ranks of its data rank (parallel/spatial.py; mit_* with
-FRM/FFM, the MLPDecoder and the cross-entropy loss). On the CPU
+FRM/FFM, the MLPDecoder and the cross-entropy loss). `--mesh tp:D,M` takes
+D x M of them, data x model: the global batch is split over D data ranks
+and the hidden width of every Mix-FFN and Swin MLP over the M ranks of a
+data rank (parallel/tensor.py; every family: where no layer splits, the M
+ranks run as replicas). On the CPU
 `--device cpu -d 0,1` runs two gloo ranks. Under torchrun the command runs
 as the rank it is given.
 
@@ -58,8 +62,8 @@ def parse_args(argv=None):
                         help="dp (the largest count of the -d devices that "
                              "divides the batch) | dp:N (exactly N) | 2d:D,S "
                              "(D x S of them: D data ranks, each image's "
-                             "rows over S); tp:D,M is ROADMAP Queue 1 item "
-                             "5b")
+                             "rows over S) | tp:D,M (D x M of them: D data "
+                             "ranks, the MLP hidden widths over M)")
     parser.add_argument("-c", "--continue", dest="resume", action="store_true")
     parser.add_argument("-p", "--profile_dir", default=None,
                         help="write a torch.profiler trace of the last "
@@ -141,8 +145,8 @@ def train(world, args, cfg):
         start_epoch = 1
         if args.resume:
             start_epoch = engine.restore_checkpoint(trainer)
-        # The spatial ranks of a data rank load its images alike (each
-        # decodes them all) and the step keeps their rows.
+        # The spatial (model) ranks of a data rank load its images alike
+        # (each decodes them all); a spatial rank's step keeps its rows.
         loader = TrainLoader(cfg, root=args.dataset_root,
                              rank=world.data_rank, world=world.data_size)
         # Scalar logging (lr + epoch loss, matching reference train.py:226-229,

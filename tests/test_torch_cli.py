@@ -206,17 +206,17 @@ def test_clis_default_to_the_card(runs, tmp_path, cli):
 
 
 def test_cli_unported_options_raise(runs, tmp_path):
-    """The data x model mesh still raises (ROADMAP Queue 1 item 5b); the
-    data x spatial mesh is a spec train_cli takes, held to JAX's checks (2
-    devices for 2d:1,2, a global batch that divides by D; its training
-    runs are tests/test_torch_spatial.py's). The --compat-* options now
+    """The data x model and data x spatial meshes are specs train_cli
+    takes, held to JAX's checks (8 devices for tp:2,4 where one is named,
+    2 devices for 2d:1,2, a global batch that divides by D; their training
+    runs are tests/test_torch_tp.py's and tests/test_torch_spatial.py's). The --compat-* options now
     run: at scale 1.5 under a 32x40 crop the 32x32 images take the
     sliding grid (swapped with --compat-stride-swap), and eval_cli -e last
     gives the confusion matrix of an in-process SegEvaluator with the same
     flag."""
     data = runs["data"]
     with cli_env(runs["cfg"], tmp_path):
-        with pytest.raises(NotImplementedError, match="item 5b"):
+        with pytest.raises(ValueError, match="need 8 devices"):
             train_cli.main(["--dataset_root", data, "--mesh", "tp:2,4",
                             "--device", "cpu"])
         with pytest.raises(ValueError, match="need 2 devices"):

@@ -891,9 +891,10 @@ def test_torchrun_mesh_and_devices(monkeypatch):
     assert launch.cli_devices("cpu", "", "2d:2,2", 8) == []
     with pytest.raises(ValueError, match="need 8 devices"):
         launch.cli_devices("cpu", "", "2d:2,4", 8)
-    with pytest.raises(NotImplementedError, match="2-D"):
+    assert launch.cli_devices("cpu", "", "tp:2,2", 8) == []
+    with pytest.raises(ValueError, match="need 8 devices"):
         launch.cli_devices("cpu", "", "tp:2,4", 8)
-    with pytest.raises(NotImplementedError, match="2-D"):
+    with pytest.raises(ValueError, match="need 8 devices"):
         train_cli.main(["--dataset_root", "unused", "--mesh", "tp:2,4",
                         "--device", "cpu"])
 
@@ -961,7 +962,9 @@ def test_mesh_spec_raises():
         pdist.make_world_from_spec("dp:4", 8, [0, 1])
     assert pdist.make_world_from_spec("2d:2,2", 8, [0, 1, 2, 3]) == [
         0, 1, 2, 3]
-    with pytest.raises(NotImplementedError, match="2-D"):
+    assert pdist.make_world_from_spec("tp:2,2", 8, [0, 1, 2, 3]) == [
+        0, 1, 2, 3]
+    with pytest.raises(ValueError, match="need 8 devices"):
         pdist.make_world_from_spec("tp:2,4", 8, [0, 1, 2, 3])
     with pytest.raises(ValueError, match="unknown mesh"):
         pdist.make_world_from_spec("fsdp", 8, [0])

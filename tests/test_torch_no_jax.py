@@ -15,7 +15,8 @@ runs train_cli -> eval_cli -e last -> predict_cli on a synthetic dataset (the
 threaded loader on the native image ops, checkpoints, the engine) and
 train_cli -c and eval_cli over two CPU ranks (parallel/: the launcher, the
 process group, the synced BatchNorm) and train_cli -c on the data x spatial
-mesh 2d:1,2 (parallel/spatial.py), with none of them in sys.modules, and a
+mesh 2d:1,2 (parallel/spatial.py) and on the data x model mesh tp:1,2
+(parallel/tensor.py), with none of them in sys.modules, and a
 static scan of the package sources (the CUDA and C++ sources too) and
 chip_smoke.py finds no such import."""
 import os
@@ -176,6 +177,9 @@ with tempfile.TemporaryDirectory() as tmp:
     rec = train_cli.main(root + ["--epochs", "3", "-c", "-d", "0,1",
                                  "--mesh", "2d:1,2"])
     assert rec[0]["epoch"] == 3, rec
+    rec = train_cli.main(root + ["--epochs", "4", "-c", "-d", "0,1",
+                                 "--mesh", "tp:1,2"])
+    assert rec[0]["epoch"] == 4, rec
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "rgbx_semantic_segmentation_tpu"))
@@ -221,7 +225,7 @@ def test_no_jax_import_in_sources():
             "models/encoders/aspp.py", "models/decoders/fcnhead.py",
             "models/decoders/upernet.py", "models/decoders/deeplabv3plus.py",
             "ops/resize.py", "evaluator.py", "parallel/dist.py",
-            "parallel/spatial.py",
+            "parallel/spatial.py", "parallel/tensor.py",
             "parallel/launch.py", "parallel/sync_bn.py",
             "parallel/multihost.py", "models/decoders/mask2former.py",
             "models/decoders/mlp_decoderpp.py", "losses.py",

@@ -346,7 +346,13 @@ def step_once(world, batch):
 
 @pytest.fixture(scope="module")
 def one_process():
-    return step_once(pdist.World.solo("cpu"), step_batch())
+    # step_once runs on one thread; the test process keeps its own count
+    # (later tests in the same worker hold 1-ulp bounds that depend on it).
+    threads = torch.get_num_threads()
+    try:
+        return step_once(pdist.World.solo("cpu"), step_batch())
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -464,12 +470,12 @@ def test_drop_masks_equal_across_spatial_ranks(meshes, one_process):
 
 @pytest.mark.parametrize("spec, want", [
     ("dp", [0, 1, 2, 3, 4, 5, 6, 7]), ("dp:4", [0, 1, 2, 3]),
-    ("2d:2,4", [0, 1, 2, 3, 4, 5, 6, 7]), ("2d:1,2", [0, 1])])
+    ("2d:2,4", [0, 1, 2, 3, 4, 5, 6, 7]), ("2d:1,2", [0, 1]),
+    ("tp:2,4", [0, 1, 2, 3, 4, 5, 6, 7])])
 def test_mesh_specs(spec, want):
     """The cases of the JAX test_make_mesh_from_spec on 8 devices and a
-    global batch of 8: dp, dp:4, 2d:2,4 take their devices; tp:2,4 raises
-    NotImplementedError naming ROADMAP Queue 1 item 5b; unknown or bad
-    specs, and dp:N beyond the devices, raise ValueError."""
+    global batch of 8: dp, dp:4, 2d:2,4 and tp:2,4 take their devices;
+    unknown or bad specs, and dp:N beyond the devices, raise ValueError."""
     assert pdist.make_world_from_spec(spec, 8, range(8)) == want
     assert pdist.mesh_2d(spec) == (
         tuple(int(x) for x in spec[3:].split(",")) if spec.startswith("2d")
@@ -477,9 +483,10 @@ def test_mesh_specs(spec, want):
 
 
 def test_mesh_spec_refusals():
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        pdist.make_world_from_spec("tp:2,4", 8, range(8))
-    for spec in ("ring:3", "2d:banana", "2d:2", "2d:0,2", "dp:9", "dp:0"):
+    with pytest.raises(ValueError, match="need 8 devices"):
+        pdist.make_world_from_spec("tp:2,4", 8, range(4))
+    for spec in ("ring:3", "2d:banana", "2d:2", "2d:0,2", "dp:9", "dp:0",
+                 "tp:banana", "tp:2", "tp:0,2"):
         with pytest.raises(ValueError):
             pdist.make_world_from_spec(spec, 8, range(8))
     with pytest.raises(ValueError, match="need 8 devices"):
