@@ -123,21 +123,30 @@ and nyu presets:
     optimizer's memory and the peak;
   * data parallelism at world 1: Trainer through the launcher
     (parallel/launch.py) as one NCCL rank, with the synced BatchNorm and
-    the summed gradient all-reduce, 3 steps of mit_b2 at global batch 8
+    the summed gradient all-reduce, 2 steps of mit_b2 at global batch 8
     against two plain one-process Trainers from the same seed (held to the
     resume bound: the card's step is not bit-reproducible), K1 and K2
     launching 32 times a step in the rank; OHEM and berHu through their
     over-ranks functions (NCCL all-gather, all-reduce MAX and its
     backward) against the same criteria in one process; then the data x
     spatial mesh 2d:1,2 with both ranks on this card over gloo (each with
-    half of every image's rows, parallel/spatial.py), 3 steps: K1/K2 32
+    half of every image's rows, parallel/spatial.py), 2 steps: K1/K2 32
     launches a step on each rank, one loss, its first within 5e-3 of the
     plain Trainer's, its distance from the plain runs read; and its fp32
     first-step gradient within 4x one card's distance from a float64 step,
     with dk, dv summed twice over the two ranks (the control) beyond it;
+    on a second 2d:1,2 world at once mit_b2pp (IFRM/IFFM: K5 on each
+    rank's q rows against the gathered keys), 2 steps: K5 6 forward, 6
+    dk/dv and 6 dq
+    and K1/K2 34 launches a step on each rank, its first loss within 5e-3
+    of one card's, a warm step's peak per rank beside one card's, and its
+    fp32 first-step gradient (batch 2) and control held as mit_b2's; and
+    a mit_b2 step with remat at the preset's drop rates (fp32; K1 64, K2 32
+    on each rank: the recompute replays the gathers and halo exchanges)
+    held to two steps without it as the remat phase holds one card's;
     then the data x model mesh tp:1,2 with both ranks on this card over
     gloo (each with all 8 images and half of every Mix-FFN / Swin MLP
-    hidden width, parallel/tensor.py): 3 mit_b2 steps and 2 swin_s steps
+    hidden width, parallel/tensor.py): 2 mit_b2 steps and 2 swin_s steps
     at attention dropout 0.3, K1/K2 32 and K3/K4 48 launches a step on
     each rank, one loss, mit_b2's first within 5e-3 of the plain
     Trainer's, the whole parameters bit-equal on both ranks after the
@@ -152,7 +161,13 @@ and nyu presets:
     whole image's keys, each block held to the plain versions, the sum of
     the blocks' partial dk, dv to the whole-image K2's, two runs
     bit-equal; times (events and device) at the shapes a rank of 2d:2,2
-    and of 2d:1,4 gives them.
+    and of 2d:1,4 gives them;
+  * K5 on the spatial axis: on each of the S row blocks of q of the
+    mit_b2pp IFFM stages a rank of 2d:1,2, 2d:2,2 and 2d:1,4 shards (8, 4
+    and 8 images) against the whole image's keys, each block held to the
+    plain versions by the K5 bounds, the sum of the blocks' partial dk, dv
+    to the whole-image dk/dv kernel's, two runs bit-equal; times (events
+    and device) at each mesh's rank shapes beside the whole image's.
 
 `--ddp N` runs only the N-card part, and fails when fewer cards are
 visible: K1-K4 at the shapes a rank hands them (8 / N images) against their
@@ -174,7 +189,9 @@ one-card readings, which DDP's default per-rank mean must miss); on four
 cards the data x spatial meshes 2d:2,2 and 2d:1,4 too: train_cli over them
 (the bf16 and fp32 epochs, the fp32 loss held to the float64 epoch's as
 one card's is: MESH_LOSS_FACTOR),
-the first-step gradient and its control as 2d:1,2's in the default run, a
+the first-step gradient and its control as 2d:1,2's in the default run
+(mit_b2pp's on 2d:2,2 too, beside 2 mit_b2pp steps there: K5 and K1/K2
+launches per rank, a warm step's peak), a
 mit_b2 step in memory under torch.profiler (step ms, peak GiB per rank,
 the NCCL all-gathers' and all-reduces' share of rank 0's device time),
 and the preset's drop masks equal on an image's spatial ranks; and the
@@ -776,6 +793,146 @@ def spatial_kernel_phase(S):
     return worst, rows
 
 
+# K5 on the spatial axis of `--mesh 2d:D,S`: the IFFM cross-attention of a
+# rank attends with its own N / S query rows of a stage to the whole map's
+# keys (ops/flash_attention.py), and its dk, dv are partial (the token
+# all-gather's backward sums them). (images a rank, S) of each mesh; the
+# stages the encoder shards (spatial_rank_shapes) take N / S rows, the
+# others run whole. Every row block of each sharded stage is held by
+# hold_flash_case (forward, dk/dv and dq against the plain versions by the
+# K5 bounds, two runs bit-equal); the S blocks' partial dk, dv, summed in
+# fp32, are held to the whole image's dk/dv kernel by K5-dkv's bound
+# (FLASH_BWD_ULPS of its largest, FLASH_REL_L2). Each mesh's rank shapes
+# are timed (T5.time_shape: events, plain, SDPA, bound; device time by
+# torch.profiler), the whole image's kernels beside them.
+SPATIAL_FLASH_MESHES = {"2d:1,2": (8, 2), "2d:2,2": (4, 2), "2d:1,4": (8, 4)}
+
+
+def spatial_flash_shapes(T5, batch, n):
+    """The (B, h, N, M, d) K5 gets on a rank holding `batch` images and 1 /
+    n of their rows: the mit_b2pp IFFM stages 1-3 (T5.SHAPES), N / n query
+    rows where the encoder shards the stage, else whole."""
+    return [(batch, h, N // n if rank[2] != whole[2] else N, M, d)
+            for rank, whole, (_, h, N, M, d) in zip(
+                spatial_rank_shapes(batch, n), FLAGSHIP, T5.SHAPES)]
+
+
+def flash_device_ms(FA, T5, q, k, v, w, sc):
+    """K5's device ms a call at one shape (torch.profiler): forward, dk/dv,
+    dq."""
+    import torch
+
+    pattern = r"\bflash_\w+(?:<[^>]*>)?"
+    with torch.no_grad():
+        out, lse = FA._forward(q, k, v, sc)
+        di = (out.float() * w.float()).sum(-1).contiguous()
+        fwd = T5.kernel_device_ms(lambda: FA._forward(q, k, v, sc),
+                                  pattern, 1)[0]
+
+        def bwd():
+            FA.flash_attention_dkv(q, k, v, w, lse, di, sc)
+            FA.flash_attention_dq(q, k, v, w, lse, di, sc)
+
+        _, by_kernel = T5.kernel_device_ms(bwd, pattern, 2)
+    dkv = sum(t for name, t in by_kernel.items() if "dkv" in name)
+    return {"fwd": fwd, "dkv": dkv,
+            "dq": sum(by_kernel.values()) - dkv}
+
+
+def spatial_flash_phase(FA, T5):
+    """See SPATIAL_FLASH_MESHES. Returns ({fwd, dkv, dq, sum_dkv: worst
+    error}, {mesh: {fwd, dkv, dq: timing rows at the rank's shapes, with
+    device ms and the whole image's kernel ms beside them}})."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    bf16 = torch.bfloat16
+    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0, "sum_dkv": 0.0}
+    for mesh, (batch, n) in SPATIAL_FLASH_MESHES.items():
+        for shape, whole in zip(spatial_flash_shapes(T5, batch, n),
+                                T5.SHAPES):
+            if shape[2] == whole[2]:
+                continue            # a stage that runs whole
+            _, h, N, M, d = whole
+            sc = d ** -0.5
+            q, k, v, w = T5.inputs((batch, h, N, M, d), bf16, gen)
+            out, lse = FA._forward(q, k, v, sc)
+            _, dk_w, dv_w = FA.flash_attention_bwd(q, k, v, out, lse, w, sc)
+            del out, lse
+            per = N // n
+            dk = dv = 0.0
+            for s in range(n):
+                rows = slice(s * per, (s + 1) * per)
+                qs, ws = q[:, :, rows], w[:, :, rows]
+                errs = hold_flash_case(FA, f"{mesh} row block {s} of "
+                                       f"{shape}", qs, k, v, ws, sc)
+                worst = {key: max(e, errs.get(key, 0.0))
+                         for key, e in worst.items()}
+                out_s, lse_s = FA._forward(qs, k, v, sc)
+                _, pk, pv = FA.flash_attention_bwd(qs, k, v, out_s, lse_s,
+                                                   ws, sc)
+                dk, dv = dk + pk.float(), dv + pv.float()
+            line = []
+            for name, got, want in (("dk", dk, dk_w), ("dv", dv, dv_w)):
+                want = want.float()
+                err = float((got - want).abs().max())
+                rel = float((got - want).norm() / want.norm())
+                tol = bf16_atol(want, FLASH_BWD_ULPS)
+                line.append(f"{name} {err:.3e} (tol {tol:.3e}), rel L2 "
+                            f"{rel:.2e}")
+                check(err <= tol and rel <= FLASH_REL_L2,
+                      f"summed partial {name} at {shape} over {n} row "
+                      f"blocks: {err} > {tol} or rel L2 {rel}")
+                worst["sum_dkv"] = max(worst["sum_dkv"], err)
+            print(f"spatial K5 {mesh} {shape}: the sum of the {n} blocks' "
+                  "partial dk, dv against the whole image's dk/dv kernel: "
+                  + ", ".join(line))
+            del q, k, v, w, dk, dv, dk_w, dv_w
+    torch.cuda.empty_cache()
+    rows = {}
+    for mesh, (batch, n) in SPATIAL_FLASH_MESHES.items():
+        rows[mesh] = {"fwd": [], "dkv": [], "dq": []}
+        for shape, whole in zip(spatial_flash_shapes(T5, batch, n),
+                                T5.SHAPES):
+            timed = T5.time_shape(shape, gen)
+            q, k, v, w = T5.inputs(shape, bf16, gen)
+            dev = flash_device_ms(FA, T5, q, k, v, w, shape[4] ** -0.5)
+            full = (batch, *whole[1:])
+            if full != shape:
+                q, k, v, w = T5.inputs(full, bf16, gen)
+                whole_dev = flash_device_ms(FA, T5, q, k, v, w,
+                                            shape[4] ** -0.5)
+            else:
+                whole_dev = dev
+            del q, k, v, w
+            for which, row in timed.items():
+                row.update({"device_ms": dev[which],
+                            "whole_image_shape": list(full),
+                            "whole_image_device_ms": whole_dev[which]})
+                rows[mesh][which].append(row)
+                print(f"time bf16 flash {which} {mesh} rank "
+                      f"(B,h,N,M,d)={shape}: kernel {row['ms']:.4f} ms "
+                      f"(device {dev[which]:.4f}), whole image {full} device "
+                      f"{whole_dev[which]:.4f}; plain {row['plain_ms']:.3f}, "
+                      f"SDPA {row['library_ms']:.4f}, bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        for which in ("fwd", "dkv", "dq"):
+            rr = rows[mesh][which]
+            print(f"flash attention {which} on a rank of {mesh} ({batch} "
+                  f"images, 1/{n} of the sharded stages' rows), the 6 calls "
+                  f"of a mit_b2pp step: kernel "
+                  f"{per_step(rr, 'ms', T5.CALLS):.3f} ms (device "
+                  f"{per_step(rr, 'device_ms', T5.CALLS):.3f}; whole image "
+                  f"{per_step(rr, 'whole_image_device_ms', T5.CALLS):.3f}), "
+                  f"plain {per_step(rr, 'plain_ms', T5.CALLS):.3f}, SDPA "
+                  f"{per_step(rr, 'library_ms', T5.CALLS):.3f}, bound "
+                  f"{per_step(rr, 'bound_ms', T5.CALLS):.3f} ms")
+    torch.cuda.empty_cache()
+    print(f"spatial K5 phase: {time.perf_counter() - t0:.1f} s")
+    return worst, rows
+
+
 # K1/K2 at the stage-4 IFFM attentions of segnext_tiny (d = 32) and
 # segnext_large (d = 96) at 480x640, batch 8: 8 heads over 15 x 20 tokens
 # (fp32 at batch 1). d = 96 fills two of the tensor-core kernels' 64-wide
@@ -1323,8 +1480,8 @@ def flash_in_model_phase(FA, model, rgb_t, mx_t, flash_calls):
     calls = []
     attend = fusion.ImprovedCrossAttention._attend
 
-    def watched(self, q, k, v, scale):
-        out = attend(self, q, k, v, scale)
+    def watched(self, q, k, v, scale, rows=None):
+        out = attend(self, q, k, v, scale, rows)
         if FA.supported(q.shape, k.shape):
             call = {"qkv": (q.detach(), k.detach(), v.detach()),
                     "scale": scale}
@@ -1466,19 +1623,21 @@ def slice_phase(S, FA, cfg, builder, evaluator_lib, dual_segformer, items,
     check(vs_truth or (err_bf16 <= tol_bf16 and agree_bf16 >= 0.99),
           f"{tag} bf16 kernel path vs plain path")
     fwd, plain_fwd = [], []
-    with torch.no_grad():  # kernel, plain, plain, kernel: one window
-        for runs in (fwd, plain_fwd, plain_fwd, fwd):
+    # kernel, plain, kernel: one window each (two plain windows before: cut
+    # for the run's time)
+    with torch.no_grad():
+        for runs in (fwd, plain_fwd, fwd):
             with contextlib.ExitStack() as stack:
                 if runs is plain_fwd:
                     stack.enter_context(dual_segformer.plain_attention(model))
                 runs.append(median_ms(model, rgb_t, mx_t,
                                       warmup=1 if flash_calls else 3,
                                       iters=6 if flash_calls == 0 else 3))
-    fwd_ms, plain_fwd_ms = np.mean(fwd), np.mean(plain_fwd)
+    fwd_ms, plain_fwd_ms = np.mean(fwd), plain_fwd[0]
     print(f"{tag} forward alone, batch {EVAL_BATCH} bf16 (CUDA events, host "
           f"dispatch included): {fwd[0]:.3f}/{fwd[1]:.3f} ms "
           f"({EVAL_BATCH * 1e3 / fwd_ms:.2f} img/s); on the plain attention "
-          f"path {plain_fwd[0]:.3f}/{plain_fwd[1]:.3f} ms "
+          f"path {plain_fwd_ms:.3f} ms "
           f"({EVAL_BATCH * 1e3 / plain_fwd_ms:.2f} img/s)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"peak device memory {peak:.2f} GiB (eval and both forward paths)")
@@ -1884,7 +2043,8 @@ def train_phase(S, FA, cfg, train_lib, dual_segformer, items, sr_calls=32,
               "the IFRM/IFFM parameters and both lambdas of every stage moved")
 
     # Kernel path against plain path, same trainer: windows of a step,
-    # kernel, plain, plain, kernel; peak memory of the plain path.
+    # kernel, plain, kernel (two plain windows before: cut for the run's
+    # time); peak memory of the plain path.
     def steps_ms(n=1):
         x = torch.cuda.Event(enable_timing=True)
         y = torch.cuda.Event(enable_timing=True)
@@ -1898,13 +2058,13 @@ def train_phase(S, FA, cfg, train_lib, dual_segformer, items, sr_calls=32,
     torch.cuda.reset_peak_memory_stats()
     with dual_segformer.plain_attention(model):
         steps_ms(1)
-        p1, p2 = steps_ms(), steps_ms()
+        plain_step_ms = steps_ms()
     plain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     k2 = steps_ms()
-    step_ms, plain_step_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    step_ms = (k1 + k2) / 2
     print(f"{tag} train step (CUDA events, host dispatch included): kernel path "
           f"{k1:.2f}/{k2:.2f} ms ({bs * 1e3 / step_ms:.2f} img/s, peak "
-          f"{peak:.2f} GiB); plain attention path {p1:.2f}/{p2:.2f} ms "
+          f"{peak:.2f} GiB); plain attention path {plain_step_ms:.2f} ms "
           f"({bs * 1e3 / plain_step_ms:.2f} img/s, peak {plain_peak:.2f} GiB)")
 
     prof = profile_steps(trainer, data)
@@ -2423,11 +2583,13 @@ def remat_launches(remat, i):
                for on in ("off", "on"))
 
 
-def _first_step(train_lib, cfg, batch, names):
-    """Loss and named gradients of one Trainer step from seed-0 weights."""
+def _first_step(train_lib, cfg, batch, names, world=None):
+    """Loss and named gradients of one Trainer step from seed-0 weights (on
+    `world`'s rank: its data rank's images of `batch`, its rows of them on
+    a spatial world)."""
     import torch
 
-    trainer = train_lib.Trainer(cfg, seed=0)
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
     loss = float(trainer.step(batch)["loss"])
     named = dict(trainer.model.named_parameters())
     grads = {n: named[n].grad.float().clone() for n in names}
@@ -2723,18 +2885,17 @@ def cli_phase(S, cfg_lib, train):
                 stamps.append(time.perf_counter())
                 yield batch
 
-        # The loader alone: one epoch, no step, in turns, after an untimed
-        # epoch (the files in the page cache, scipy imported).
+        # The loader alone: one epoch, no step, after an untimed epoch (the
+        # files in the page cache, scipy imported); one epoch each (native
+        # twice in turns and numpy pinned too before: cut for the run's
+        # time).
         cv_ops.gaussian_blur(np.zeros((8, 8, 3), np.uint8))
         for _ in TrainLoader(lcfg, root=data).epoch(0):
             pass
         alone = {}
         for tag, ops, pin in (("native, pinned", native, True),
                               ("native", native, False),
-                              ("numpy", cv_ops, False),
-                              ("numpy, pinned", cv_ops, True),
-                              ("native, pinned", native, True),
-                              ("native", native, False)):
+                              ("numpy", cv_ops, False)):
             loader = TrainLoader(lcfg, root=data, ops=ops, pin_memory=pin)
             stamps = []
             t0 = time.perf_counter()
@@ -2756,14 +2917,14 @@ def cli_phase(S, cfg_lib, train):
 
         # The feed: TrainLoader into Trainer.fit_epoch, pinned or not, and
         # the same trainer on the batches of one loader epoch held in pinned
-        # memory, in turns after a warm-up epoch; then the checkpoint write
-        # of that trainer.
+        # memory, one epoch each after a warm-up epoch (cut from two each
+        # in turns for the run's time); then the checkpoint write of that
+        # trainer.
         memory = list(TrainLoader(lcfg, root=data).epoch(0))
         trainer = Trainer(lcfg, seed=0)
         feed = {}
         for epoch, kind in enumerate(
-                ("pinned", "pinned", "pageable", "in memory", "pageable",
-                 "pinned", "in memory"), start=1):
+                ("pinned", "pinned", "pageable", "in memory"), start=1):
             loader = TrainLoader(lcfg, root=data,
                                  pin_memory=kind != "pageable")
             stamps = []
@@ -3360,7 +3521,7 @@ def criteria_phase(cfg_lib, train_tf32):
 # partial weight gradients to bf16, which no one-card run does (4-card
 # gaps of 2.5x and 4.3x the one-card spread in two calls). The fp32 epochs
 # keep PyTorch's TF32 default (cuDNN TF32 on).
-DDP_STEPS, DDP_NITERS, DDP_SWIN_STEPS = 3, 12, 2
+DDP_STEPS, DDP_NITERS, DDP_SWIN_STEPS = 2, 12, 2
 DDP_LOSS_FACTOR = 4.0
 # On the meshes the one-card spread does not sample the roundings a mesh
 # brings (two four-card runs, H100: tp:1,4 4.86e-5 from one card's loss
@@ -3377,9 +3538,25 @@ MESH_LOSS_FACTOR = 4.0
 # (same weights and batch, before any update: the forward's summation
 # orders and bf16 roundings only): the kernel-vs-plain loss bound.
 SPATIAL_LOSS_RTOL = 5e-3
+# mit_b2pp steps of the one-card 2d:1,2 world (the second one warm: its
+# peak memory is read). remat there: three first steps of the preset's
+# mit_b2 (drop rates on), two without remat and one with it, held as
+# remat_phase holds one card's (hold_spatial_remat), but in fp32 with TF32
+# off: this world's bf16 steps are bit-reproducible (two runs 0 apart, H100),
+# so the two runs sample no noise and the bound is its floor, while the
+# recompute sums the gradients in another order, which moves bf16
+# gradients by about as much as one card's atomics do (2.6e-3 against one
+# card's two runs 3.7e-3 apart; in fp32 such an order moves them ~1e-6),
+# and a recompute that drew other masks lands ~1e-1 away in either.
+PP_SPATIAL_STEPS = 2
+# K1, K2, K5-fwd, K5-dkv, K5-dq launches of those steps on each rank
+PP_SPATIAL_LAUNCHES = ([PP_SR_CALLS * PP_SPATIAL_STEPS] * 2
+                       + [PP_FLASH_CALLS * PP_SPATIAL_STEPS] * 3)
 # The data x spatial meshes of the four-card part (train_cli --mesh):
 # 2 data ranks x 2 row blocks, and 1 x 4.
 SPATIAL_MESHES = ["2d:2,2", "2d:1,4"]
+# The four-card meshes whose gradient check runs mit_b2pp too.
+SPATIAL_PP_MESHES = ["2d:2,2"]
 # The first-step gradient on N ranks against one card: mit_b2 at global
 # batch 8 and drop rates 0, on a batch whose row b ignores ~b/10 of its
 # pixels (the ranks hold different valid counts), the relative L2 distance
@@ -3421,7 +3598,7 @@ SPATIAL_GRAD_FACTOR = 4.0
 # of the gradient below a split layer).
 TP_MESH_ONE_CARD = "tp:1,2"
 TP_MESHES = ["tp:2,2", "tp:1,4"]
-TP_STEPS, TP_SWIN_STEPS = 3, 2
+TP_STEPS, TP_SWIN_STEPS = 2, 2
 # On the card the model ranks' gradients of a whole parameter differ in
 # their last bits (atomics), and the step hands model rank 0's to the
 # others (parallel/tensor.agree). What they differed by before that, the
@@ -3604,9 +3781,10 @@ def print_memory_probe(tag, probe):
 
 def _spatial_world_rank(world, cfg, steps):
     """A rank of the one-card data x spatial world (2d:1,2 over gloo, both
-    ranks on one card): `steps` Trainer steps on its rows of the synthetic
-    batches, with the K1/K2 launches, the step time (events after the
-    first step) and the peak memory of the rank's process."""
+    ranks on one card): `steps` Trainer steps of `cfg` (mit_b2) on its rows
+    of the synthetic batches, with the K1/K2 launches, the step time
+    (events after the first step) and the peak memory of the rank's
+    process."""
     import torch
     import torch.distributed as dist
 
@@ -3635,6 +3813,48 @@ def _spatial_world_rank(world, cfg, steps):
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if world.is_main():
         out["payload"] = _trainer_payload(trainer)
+    return out
+
+
+def _spatial_pp_remat_rank(world, cfg, pp, pp_steps):
+    """A rank of the second one-card 2d:1,2 world (gloo): `pp_steps` steps
+    of `pp` (mit_b2pp: IFRM/IFFM, K5 on the rank's q rows) with the K1/K2
+    and K5 launches and the peak of the last (warm) step (_pp_steps); then
+    remat (hold_spatial_remat): the first step of `cfg` (mit_b2) at the
+    preset's drop rates in fp32, twice without remat and once with it,
+    their loss and GRAD_NAMES' gradients, and the launches with it."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+
+    batches = uint8_batches(synthetic_items(N_IMAGES, HW,
+                                            cfg.dataset.num_classes), 8)
+    t0 = time.perf_counter()
+    out = {"pp": {**_pp_steps(world, pp, batches, pp_steps),
+                  "seconds": time.perf_counter() - t0}}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False   # see PP_SPATIAL_STEPS
+    torch.backends.cudnn.allow_tf32 = False
+    off = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                use_mixed_precision=False))
+    on = off.replace(model=dataclasses.replace(off.model, remat=True))
+    runs = [_first_step(train_lib, off, batches[0], GRAD_NAMES, world),
+            _first_step(train_lib, off, batches[0], GRAD_NAMES, world)]
+    S.sr_attention.launches = S.sr_attention_bwd.launches = 0
+    runs.append(_first_step(train_lib, on, batches[0], GRAD_NAMES, world))
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    out["remat"] = {"launches": (S.sr_attention.launches,
+                                 S.sr_attention_bwd.launches),
+                    "seconds": time.perf_counter() - t0}
+    if world.is_main():
+        out["remat"]["runs"] = [(loss, {k: g.cpu() for k, g in grads.items()})
+                                for loss, grads in runs]
     return out
 
 
@@ -3824,12 +4044,21 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
     gradients, as the data-parallel ranks do). Then the data x model mesh
     tp:1,2 on this card (hold_tp_world). The three worlds run at once
     (_spawn_together). Last, 2d:1,2's and tp:1,2's fp32 first-step
-    gradients and their controls (grad_phase), their worlds at once."""
+    gradients and their controls (grad_phase), their worlds at once, with
+    mit_b2pp's on 2d:1,2 beside them.
+
+    A second 2d:1,2 world beside them runs mit_b2pp (PP_SPATIAL_STEPS
+    steps: K5 6 forward, 6 dk/dv and 6 dq launches a step on each rank at
+    the rank's q rows, K1/K2 34; its first loss within SPATIAL_LOSS_RTOL of
+    one card's; a warm step's peak beside one card's) and remat
+    (hold_spatial_remat)."""
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
 
     cfg = _ddp_cfg(cfg_lib)
+    pp = cfg.replace(model=dataclasses.replace(cfg.model,
+                                               backbone="mit_b2pp"))
     batches = uint8_batches(synthetic_items(N_IMAGES, HW,
                                             cfg.dataset.num_classes), 8)
     plain, plain_ms, first, plain_peak = [], [], [], []
@@ -3852,13 +4081,26 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
                 batches)])
         del trainer
         torch.cuda.empty_cache()
-    # The three worlds share the card at once (their checks do not depend
+    # one card's mit_b2pp: its first loss and a warm step's peak
+    trainer = train_lib.Trainer(pp, seed=0)
+    pp_first = float(trainer.step(batches[0])["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.step(batches[1])
+    torch.cuda.synchronize()
+    pp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer
+    torch.cuda.empty_cache()
+    # The four worlds share the card at once (their checks do not depend
     # on it; their step times, read beside the plain Trainer's, do).
     card = torch.cuda.current_device()
     worlds = {
         "world 1": (_ddp_world1_rank, [card], (cfg, DDP_STEPS), None),
         "2d:1,2": (_spatial_world_rank, [card, card], (cfg, DDP_STEPS),
                    "2d:1,2"),
+        "2d:1,2, mit_b2pp and remat": (
+            _spatial_pp_remat_rank, [card, card],
+            (cfg, pp, PP_SPATIAL_STEPS), "2d:1,2"),
         TP_MESH_ONE_CARD: (_tp_world_rank, [card, card],
                            (cfg, swin_cfg(cfg_lib), TP_STEPS, TP_SWIN_STEPS),
                            TP_MESH_ONE_CARD)}
@@ -3912,25 +4154,31 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
         print(f"  2d:1,2 {name}: rel L2 from a plain run "
               f"{sp_dist[name]['spatial']:.3e} (two plain runs "
               f"{dist[name]['two_runs']:.3e}; read, not held)")
+    extra = results["2d:1,2, mit_b2pp and remat"]
+    print(f"2d:1,2, mit_b2pp and remat (gloo, "
+          f"{walls['2d:1,2, mit_b2pp and remat']:.1f} s with the process "
+          "starts):")
+    pp_out = hold_spatial_pp(extra, pp_first, pp_peak)
+    remat_out = hold_spatial_remat(extra)
     torch.cuda.empty_cache()
     tp_out = hold_tp_world(results[TP_MESH_ONE_CARD],
                            walls[TP_MESH_ONE_CARD], first[0], plain_ms[0],
                            max(plain_peak), plain_memory, rank["memory"])
     t0 = time.perf_counter()
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
     grad, _ = grad_phase(train_lib, cfg_lib, [card, card],
-                         ["2d:1,2", TP_MESH_ONE_CARD], together=True)
-    (torch.backends.cuda.matmul.allow_tf32,
-     torch.backends.cudnn.allow_tf32) = tf32
-    print(f"  2d:1,2 and {TP_MESH_ONE_CARD} gradient checks on one card: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    tp_out["gradient"] = {k: v for k, v in grad.items() if k != "2d:1,2"}
+                         ["2d:1,2", TP_MESH_ONE_CARD], together=True,
+                         pp_meshes=["2d:1,2"])
+    print(f"  2d:1,2 (mit_b2, mit_b2pp) and {TP_MESH_ONE_CARD} gradient "
+          f"checks on one card: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    tp_out["gradient"] = {k: v for k, v in grad.items()
+                          if not k.startswith("2d")}
     spatial_out = {"launches": [list(r["launches"]) for r in sp_ranks],
                    "losses": r0["losses"], "plain_first_loss": first,
                    "step_ms": r0["step_ms"], "seconds": sp_wall,
                    "peak_gib": [r["peak_gib"] for r in sp_ranks],
-                   "rel_l2": sp_dist, "gradient": grad}
+                   "rel_l2": sp_dist, "gradient": grad, "mit_b2pp": pp_out,
+                   "remat": remat_out}
     return {"spatial_2d_1_2": spatial_out, "tp_1_2": tp_out,
             "launches": {"fwd": rank["launches"][0],
                          "bwd": rank["launches"][1]},
@@ -3939,13 +4187,68 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
             "order_statistics_grad_err": rank["order_statistics_grad_err"]}
 
 
-def _grad_cfg(cfg_lib):
-    """The gradient check's configuration: the mfnet preset (mit_b2) at
-    global batch 8, fp32, drop rates 0."""
-    cfg = _ddp_cfg(cfg_lib)
+def hold_spatial_pp(ranks, one_first, one_peak):
+    """mit_b2pp on the one-card 2d:1,2 world (_spatial_pp_remat_rank): K1/K2
+    34 and K5 6 + 6 + 6 launches a step on each rank, one finite loss on
+    both, the first within SPATIAL_LOSS_RTOL of one card's `one_first`;
+    a warm step's peak per rank read beside one card's `one_peak`."""
+    pp = [r["pp"] for r in ranks]
+    want = PP_SPATIAL_LAUNCHES
+    first = pp[0]["losses"][0]
+    print(f"mit_b2pp on 2d:1,2 (one card, gloo, {PP_SPATIAL_STEPS} steps, "
+          f"{pp[0]['seconds']:.1f} s with the model build): losses "
+          f"{pp[0]['losses']} (one card's first {one_first}), launches per "
+          f"rank K1, K2, K5 fwd, dk/dv, dq {[p['launches'] for p in pp]} "
+          f"(expected {want}); a warm step {pp[0]['warm_step_ms']:.1f} ms "
+          f"(the two ranks share the card), its peak GiB per rank "
+          f"{[round(p['warm_peak_gib'], 3) for p in pp]} against one "
+          f"card's {one_peak:.3f}")
+    check(all(p["launches"] == want for p in pp),
+          "2d:1,2 mit_b2pp: K1/K2 34 and K5 6 + 6 + 6 launches a step on "
+          "each rank")
+    check(all(np.isfinite(pp[0]["losses"]))
+          and all(p["losses"] == pp[0]["losses"] for p in pp),
+          "2d:1,2 mit_b2pp: one finite loss on both ranks")
+    check(abs(first / one_first - 1) <= SPATIAL_LOSS_RTOL,
+          f"2d:1,2 mit_b2pp first loss {first} vs one card's {one_first}")
+    return {"launches": [p["launches"] for p in pp],
+            "losses": pp[0]["losses"], "one_card_first_loss": one_first,
+            "warm_step_ms": pp[0]["warm_step_ms"],
+            "warm_peak_gib": [p["warm_peak_gib"] for p in pp],
+            "one_card_warm_peak_gib": one_peak}
+
+
+def hold_spatial_remat(ranks):
+    """remat on the one-card 2d:1,2 world (_spatial_pp_remat_rank): K1 64
+    and K2 32 launches in its step on each rank (the recompute on both), its
+    first step's loss and GRAD_NAMES' gradients with the preset's drop
+    rates (fp32, TF32 off: PP_SPATIAL_STEPS) within REMAT_FACTOR x the
+    distance of the two runs without remat + REMAT_FLOOR of the first of
+    them (remat_phase's bound)."""
+    off1, off2, on = ranks[0]["remat"]["runs"]
+    spread = _rel(off2, off1, GRAD_NAMES)
+    dist = _rel(on, off1, GRAD_NAMES)
+    bound = REMAT_FACTOR * spread + REMAT_FLOOR
+    launches = [r["remat"]["launches"] for r in ranks]
+    print(f"remat on 2d:1,2 (mit_b2 fp32, drop rates on, "
+          f"{ranks[0]['remat']['seconds']:.1f} s for 3 first steps): remat "
+          f"vs off {dist:.3e} (bound {bound:.3e}), two remat-off runs "
+          f"{spread:.3e} apart; losses {off1[0]:.6f} / {off2[0]:.6f} / "
+          f"{on[0]:.6f}; K1/K2 launches per rank with remat {launches}")
+    check(all(tuple(n) == (64, 32) for n in launches),
+          "2d:1,2 remat: K1 64 and K2 32 launches a step on each rank")
+    check(np.isfinite(dist) and dist <= bound, "2d:1,2 remat gradients")
+    return {"remat_vs_off": dist, "spread": spread, "bound": bound,
+            "launches": launches}
+
+
+def _grad_cfg(cfg_lib, backbone="mit_b2", batch=8):
+    """The gradient check's configuration: the mfnet preset (mit_b2, or
+    `backbone`) at global batch `batch`, fp32, drop rates 0."""
+    cfg = _ddp_cfg(cfg_lib, batch)
     return cfg.replace(model=dataclasses.replace(
-        cfg.model, use_mixed_precision=False, drop_path_rate=0.0,
-        decoder_dropout_ratio=0.0))
+        cfg.model, backbone=backbone, use_mixed_precision=False,
+        drop_path_rate=0.0, decoder_dropout_ratio=0.0))
 
 
 def ragged_ignore(batch, seed=5):
@@ -3985,7 +4288,8 @@ def _kv_twice(world):
     check's control: k and v pass through an identity whose backward sums
     their gradient over the spatial group, i.e. JAX's psum of dk, dv
     (ops/sr_attention.py:323-324) taken again on top of the all-gather's
-    backward that already carries it."""
+    backward that already carries it (the MiT attentions' and, on
+    mit_b2pp, the IFFM cross-attentions')."""
     import torch
     import torch.distributed as dist
 
@@ -4006,9 +4310,9 @@ def _kv_twice(world):
             dist.all_reduce(g, group=group)
             return g
 
-    def wrong(q, k, v, scale, use_kernels=False):
+    def wrong(q, k, v, scale, use_kernels=False, n_whole=None):
         return attend(q, SumGrad.apply(k), SumGrad.apply(v), scale,
-                      use_kernels)
+                      use_kernels, n_whole)
     return wrong
 
 
@@ -4087,11 +4391,13 @@ def _ddp_grad_rank(world, cfg, batch, control=True):
             tensor._CopyToModel = right
         return out
     if world.spatial is not None:
+        from rgbx_semantic_segmentation_tpu_torch.models import fusion
         from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
             dual_segformer)
 
         attend = dual_segformer.multi_head_attention
-        dual_segformer.multi_head_attention = _kv_twice(world)
+        dual_segformer.multi_head_attention = fusion.multi_head_attention = (
+            _kv_twice(world))
         try:
             trainer = train_lib.Trainer(cfg, seed=0, world=world)
             out["control_loss"] = float(trainer.step(local)["loss"])
@@ -4099,6 +4405,7 @@ def _ddp_grad_rank(world, cfg, batch, control=True):
                 out["control_grad"] = _flat_grads(trainer.model)
         finally:
             dual_segformer.multi_head_attention = attend
+            fusion.multi_head_attention = attend
         return out
     model = convert_sync_batchnorm(build_model(cfg, device=world.device,
                                                seed=0)).train()
@@ -4139,48 +4446,77 @@ def float64_grad(train_lib, cfg, batch):
 
 
 def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check,
-               together=False):
+               together=False, pp_meshes=()):
     """The first-step gradient over the ranks against one card (see
     DDP_GRAD_FACTOR and SPATIAL_GRAD_FACTOR), on each of `meshes` over the
     devices ('dp': one data rank a card, with DDP's default as the
     control; '2d:D,S': the data x spatial mesh, with the spatial sum of
     dk, dv taken twice as the control; 'tp:D,M': the data x model mesh,
     with copy_to_model's backward left without its all-reduce as the
-    control). The dp control's check is returned, for the caller to make
-    last: it needs two ranks (None without 'dp'). The meshes' bounds and
-    controls go to `hold`. `together`: the meshes' worlds run at once (the
-    default run's two worlds on its one card)."""
+    control), mit_b2 at global batch 8; and mit_b2pp on each of the data x
+    spatial `pp_meshes` (its IFFM cross-attention on the rank's q rows;
+    global batch PP_FP32_BATCH: the fp32 K5 kernels are scalar), held
+    likewise to its own one-card and float64 steps. The dp control's check
+    is returned, for the caller to make last: it needs two ranks (None
+    without 'dp'). The meshes' bounds and controls go to `hold`.
+    `together`: the meshes' worlds run at once (the default run's worlds
+    on its one card). TF32 is off inside it (see DDP_GRAD_FACTOR) and back
+    at the caller's settings after it."""
+    import torch
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _grad_phase(train_lib, cfg_lib, devices, meshes, hold,
+                           together, pp_meshes)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def _grad_phase(train_lib, cfg_lib, devices, meshes, hold, together,
+                pp_meshes):
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = _grad_cfg(cfg_lib)
     batch = ragged_ignore(uint8_batches(
         synthetic_items(8, HW, cfg.dataset.num_classes), 8)[0])
+    models = {"mit_b2": (cfg, batch)}
+    if pp_meshes:
+        models["mit_b2pp"] = (
+            _grad_cfg(cfg_lib, "mit_b2pp", PP_FP32_BATCH),
+            {k: v[:PP_FP32_BATCH] for k, v in batch.items()})
 
-    def one_card(b):
+    def one_card(model, b):
         t0 = time.perf_counter()
-        trainer = train_lib.Trainer(cfg, seed=0)
+        trainer = train_lib.Trainer(models[model][0], seed=0)
         loss = float(trainer.step(b)["loss"])
         grad = _flat_grads(trainer.model)
         del trainer
         torch.cuda.empty_cache()
-        print(f"  one card, fp32 step: {time.perf_counter() - t0:.1f} s with "
-              "the model build", flush=True)
+        print(f"  one card, {model} fp32 step: {time.perf_counter() - t0:.1f}"
+              " s with the model build", flush=True)
         return loss, grad
 
-    ref_loss, ref = one_card(batch)
+    # per model: one card's fp32 loss and gradient, the float64 gradient
+    # and one card's distance from it
+    refs = {m: one_card(m, b) for m, (_, b) in models.items()
+            if m == "mit_b2pp" or meshes}
+    ref_loss, ref = refs.get("mit_b2", (None, None))
 
-    def rel(g):
-        return float((g - ref).norm() / ref.norm())
+    def rel(g, model="mit_b2"):
+        r = refs[model][1]
+        return float((g - r).norm() / r.norm())
 
     out = {"losses": {"one card": ref_loss}}
     if "dp" in meshes:
-        runs = {"again": one_card(batch),
-                "rows reversed": one_card({k: v[::-1].copy()
-                                           for k, v in batch.items()})}
+        runs = {"again": one_card("mit_b2", batch),
+                "rows reversed": one_card("mit_b2", {
+                    k: v[::-1].copy() for k, v in batch.items()})}
         world1 = launch.spawn(_ddp_grad_rank, devices[:1], "cuda",
                               (cfg, batch))
         runs["world of 1"] = (world1[0]["loss"], world1[0]["grad"])
@@ -4188,58 +4524,73 @@ def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check,
         bound = DDP_GRAD_FACTOR * max(readings.values())
         out.update({"readings": readings, "bound": bound})
         out["losses"].update({k: v[0] for k, v in runs.items()})
-    if any(m != "dp" for m in meshes):
-        t0 = time.perf_counter()
-        truth = float64_grad(train_lib, cfg, batch)
-        one_err = float((ref.double() - truth).norm() / truth.norm())
-        print(f"  one card, float64 step (plain attention): "
-              f"{time.perf_counter() - t0:.1f} s; one card's fp32 gradient "
-              f"{one_err:.3e} from it", flush=True)
-        out["one_card_from_float64"] = one_err
-
-    def exact(g):
-        return float((g.double() - truth).norm() / truth.norm())
-
     worlds = {m: (_ddp_grad_rank, devices, (cfg, batch), m) for m in meshes
               if m != "dp"}
+    worlds.update({f"{m} mit_b2pp": (_ddp_grad_rank, devices,
+                                     models["mit_b2pp"], m)
+                   for m in pp_meshes})
+    truth = {}
+    for model in {("mit_b2pp" if t.endswith("pp") else "mit_b2")
+                  for t in worlds}:
+        t0 = time.perf_counter()
+        exact = float64_grad(train_lib, *models[model])
+        one_err = float((refs[model][1].double() - exact).norm()
+                        / exact.norm())
+        print(f"  one card, {model} float64 step (plain attention): "
+              f"{time.perf_counter() - t0:.1f} s; one card's fp32 gradient "
+              f"{one_err:.3e} from it", flush=True)
+        truth[model] = (exact, one_err)
+        key = ("one_card_from_float64" if model == "mit_b2" else
+               f"{model}_one_card_from_float64")
+        out[key] = one_err
+        if model != "mit_b2":
+            out["losses"][f"one card, {model}"] = refs[model][0]
+
     if together:
         results, walls = _spawn_together(launch, worlds)
-    for mesh in worlds:
+    for tag, (_, _, _, mesh) in worlds.items():
+        model = "mit_b2pp" if tag.endswith("pp") else "mit_b2"
+        exact, one_err = truth[model]
         t0 = time.perf_counter()
         if together:
-            ranks, seconds = results[mesh], walls[mesh]
+            ranks, seconds = results[tag], walls[tag]
         else:
             ranks = launch.spawn(_ddp_grad_rank, devices, "cuda",
-                                 (cfg, batch), mesh=mesh)
+                                 worlds[tag][2], mesh=mesh)
             seconds = time.perf_counter() - t0
         r0 = ranks[0]
-        got, err = rel(r0["grad"]), exact(r0["grad"])
-        wrong = exact(r0["control_grad"])
+
+        def exact_rel(g):
+            return float((g.double() - exact).norm() / exact.norm())
+
+        got, err = rel(r0["grad"], model), exact_rel(r0["grad"])
+        wrong = exact_rel(r0["control_grad"])
         control = ("dk, dv summed twice over the spatial group"
                    if mesh.startswith("2d") else
                    "copy_to_model's backward without its all-reduce")
         limit = SPATIAL_GRAD_FACTOR * one_err
-        beside = ("" if "dp" not in meshes else
+        beside = ("" if "dp" not in meshes or model != "mit_b2" else
                   f"; read beside {bound:.3e}, {DDP_GRAD_FACTOR:g}x the "
                   "one-card readings " + ", ".join(
                       f"{k} {v:.3e}" for k, v in readings.items()))
-        print(f"first-step gradient, mit_b2 fp32, global batch 8, {mesh} "
-              f"({seconds:.1f} s with the process starts):"
+        n_images = len(models[model][1]["label"])
+        print(f"first-step gradient, {model} fp32, global batch {n_images}, "
+              f"{mesh} ({seconds:.1f} s with the process starts):"
               f" {got:.3e} from one card's (loss {r0['loss']:.6f} against "
-              f"{ref_loss:.6f}{beside}); {err:.3e} from the float64 step, "
-              f"bound {limit:.3e} ({SPATIAL_GRAD_FACTOR:g}x one card's "
+              f"{refs[model][0]:.6f}{beside}); {err:.3e} from the float64 "
+              f"step, bound {limit:.3e} ({SPATIAL_GRAD_FACTOR:g}x one card's "
               f"{one_err:.3e}); {control} (the control) {wrong:.3e} (loss "
               f"{r0['control_loss']:.6f})", flush=True)
         check(all(r["loss"] == r0["loss"] for r in ranks),
-              f"gradient check, {mesh}: every rank reports the global loss")
-        hold(err <= limit, f"{mesh} gradient {err} from the float64 step, "
+              f"gradient check, {tag}: every rank reports the global loss")
+        hold(err <= limit, f"{tag} gradient {err} from the float64 step, "
              f"bound {limit}")
-        hold(wrong > limit, f"{mesh} control ({control}) at {wrong} does "
+        hold(wrong > limit, f"{tag} control ({control}) at {wrong} does "
              f"not miss the bound {limit}")
-        out[mesh] = {"from_one_card": got, "from_float64": err,
-                     "control_from_float64": wrong}
-        out["losses"][mesh] = r0["loss"]
-        out["losses"][f"{mesh}, control"] = r0["control_loss"]
+        out[tag] = {"from_one_card": got, "from_float64": err,
+                    "control_from_float64": wrong}
+        out["losses"][tag] = r0["loss"]
+        out["losses"][f"{tag}, control"] = r0["control_loss"]
     if "dp" not in meshes:
         return out, None
     valid = (batch["label"] != 255).reshape(len(devices), -1).sum(1)
@@ -4432,14 +4783,15 @@ def _spatial_mask_rank(world):
     trainer = train_lib.Trainer(cfg, seed=0, world=world)
     masks, forward = [], layers._Stochastic.forward
 
-    def recording(self, x):
+    def recording(self, x, split=None, dim=-1):
+        # (the preset splits no mask: its token dropouts have rate 0)
         if self.training and self.rate > 0.0:
             state = self.generator.get_state()
             u = torch.rand(self._mask_shape(x), device=x.device,
                            generator=self.generator)
             self.generator.set_state(state)
             masks.append((u < 1.0 - self.rate).cpu())
-        return forward(self, x)
+        return forward(self, x, split, dim)
 
     layers._Stochastic.forward = recording
     try:
@@ -4504,9 +4856,90 @@ def _spatial_inmem_rank(world, steps=2):
     return out
 
 
+def _pp_steps(world, cfg, batches, steps):
+    """`steps` Trainer steps of `cfg` (mit_b2pp) on `world`'s rank, on its
+    rows of its data rank's images of the global `batches`: the K1, K2,
+    K5-fwd, K5-dkv and K5-dq launches (PP_SPATIAL_LAUNCHES), the losses,
+    and the time (events) and peak memory of the last (warm) step."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch import train as train_lib
+    from rgbx_semantic_segmentation_tpu_torch.ops import flash_attention as FA
+    from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+    from rgbx_semantic_segmentation_tpu_torch.parallel.multihost import (
+        process_batch_slice)
+
+    rows = process_batch_slice(8, world.data_rank, world.data_size)
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    counters = (S.sr_attention, S.sr_attention_bwd, FA.flash_attention,
+                FA.flash_attention_dkv, FA.flash_attention_dq)
+    for fn in counters:
+        fn.launches = 0
+    losses = []
+    for i in range(steps):
+        if i == steps - 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        losses.append(float(trainer.step(
+            {k: v[rows] for k, v in batches[i % len(batches)].items()})
+            ["loss"]))
+    b.record()
+    b.synchronize()
+    return {"launches": [fn.launches for fn in counters], "losses": losses,
+            "warm_step_ms": a.elapsed_time(b),
+            "warm_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _pp_mesh_rank(world, steps):
+    """mit_b2pp (the preset's, bf16, global batch 8) on a data x spatial
+    world of cards: _pp_steps."""
+    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
+
+    cfg = _ddp_cfg(cfg_lib)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                backbone="mit_b2pp"))
+    return _pp_steps(world, cfg, uint8_batches(synthetic_items(
+        N_IMAGES, HW, cfg.dataset.num_classes), 8), steps)
+
+
+def pp_mesh_part(devices, meshes):
+    """mit_b2pp on each data x spatial mesh of `meshes` over the cards
+    (_pp_mesh_rank, PP_SPATIAL_STEPS steps): K1/K2 34 and K5 6 + 6 + 6
+    launches a step on every rank, one finite loss, a warm step's peak per
+    rank."""
+    from rgbx_semantic_segmentation_tpu_torch.parallel import launch
+
+    out = {}
+    want = PP_SPATIAL_LAUNCHES
+    for mesh in meshes:
+        t0 = time.perf_counter()
+        ranks = launch.spawn(_pp_mesh_rank, devices, "cuda",
+                             (PP_SPATIAL_STEPS,), mesh=mesh)
+        print(f"mit_b2pp on {mesh} ({time.perf_counter() - t0:.1f} s with "
+              f"the process starts): losses {ranks[0]['losses']}, launches "
+              f"per rank K1, K2, K5 fwd, dk/dv, dq "
+              f"{[r['launches'] for r in ranks]} (expected {want}), a warm "
+              f"step's peak GiB per rank "
+              f"{[round(r['warm_peak_gib'], 3) for r in ranks]}", flush=True)
+        check(all(r["launches"] == want for r in ranks),
+              f"{mesh} mit_b2pp: K1/K2 34 and K5 6 + 6 + 6 launches a step "
+              "on every rank")
+        check(all(np.isfinite(ranks[0]["losses"]))
+              and all(r["losses"] == ranks[0]["losses"] for r in ranks),
+              f"{mesh} mit_b2pp: one finite loss on every rank")
+        out[mesh] = {"losses": ranks[0]["losses"],
+                     "launches": [r["launches"] for r in ranks],
+                     "warm_peak_gib": [r["warm_peak_gib"] for r in ranks]}
+    return out
+
+
 def mesh_ddp_part(devices, meshes):
     """The data x spatial and data x model `meshes` on the cards beyond
-    the train_cli runs: each mesh's step profiled in memory (see
+    the train_cli runs: mit_b2pp's steps on SPATIAL_PP_MESHES
+    (pp_mesh_part), each mesh's step profiled in memory (see
     _spatial_inmem_rank) and, with 2d:2,2 among them, the preset's drop
     masks (see _spatial_mask_rank) equal across an image's spatial ranks,
     different across its data ranks."""
@@ -4514,7 +4947,8 @@ def mesh_ddp_part(devices, meshes):
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
 
-    out = {}
+    out = {"mit_b2pp": pp_mesh_part(
+        devices, [m for m in meshes if m in SPATIAL_PP_MESHES])}
     for mesh in meshes:
         ranks = launch.spawn(_spatial_inmem_rank, devices, "cuda", (),
                              mesh=mesh)
@@ -4710,7 +5144,8 @@ def ddp_main(n: int, card: str) -> int:
     """The N-card part (`--ddp N`): see DDP_STEPS; at N = 4 also the data
     x spatial and data x model meshes (SPATIAL_MESHES, TP_MESHES: their
     train_cli runs beside the one-card runs they are held to, the
-    profiled step, the masks, the gradient)."""
+    profiled step, the masks, the gradient; mit_b2pp's gradient on
+    SPATIAL_PP_MESHES)."""
     import tempfile
 
     import torch
@@ -4791,7 +5226,8 @@ def ddp_main(n: int, card: str) -> int:
     if meshes:
         out["meshes"] = mesh_ddp_part(devices, meshes)
     out["gradient"], control = grad_phase(
-        train_lib, cfg_lib, devices, ["dp"] + meshes, deferred)
+        train_lib, cfg_lib, devices, ["dp"] + meshes, deferred,
+        pp_meshes=[m for m in meshes if m in SPATIAL_PP_MESHES])
     check(not failed, "; ".join(failed))
     # Last, the two checks that need two ranks (`--ddp 1` fails them).
     # (the first call: stage 1, its first window attention; rate 0.3)
@@ -5020,7 +5456,7 @@ def tools_phase():
     """The port's tools on the card: tools/check_gpu as a program (rc 0,
     its exact matmul line); ops/resize.resize_nearest on CUDA equal to the
     CPU on (8, 480, 640) uint8 labels, down to 240x320 and up to 960x1280;
-    tools/bench_input at a small n (host time, read, not held). Returns its
+    tools/bench_input at n = 4 (host time, read, not held). Returns its
     readings."""
     import torch
 
@@ -5057,8 +5493,8 @@ def tools_phase():
           f"{equal}")
     check(all(equal.values()), f"resize_nearest card vs CPU: {equal}")
 
-    bench = bench_input.run(n=10)
-    print("bench_input (n = 10, 480x640, host time): " + ", ".join(
+    bench = bench_input.run(n=4)
+    print("bench_input (n = 4, 480x640, host time): " + ", ".join(
         f"{k} {v:.2f}" for k, v in bench.items()))
     print(f"tools phase: {time.perf_counter() - t0:.1f} s")
     return {"check_gpu_matmul_ms": float(matmul.group(1)),
@@ -5375,6 +5811,8 @@ def main() -> int:
     sr_narrow_err, sr_narrow_rows = segnext_sr_kernel_phase(S)
     spatial_err, spatial_rows = spatial_kernel_phase(S)
     lap("K1/K2 at SegNeXt's widths and on row blocks")
+    sp_flash_err, sp_flash_rows = spatial_flash_phase(FA, T5)
+    lap("K5 on a rank's q rows")
     for which, tag in (("fwd", "forward"), ("dkv", "dk/dv"), ("dq", "dq")):
         for model, rows in (("mit_b2pp", flash_rows[which]),
                             ("segnext_b", narrow_rows[which]),
@@ -5536,6 +5974,18 @@ def main() -> int:
         return sum(r[i] for r in tp[model]["launches_per_rank"])
 
     flash_train = pp_train["flash_launches"]
+    sp = ddp["spatial_2d_1_2"]
+
+    def pp_launches(i):
+        # counter i (K1, K2, K5 fwd, dk/dv, dq) of mit_b2pp on both ranks
+        return sum(r[i] for r in sp["mit_b2pp"]["launches"])
+
+    def spatial_launches(i):
+        # K1 (i = 0) or K2 on both ranks of the 2d:1,2 world: mit_b2's
+        # steps, mit_b2pp's and the remat step's
+        return (sum(r[i] for r in sp["launches"]) + pp_launches(i)
+                + sum(r[i] for r in sp["remat"]["launches"]))
+
     entries = [
         ("sr_attention_fwd", "sr_attention.py:104",
          mit_eval["launches"] + train["fwd_launches"] + pp_eval["launches"]
@@ -5606,14 +6056,28 @@ def main() -> int:
         # over every row block (and the summed partial dk, dv), the times
         # at a 2d:2,2 rank's shapes (spatial_rows has 2d:1,4's too).
         ("sr_attention_fwd_spatial", "sr_attention.py:303",
-         sum(r[0] for r in ddp["spatial_2d_1_2"]["launches"]),
-         spatial_err["fwd"], spatial_rows["2d:2,2"]["fwd"], CALLS_PER_FORWARD,
+         spatial_launches(0), spatial_err["fwd"],
+         spatial_rows["2d:2,2"]["fwd"], CALLS_PER_FORWARD,
          "sr_attention_fwd"),
         ("sr_attention_bwd_spatial", "sr_attention.py:303",
-         sum(r[1] for r in ddp["spatial_2d_1_2"]["launches"]),
-         max(spatial_err["bwd"], spatial_err["sum_dkv"]),
+         spatial_launches(1), max(spatial_err["bwd"], spatial_err["sum_dkv"]),
          spatial_rows["2d:2,2"]["bwd"], CALLS_PER_FORWARD,
-         "sr_attention_bwd")]
+         "sr_attention_bwd"),
+        # K5 on the spatial axis (JAX runs `_sdpa` there: ops/
+        # flash_attention.py): the same kernels on a rank's q rows; the
+        # launches of mit_b2pp on the one-card 2d:1,2 world (both ranks),
+        # the errors over every row block (and the summed partial dk, dv),
+        # the times at a 2d:1,2 rank's shapes (spatial_flash has 2d:2,2's
+        # and 2d:1,4's too).
+        ("flash_attention_fwd_spatial", "attention.py:50", pp_launches(2),
+         sp_flash_err["fwd"], sp_flash_rows["2d:1,2"]["fwd"], T5.CALLS,
+         "flash_attention_fwd"),
+        ("flash_attention_bwd_dkv_spatial", "attention.py:50",
+         pp_launches(3), max(sp_flash_err["dkv"], sp_flash_err["sum_dkv"]),
+         sp_flash_rows["2d:1,2"]["dkv"], T5.CALLS, "flash_attention_bwd"),
+        ("flash_attention_bwd_dq_spatial", "attention.py:50", pp_launches(4),
+         sp_flash_err["dq"], sp_flash_rows["2d:1,2"]["dq"], T5.CALLS,
+         "flash_attention_bwd")]
     print(json.dumps({"kernels": [
         with_rates(kernel_entry(name, replaces, launches, err, rows, calls,
                                 source), calls)
@@ -5632,7 +6096,9 @@ def main() -> int:
         "segnext_sr": {"max_abs_err": sr_narrow_err, "rows": sr_narrow_rows},
         "segnext_large_flash": large_rows, "tools": tools,
         "spatial_kernels": {"max_abs_err": spatial_err,
-                            "rows": spatial_rows}, "card": card}))
+                            "rows": spatial_rows},
+        "spatial_flash": {"max_abs_err": sp_flash_err,
+                          "rows": sp_flash_rows}, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

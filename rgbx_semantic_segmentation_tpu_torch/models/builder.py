@@ -230,9 +230,10 @@ class EncoderDecoder(nn.Module):
         """Run on one rank of the spatial axis of `--mesh 2d:D,S` (None:
         whole images): forward then takes the rank's row block of the
         images and returns the logits of those rows
-        (parallel/spatial.py). Ported for the MiT towers with FRM/FFM and
-        the MLPDecoder under the cross-entropy loss; the rest raises
-        NotImplementedError naming its ROADMAP item."""
+        (parallel/spatial.py). Ported for the MiT towers (FRM/FFM and the
+        mit_*pp IFRM/IFFM, `remat` on or off) and the MLPDecoder under the
+        cross-entropy loss; the rest raises NotImplementedError naming its
+        ROADMAP item."""
         if sp is not None:
             spatial_support(self.cfg)
         self.spatial = sp
@@ -284,16 +285,13 @@ class EncoderDecoder(nn.Module):
 def spatial_support(cfg: Config) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a config
     that `--mesh 2d` does not run: it runs the MiT towers (mit_tiny,
-    mit_b0..b5) with FRM/FFM, the MLPDecoder and the cross-entropy loss."""
+    mit_b0..b5 with FRM/FFM or IFRM/IFFM, mit_b0pp..b5pp; `remat` on or
+    off), the MLPDecoder and the cross-entropy loss."""
     m = cfg.model
-    if m.backbone not in MIT_FACTORIES:
-        item = ("5c" if is_mit_pp(m.backbone) or m.backbone in SWIN_FACTORIES
-                else "5d")
+    if m.backbone not in MIT_FACTORIES and not is_mit_pp(m.backbone):
+        item = "5c" if m.backbone in SWIN_FACTORIES else "5d"
         raise NotImplementedError(f"--mesh 2d with backbone {m.backbone!r} "
                                   f"(ROADMAP Queue 1 item {item})")
-    if (m.feature_rectify_module, m.feature_fusion_module) != ("FRM", "FFM"):
-        raise NotImplementedError("--mesh 2d with IFRM/IFFM (ROADMAP Queue 1 "
-                                  "item 5c)")
     if m.decoder != "MLPDecoder":
         raise NotImplementedError(f"--mesh 2d with decoder {m.decoder!r} "
                                   "(ROADMAP Queue 1 item 5d)")
@@ -301,9 +299,6 @@ def spatial_support(cfg: Config) -> None:
         raise NotImplementedError(f"--mesh 2d with criterion "
                                   f"{cfg.train.criterion!r} (ROADMAP Queue 1 "
                                   "item 5d)")
-    if m.remat:
-        raise NotImplementedError("--mesh 2d with remat (ROADMAP Queue 1 "
-                                  "item 5c)")
 
 
 def main_logits(out) -> torch.Tensor:

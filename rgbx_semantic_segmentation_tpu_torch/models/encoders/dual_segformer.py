@@ -13,16 +13,18 @@ Layouts: maps are NCHW (convs), tokens (B, N, C) with N = H*W in row-major
 order — `flatten(2).transpose(1, 2)` of a map gives the JAX NHWC reshape's
 token order.
 
-On the data x spatial mesh (`--mesh 2d:D,S`, parallel/spatial.py) the FRM/
-FFM towers run on the rank's row block of every map (`forward(..., sp)`): a
-stage shards its rows where JAX's Attention does (spatial.rows_ok: H
-divides by S and M >= S) and runs whole on every spatial rank from the
-first stage that does not (gather, compute; the decoder reads its rows;
-its BatchNorms count the S copies once, sync_bn.set_replicas).
-Within a sharded stage the modules take `rows`, the spatial group: the
-convs exchange halo rows (spatial.conv2d_rows), the attention's keys come
-from the gathered map (its SR conv needs whole r-row windows), the
-LayerNorms, linears and the spatial gates act on the own rows.
+On the data x spatial mesh (`--mesh 2d:D,S`, parallel/spatial.py) the
+towers (FRM/FFM or IFRM/IFFM, `remat` on or off) run on the rank's row
+block of every map (`forward(..., sp)`): a stage shards its rows where
+JAX's Attention does (spatial.rows_ok: H divides by S and M >= S) and runs
+whole on every spatial rank from the first stage that does not (gather,
+compute; the decoder reads its rows; the fusion modules' BatchNorms count
+the S copies once, sync_bn.set_replicas). Within a sharded stage the
+modules take `rows`, the spatial group: the convs exchange halo rows
+(spatial.conv2d_rows), the attentions' keys come from the gathered map
+(the SR conv needs whole r-row windows; the IFFM attends to every token),
+the LayerNorms, linears and the spatial gates act on the own rows, and a
+dropout mask is drawn at the whole map's size and its own rows kept.
 """
 from __future__ import annotations
 
@@ -94,9 +96,12 @@ class Mlp(nn.Module):
     def forward(self, x, H: int, W: int, rows=None):
         tp = self.tp
         if tp is None:
+            # with `rows`, a mask is drawn over the whole map's tokens and
+            # the rank keeps its rows of it
+            split = None if rows is None else (rows.rank, rows.size)
             x = self.dwconv(self.fc1(x), H, W, rows)
-            x = self.drop(F.gelu(x, approximate=self.gelu))
-            return self.drop(self.fc2(x))
+            x = self.drop(F.gelu(x, approximate=self.gelu), split, -2)
+            return self.drop(self.fc2(x), split, -2)
         x = self.dwconv(self.fc1(tensor.copy_to_model(x, tp)), H, W)
         x = self.drop(F.gelu(x, approximate=self.gelu),
                       split=(tp.rank, tp.size))
@@ -133,17 +138,21 @@ class Attention(nn.Module):
         """`rows`: the spatial group when x holds the rank's H rows of the
         map: q from them, k and v from the whole map (gathered; the SR
         conv needs whole r-row windows), attended by `_attend`: the same
-        kernels at the rank's shapes, whose dk, dv are the rank's partial
-        sums (ops/sr_attention.sr_attention_sharded says where JAX's psum
-        of them went)."""
+        kernels at the rank's shapes, routed as the whole map's attention,
+        whose dk, dv are the rank's partial sums (ops/sr_attention.
+        sr_attention_sharded says where JAX's psum of them went); the
+        dropout masks are drawn at the whole map's q length (token count)
+        and the own rows kept."""
         B, N, C = x.shape
         h = self.num_heads
         d = C // h
         scale = d ** -0.5
         q = self.q(x).reshape(B, N, h, d).transpose(1, 2)
+        split = None
         if rows is not None:
             x = spatial.gather_rows(x, rows, 1)
             H = H * rows.size
+            split = (rows.rank, rows.size)
         if self.sr_ratio > 1:
             xk = self.norm(map_to_tokens(self.sr(tokens_to_map(x, H, W))))
         else:
@@ -154,37 +163,38 @@ class Attention(nn.Module):
         k, v = (t.transpose(1, 2)
                 for t in self.kv(xk).reshape(B, M, 2, h, d).unbind(2))
         if self.attn_drop > 0.0 and self.training:
-            if rows is not None:
-                raise NotImplementedError(
-                    "attention dropout under --mesh 2d (no MiT config sets "
-                    "it; ROADMAP Queue 1 item 5c)")
-            out = self._attend_with_dropout(q, k, v, scale)
+            out = self._attend_with_dropout(q, k, v, scale, split)
         else:
-            out = self._attend(q, k, v, scale)
-        return self.proj_drop(self.proj(out))
+            out = self._attend(q, k, v, scale,
+                               None if rows is None else N * rows.size)
+        return self.proj_drop(self.proj(out), split, -2)
 
-    def _attend_with_dropout(self, q, k, v, scale):
+    def _attend_with_dropout(self, q, k, v, scale, split=None):
         """attn_drop sits between the softmax and p @ v, so a non-zero
         training rate takes the plain path with dropout on the fp32 probs
         (as the JAX module does; the kernels never hold the probs in device
-        memory). Autograd differentiates it as written."""
+        memory). Autograd differentiates it as written. `split` = (s, S):
+        q holds query-row block s of S (ops/layers._Stochastic)."""
         B, h, N, d = q.shape
         # Autocast off and explicit upcasts, as in sr_attention_reference:
         # fp32 logits and softmax, probs in v's dtype, fp32 accumulation.
         with torch.autocast(q.device.type, enabled=False):
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-            probs = self.attn_dropout(torch.softmax(logits, dim=-1))
+            probs = self.attn_dropout(torch.softmax(logits, dim=-1), split,
+                                      -2)
             out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
         return out.transpose(1, 2).reshape(B, N, h * d)
 
-    def _attend(self, q, k, v, scale):
+    def _attend(self, q, k, v, scale, n_whole=None):
         """The attention middle: the kernel where the JAX package used its
-        Pallas kernel (use_pallas; see ops/attention.multi_head_attention)."""
+        Pallas kernel (use_pallas; see ops/attention.multi_head_attention).
+        `n_whole`: the whole map's q length on a spatial rank."""
         if (self.use_pallas and q.is_cuda and self.dtype == torch.bfloat16
                 and q.dtype != torch.bfloat16):
             raise TypeError(f"bf16 model sent {q.dtype} q/k/v to the kernel "
                             "(the forward must run under bf16 autocast)")
-        return multi_head_attention(q, k, v, scale, use_kernels=self.use_pallas)
+        return multi_head_attention(q, k, v, scale, use_kernels=self.use_pallas,
+                                    n_whole=n_whole)
 
 
 class Block(nn.Module):
@@ -310,10 +320,10 @@ class RGBXTransformer(nn.Module):
                 sp: Optional[spatial.SpatialGroup] = None
                 ) -> List[torch.Tensor]:
         """The 4 fused maps. With `sp`, the spatial group of `--mesh 2d:D,S`
-        (FRM/FFM towers without ASPP or remat: models/builder.
-        spatial_support), x_rgb and x_e are the rank's row block of the
-        images, and each map is the rank's row block where `spatial_layout`
-        shards its stage, else the whole map."""
+        (towers without ASPP: models/builder.spatial_support), x_rgb and x_e
+        are the rank's row block of the images, and each map is the rank's
+        row block where `spatial_layout` shards its stage, else the whole
+        map."""
         sharded = [False] * 4
         if sp is not None:
             sharded = self.spatial_layout(x_rgb.shape[2] * sp.size,
@@ -331,22 +341,21 @@ class RGBXTransformer(nn.Module):
             for blk, eblk in zip(getattr(self, f"block{n}"),
                                  getattr(self, f"extra_block{n}")):
                 if self.remat:
-                    x_rgb = checkpointed(blk, x_rgb, H, W)
-                    x_e = checkpointed(eblk, x_e, H, W)
+                    x_rgb = checkpointed(blk, x_rgb, H, W, rows)
+                    x_e = checkpointed(eblk, x_e, H, W, rows)
                 else:
                     x_rgb = blk(x_rgb, H, W, rows)
                     x_e = eblk(x_e, H, W, rows)
             x_rgb = getattr(self, f"norm{n}")(x_rgb)
             x_e = getattr(self, f"extra_norm{n}")(x_e)
-            # (IFRM/IFFM, which 2d does not run, take no `rows`)
-            on_rows = {} if rows is None else {"rows": rows}
-            m_rgb, m_e = self.FRMs[s](tokens_to_map(x_rgb, H, W),
-                                      tokens_to_map(x_e, H, W), **on_rows)
             # a stage run whole on every spatial rank counts its BatchNorms'
-            # copies once
-            set_replicas(self.FFMs[s],
-                         1 if sp is None or sharded[s] else sp.size)
-            fused = self.FFMs[s](m_rgb, m_e, **on_rows)
+            # copies once (the FFM's and the IFRM's spatial gates')
+            replicas = 1 if sp is None or sharded[s] else sp.size
+            set_replicas(self.FRMs[s], replicas)
+            set_replicas(self.FFMs[s], replicas)
+            m_rgb, m_e = self.FRMs[s](tokens_to_map(x_rgb, H, W),
+                                      tokens_to_map(x_e, H, W), rows)
+            fused = self.FFMs[s](m_rgb, m_e, rows)
             if self.aspp == "aspp":
                 fused = self.aspp_modules[s](fused)
             elif self.aspp == "easpp" and s == 3:

@@ -7,11 +7,14 @@ Maps are NCHW, tokens (B, N, C). Submodule paths are the original repo's
 here use torch's default eps 1e-5 (the JAX `layer_norm` default), not the
 MiT blocks' 1e-6.
 
-FRM and FFM also run on one rank's row block of their maps (`rows`, the
+All four also run on one rank's row block of their maps (`rows`, the
 spatial group of `--mesh 2d:D,S`; parallel/spatial.py): the channel gates'
-pooled statistics and the cross-attention's k^T v, which sum over every
-token, are summed (maxed) over the spatial group; the 3x3 depthwise conv
-exchanges halo rows; the rest is per token.
+pooled statistics and the linear cross-attention's k^T v, which sum over
+every token, are summed (maxed) over the spatial group; the IFFM's softmax
+cross-attention takes q from the own tokens and k, v from the whole map's
+(gathered); the 3x3 depthwise conv exchanges halo rows; the rest (the
+spatial gates' 1x1 convs, the LayerNorms, the linears) is per token, and
+the BatchNorms are synced over the world (parallel/sync_bn.py).
 """
 from __future__ import annotations
 
@@ -24,6 +27,20 @@ from rgbx_semantic_segmentation_tpu_torch.ops.attention import (
 from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
     Dropout, map_to_tokens, tokens_to_map)
 from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
+
+
+def _pooled(x, rows=None):
+    """The mean and the max of the (B, C, H, W) map x over (H, W): with
+    `rows`, of the whole map whose row block x is (the rows' fp32 sums
+    summed over the spatial group, the max maxed over it), on every
+    spatial rank."""
+    if rows is None:
+        return x.mean(dim=(2, 3)), x.amax(dim=(2, 3))
+    wide = torch.float64 if x.dtype == torch.float64 else torch.float32
+    n = x.shape[2] * x.shape[3] * rows.size
+    mean = (spatial.spatial_sum(x.to(wide).sum(dim=(2, 3)), rows)
+            / n).to(x.dtype)
+    return mean, spatial.spatial_amax(x, rows, (2, 3))
 
 
 class ChannelWeights(nn.Module):
@@ -40,17 +57,7 @@ class ChannelWeights(nn.Module):
     def forward(self, x1, x2, rows=None):
         B = x1.shape[0]
         x = torch.cat([x1, x2], dim=1)                       # (B, 2C, H, W)
-        if rows is None:
-            mean, peak = x.mean(dim=(2, 3)), x.amax(dim=(2, 3))
-        else:
-            # the whole map's mean (the rows' fp32 sums over the group)
-            # and max, on every spatial rank
-            wide = torch.float64 if x.dtype == torch.float64 else torch.float32
-            n = x.shape[2] * x.shape[3] * rows.size
-            mean = (spatial.spatial_sum(x.to(wide).sum(dim=(2, 3)), rows)
-                    / n).to(x.dtype)
-            peak = spatial.spatial_amax(x, rows, (2, 3))
-        y = self.mlp(torch.cat([mean, peak], dim=1))         # (B, 2C)
+        y = self.mlp(torch.cat(_pooled(x, rows), dim=1))     # (B, 2C)
         C = self.dim
         return y[:, :C].reshape(B, C, 1, 1), y[:, C:].reshape(B, C, 1, 1)
 
@@ -101,11 +108,10 @@ class ImprovedChannelWeights(nn.Module):
             nn.Linear(hidden, dim * 2), nn.LayerNorm(dim * 2))
         self.gate = nn.Sequential(nn.Linear(dim * 2, dim * 2), nn.Sigmoid())
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, rows=None):
         B = x1.shape[0]
         x = torch.cat([x1, x2], dim=1)
-        y = self.mlp(torch.cat([x.mean(dim=(2, 3)), x.amax(dim=(2, 3))],
-                               dim=1))
+        y = self.mlp(torch.cat(_pooled(x, rows), dim=1))
         y = y * self.gate(y)
         C = self.dim
         return y[:, :C].reshape(B, C, 1, 1), y[:, C:].reshape(B, C, 1, 1)
@@ -146,8 +152,8 @@ class ImprovedFeatureRectifyModule(nn.Module):
     def _norm(self, x):
         return self.norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
-    def forward(self, x1, x2):
-        cw0, cw1 = self.channel_weights(x1, x2)
+    def forward(self, x1, x2, rows=None):
+        cw0, cw1 = self.channel_weights(x1, x2, rows)
         sw0, sw1 = self.spatial_weights(x1, x2)
         lam_c, lam_s = self.lambda_channel, self.lambda_spatial
         out_x1 = x1 + lam_c * cw1 * x2 + lam_s * sw1 * x2
@@ -209,7 +215,18 @@ class ImprovedCrossAttention(nn.Module):
     the flash attention kernels; the short last stage: the SR kernels) and
     no (N, M) tensor reaches device memory. `attn_drop` sits between the
     softmax and p @ v, so a non-zero rate in training takes the
-    materialising path (every config leaves it 0)."""
+    materialising path (every config leaves it 0).
+
+    With `rows` (a spatial rank's tokens, `--mesh 2d:D,S`) q comes from
+    the own tokens and k, v from the whole map's: the tokens are gathered
+    (spatial.gather_rows) and projected whole on every rank, and the
+    attention runs on the own q rows (ops/flash_attention.py says what its
+    dk, dv are then), routed as the whole map's attention. Each rank's
+    kv-projection gradient is the partial sum over its own q rows, which
+    the world's summing all-reduce completes; the gather's backward sums
+    the tokens' gradient over the group. A dropout mask is drawn at the
+    whole q length (the output dropout's at the whole token count) and the
+    own rows kept: one process's masks."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
@@ -228,18 +245,21 @@ class ImprovedCrossAttention(nn.Module):
         self.attn_dropout = Dropout(attn_drop)
         self.proj_drop = Dropout(proj_drop)
 
-    def _attend(self, q, k, v, scale):
+    def _attend(self, q, k, v, scale, rows=None):
         if self.attn_drop == 0.0 or not self.training:
-            return multi_head_attention(q, k, v, scale,
-                                        use_kernels=self.use_pallas)
+            return multi_head_attention(
+                q, k, v, scale, use_kernels=self.use_pallas,
+                n_whole=None if rows is None else q.shape[2] * rows.size)
         B, h, N, d = q.shape
+        split = None if rows is None else (rows.rank, rows.size)
         with torch.autocast(q.device.type, enabled=False):
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-            probs = self.attn_dropout(torch.softmax(logits, dim=-1).to(v.dtype))
+            probs = self.attn_dropout(
+                torch.softmax(logits, dim=-1).to(v.dtype), split, -2)
             out = torch.matmul(probs.float(), v.float()).to(v.dtype)
         return out.transpose(1, 2).reshape(B, N, h * d)
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, rows=None):
         B, N, C = x1.shape
         h = self.num_heads
         d = C // h
@@ -247,16 +267,21 @@ class ImprovedCrossAttention(nn.Module):
 
         def project(x, q_lin, kv_lin):
             q = q_lin(x).reshape(B, N, h, d).transpose(1, 2)
+            if rows is not None:
+                x = spatial.gather_rows(x, rows, 1)
             # unbind: its backward is one stack of dk and dv, which the
             # kernels' backward already writes side by side.
-            k, v = (t.transpose(1, 2)
-                    for t in kv_lin(x).reshape(B, N, 2, h, d).unbind(2))
+            k, v = (t.transpose(1, 2) for t in
+                    kv_lin(x).reshape(B, x.shape[1], 2, h, d).unbind(2))
             return q, k, v
 
         q1, k1, v1 = project(x1, self.q1, self.kv1)
         q2, k2, v2 = project(x2, self.q2, self.kv2)
-        y1 = self.proj_drop(self.proj1(self._attend(q1, k2, v2, scale)))
-        y2 = self.proj_drop(self.proj2(self._attend(q2, k1, v1, scale)))
+        split = None if rows is None else (rows.rank, rows.size)
+        y1 = self.proj_drop(self.proj1(self._attend(q1, k2, v2, scale, rows)),
+                            split, -2)
+        y2 = self.proj_drop(self.proj2(self._attend(q2, k1, v1, scale, rows)),
+                            split, -2)
         return y1, y2
 
 
@@ -301,10 +326,10 @@ class ImprovedCrossPath(nn.Module):
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, rows=None):
         y1, u1 = F.gelu(self.channel_proj1(x1)).chunk(2, dim=-1)
         y2, u2 = F.gelu(self.channel_proj2(x2)).chunk(2, dim=-1)
-        v1, v2 = self.cross_attn(u1, u2)
+        v1, v2 = self.cross_attn(u1, u2, rows)
         y1 = torch.cat([y1, v1], dim=-1)
         y2 = torch.cat([y2, v2], dim=-1)
         return (self.norm1(x1 + self.end_proj1(y1)),
@@ -374,10 +399,10 @@ class ImprovedFeatureFusionModule(nn.Module):
         self.channel_emb = ChannelEmbed(dim * 2, dim, reduction, bn_momentum,
                                         bn_eps, act="gelu")
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, rows=None):
         H, W = x1.shape[2:]
-        t1, t2 = self.cross(map_to_tokens(x1), map_to_tokens(x2))
-        return self.channel_emb(torch.cat([t1, t2], dim=-1), H, W)
+        t1, t2 = self.cross(map_to_tokens(x1), map_to_tokens(x2), rows)
+        return self.channel_emb(torch.cat([t1, t2], dim=-1), H, W, rows)
 
 
 def get_frm(name: str):

@@ -26,8 +26,20 @@ always runs `_sdpa` there. Here those IFFMs take the model's kernel switch,
 as the MiT ones do, and their narrow heads (SegNeXt: d = dim / 8, 4 to 96) the
 flash kernels: `_sdpa` would keep 94 GB of fp32 logits for one call at the
 first segnext_b stage of a batch of eight 480x640 images.
+
+On the data x spatial mesh (`--mesh 2d:D,S`, parallel/spatial.py) a rank
+attends with its own N / S query rows to the whole map's keys. It takes
+the route that one process takes for the same attention: the caller passes
+the whole map's query count (`n_whole`), and the gates read it in place of
+the rank's N (flash_attention.supported asks N >= 1024: at 2d:1,2 the
+third mit_b2pp stage's 1,200 query rows are 600 a rank, whose keys, 1,200,
+the SR gate refuses too). `multi_head_attention.routes` counts the calls
+of each route ("sr", "flash", "sdpa").
 """
 from __future__ import annotations
+
+import collections
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -80,25 +92,36 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         scale: float,
-                         use_kernels: bool = False) -> torch.Tensor:
-    """Softmax attention. q: (B, h, N, d); k, v: (B, h, M, d) -> (B, N, h*d)."""
+                         scale: float, use_kernels: bool = False,
+                         n_whole: Optional[int] = None) -> torch.Tensor:
+    """Softmax attention. q: (B, h, N, d); k, v: (B, h, M, d) -> (B, N, h*d).
+    `n_whole`: the whole map's query count where q holds a spatial rank's
+    rows of it (the route is that of the whole map's attention)."""
     B, h, N, d = q.shape
-    if SR.supported(q.shape, k.shape):
+    route_q = q.shape if n_whole is None else (B, h, n_whole, d)
+    if SR.supported(route_q, k.shape):
+        multi_head_attention.routes["sr"] += 1
         # The kernel takes the head-split views as they are, and its output
         # is laid out so that the merge below is a view.
         out = (SR.sr_attention if use_kernels else _sdpa)(q, k, v, scale)
-    elif FA.supported(q.shape, k.shape) and use_kernels:
-        # The kernels take head dims that are multiples of 8: zero columns
-        # add nothing to the logits and their output columns are dropped,
-        # so the padded call is exact (with the scale of the true d), and
-        # autograd carries dq, dk and dv back through the pad.
-        pad = -d % 8
-        if pad:
-            q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
-        out = FA.flash_attention(q, k, v, scale)[..., :d]
-    elif FA.supported(q.shape, k.shape):
-        out = FA.flash_attention_plain(q, k, v, scale)
+    elif FA.supported(route_q, k.shape):
+        multi_head_attention.routes["flash"] += 1
+        if use_kernels:
+            # The kernels take head dims that are multiples of 8: zero
+            # columns add nothing to the logits and their output columns are
+            # dropped, so the padded call is exact (with the scale of the
+            # true d), and autograd carries dq, dk and dv back through the
+            # pad.
+            pad = -d % 8
+            if pad:
+                q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+            out = FA.flash_attention(q, k, v, scale)[..., :d]
+        else:
+            out = FA.flash_attention_plain(q, k, v, scale)
     else:
+        multi_head_attention.routes["sdpa"] += 1
         out = _sdpa(q, k, v, scale)
     return out.transpose(1, 2).reshape(B, N, h * d)
+
+
+multi_head_attention.routes = collections.Counter()

@@ -27,6 +27,21 @@ they lie (any batch, head and row strides, the head dim unit-stride); out
 and dq are (B, h, N, d) views of (B, N, h, d) buffers and dk, dv the two
 halves of one (B, M, 2, h, d) buffer, so the head split of the q and kv
 projections, the merge back and their gradients cost no copy.
+
+On the data x spatial mesh (`--mesh 2d:D,S`, parallel/spatial.py) the IFFM
+cross-attention of a rank runs these kernels on its own N / S query rows
+against the whole map's k, v (N and M are separate arguments of every
+kernel): dq is that of the own rows, and dk, dv are PARTIAL sums, over the
+own rows only. The backward of the all-gather that fed the kv branch
+(spatial.gather_rows) sums them over the spatial group; nothing here adds
+a collective or a copy. The JAX package runs its `_sdpa` there instead
+(rgbx_semantic_segmentation_tpu/models/fusion.py:263-271: its kernels only
+outside a mesh, pallas_call having no GSPMD rule), which keeps fp32 (N / S,
+N) logits: 8 x 9600 x 19200 x 4 B = 5.9 GB a call at the first mit_b2pp
+stage of a 2d:1,2 rank (batch 8, 480x640), and keeps the probabilities in
+bf16 for its backward (2.9 GB a call, two calls a stage). The port keeps
+the kernels, which keep no (N / S, N) tensor (ROADMAP "Accepted
+deviations").
 """
 from __future__ import annotations
 

@@ -109,12 +109,14 @@ class _Stochastic(nn.Module):
         raise NotImplementedError
 
     def forward(self, x: torch.Tensor,
-                split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        """`split` = (r, n): x is slice r of n equal slices of its last dim
-        (a hidden width split over the model ranks, parallel/tensor.py);
-        the mask is drawn at the whole width and sliced, so each rank keeps
-        its slice of what one process draws, and the generator moves as
-        one process's."""
+                split: Optional[Tuple[int, int]] = None,
+                dim: int = -1) -> torch.Tensor:
+        """`split` = (r, n): x is slice r of n equal slices of its dim `dim`
+        (the last: a hidden width split over the model ranks, parallel/
+        tensor.py; -2: an attention's query rows split over the spatial
+        ranks, parallel/spatial.py); the mask is drawn at the whole size and
+        sliced, so each rank keeps its slice of what one process draws, and
+        the generator moves as one process's."""
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
@@ -123,9 +125,11 @@ class _Stochastic(nn.Module):
             u = torch.rand(shape, device=x.device, generator=self.generator)
         else:
             r, n = split
-            w = shape[-1]
-            u = torch.rand(shape[:-1] + (w * n,), device=x.device,
-                           generator=self.generator)[..., r * w:(r + 1) * w]
+            whole = list(shape)
+            w = whole[dim]
+            whole[dim] = w * n
+            u = torch.rand(whole, device=x.device,
+                           generator=self.generator).narrow(dim, r * w, w)
         return x * ((u < keep).to(x.dtype) / keep)
 
     def extra_repr(self) -> str:
@@ -175,7 +179,17 @@ def checkpointed(module: nn.Module, *args):
     set_generator handed out, which checkpoint's own preserve_rng_state does
     not cover; so the generator is put back to its state before the first
     run for the recompute, and to its later state after it. Elsewhere a
-    plain call."""
+    plain call.
+
+    On the data x spatial mesh (`--mesh 2d:D,S`) `args` carry the spatial
+    group and the recompute replays the block's all-gathers and halo
+    exchanges (parallel/spatial.py) inside the backward. Every spatial rank
+    of an image runs the same blocks in the same order, each block's input
+    requiring grad, so each rank recomputes the same blocks in the same
+    order and the collectives pair up. The generator restored is the
+    rank's own, which the trainer seeds from the data rank: the masks of
+    the recompute are the first run's on every rank, and those of an
+    image's spatial ranks stay one process's."""
     from torch.utils.checkpoint import checkpoint
 
     if not (module.training and torch.is_grad_enabled()):

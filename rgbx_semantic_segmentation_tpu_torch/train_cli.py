@@ -9,8 +9,9 @@ global batch, `dp:N` exactly N), with the JAX data mesh's semantics: the
 global batch of --batch_size is split over the ranks and a step computes
 what one process computes on it. `--mesh 2d:D,S` takes D x S of them, data
 x spatial: the global batch is split over D data ranks and each image's
-rows over the S ranks of its data rank (parallel/spatial.py; mit_* with
-FRM/FFM, the MLPDecoder and the cross-entropy loss). `--mesh tp:D,M` takes
+rows over the S ranks of its data rank (parallel/spatial.py; the mit_*
+and mit_*pp towers, remat on or off, the MLPDecoder and the cross-entropy
+loss). `--mesh tp:D,M` takes
 D x M of them, data x model: the global batch is split over D data ranks
 and the hidden width of every Mix-FFN and Swin MLP over the M ranks of a
 data rank (parallel/tensor.py; every family: where no layer splits, the M

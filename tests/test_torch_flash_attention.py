@@ -623,3 +623,45 @@ def test_kernel_raises_on_what_it_cannot_take(cuda):
     q = torch.zeros(1, 1, 65, 36, device=cuda, dtype=torch.bfloat16)[..., :32]
     with pytest.raises(ValueError, match="16-byte"):
         FA.flash_attention(q, q, q, 1.0)
+
+
+# K5 on the spatial axis (`--mesh 2d:D,S`): a rank's N / S query rows of a
+# mit_b2pp IFFM stage against the whole map's keys. (B, h, N, M, d) of the
+# whole stage and S: the second stage at 2d:1,2 and 2d:1,4 (2,400 and
+# 1,200 rows a rank against 4,800 keys).
+SPATIAL_CUDA_CASES = [((8, 2, 4800, 4800, 64), 2), ((8, 2, 4800, 4800, 64), 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, S", SPATIAL_CUDA_CASES)
+def test_kernels_on_row_blocks(cuda, shape, S):
+    """Each of S row blocks of q against the whole k, v, bf16: the forward
+    by _forward_against_plain's bounds, dq and the block's partial dk, dv
+    against the plain backward on the block by 2 bf16 ulps of each
+    gradient's largest, two runs bit-equal; the S partial dk, dv summed in
+    fp32 within 2 bf16 ulps of the whole call's largest (and 5e-3 relative
+    L2) of the whole image's dk, dv."""
+    B, h, N, M, d = shape
+    q, k, v, w = _model_layout(B, h, N, M, d, torch.bfloat16, cuda, 7)
+    sc = d ** -0.5
+    out, lse = FA._forward(q, k, v, sc)
+    _, dk_whole, dv_whole = FA.flash_attention_bwd(q, k, v, out, lse, w, sc)
+    n = N // S
+    sums = [0.0, 0.0]
+    for s in range(S):
+        qs, ws = q[:, :, s * n:(s + 1) * n], w[:, :, s * n:(s + 1) * n]
+        _forward_against_plain(qs, k, v, sc)
+        out_s, lse_s = FA._forward(qs, k, v, sc)
+        got = FA.flash_attention_bwd(qs, k, v, out_s, lse_s, ws, sc)
+        again = FA.flash_attention_bwd(qs, k, v, out_s, lse_s, ws, sc)
+        ref = FA.flash_attention_bwd_reference(qs, k, v, out_s, lse_s, ws, sc)
+        for name, a, b, c in zip(("dq", "dk", "dv"), got, ref, again):
+            tol = 2 * float(_ulp(b.float().abs().max()))
+            assert float((a.float() - b.float()).abs().max()) <= tol, name
+            assert torch.equal(a, c), name
+        sums = [sums[0] + got[1].float(), sums[1] + got[2].float()]
+    for name, got, want in zip(("dk", "dv"), sums, (dk_whole, dv_whole)):
+        want = want.float()
+        tol = 2 * float(_ulp(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol, name
+        assert float((got - want).norm() / want.norm()) <= 5e-3, name

@@ -25,6 +25,20 @@ and against the JAX package.
   float64, jax.enable_x64): loss 1e-5, gradients 2e-3 of the largest.
 - At the preset's drop-path and Dropout2d rates the masks of an image's
   spatial ranks are equal, and the data ranks' differ.
+- mit_b0pp (IFRM/IFFM) + MLPDecoder at 160x128, batch 2, drop rates 0, on
+  2d:2,2 and 2d:1,4, held as mit_b0 above (the IFRM's BatchNorm statistics
+  among them; stage 3 runs whole on 2d:1,4, stage 4 on both). Stage 1 has
+  40 x 32 = 1,280 tokens: more keys than the SR kernel takes (1,024), so
+  one process's stage-1 IFFM takes the flash attention's route (its plain
+  versions here), while a rank's 640 or 320 query rows are under the
+  flash gate's N >= 1024: each rank's calls take one process's route (the
+  routes counted, not the losses compared: on the CPU every route is plain
+  and agrees in fp32).
+- `remat` on 2d:1,2 (mit_b0pp at the preset's drop rates and a MiT and
+  IFFM attention dropout of 0.1, float64) equal to the same step without
+  it, the blocks' attentions dispatched twice; at those rates the masks of
+  an image's spatial ranks are the own rows of one process's masks, and
+  the loss is one process's.
 - The --mesh specs (JAX test_make_mesh_from_spec's cases) and train_cli
   --mesh 2d:1,2 against --mesh dp:1.
 
@@ -41,8 +55,13 @@ import torch
 
 from rgbx_semantic_segmentation_tpu_torch import config as tconfig
 from rgbx_semantic_segmentation_tpu_torch import optim
+from rgbx_semantic_segmentation_tpu_torch.models import fusion
 from rgbx_semantic_segmentation_tpu_torch.models.builder import build_model
+from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+    dual_segformer)
 from rgbx_semantic_segmentation_tpu_torch.ops import layers as tlayers
+from rgbx_semantic_segmentation_tpu_torch.ops.attention import (
+    multi_head_attention)
 from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as SR
 from rgbx_semantic_segmentation_tpu_torch.parallel import dist as pdist
 from rgbx_semantic_segmentation_tpu_torch.parallel import launch
@@ -55,11 +74,18 @@ from rgbx_semantic_segmentation_tpu_torch.train import (
 torch.set_num_threads(2)
 WORLD_TIMEOUT = 180
 HW, BATCH = 64, 4
+# mit_b0pp: (H, W) and batch (see the module docstring)
+PP_HW, PP_BATCH = (160, 128), 2
+ATTN_DROP = 0.1
 # Biases whose true gradient is 0 (a per-channel constant in front of a
 # BatchNorm): their gradients are rounding noise (tests/test_torch_ddp.py).
 ZERO_GRADIENT = re.compile(
     r"channel_embed\.[34]\.bias$|channel_emb\.norm\.bias$"
-    r"|linear_c\d\.proj\.bias$|linear_fuse\.0\.bias$")
+    r"|linear_c\d\.proj\.bias$|linear_fuse\.0\.bias$"
+    r"|spatial_weights\.conv[12]\.bias$")   # the IFRM's, before its BNs
+# the kv projections: of the MiT attentions and of the (I)FFM
+# cross-attention
+KV_WEIGHT = re.compile(r"attn\.kv\.weight$|cross_attn\.kv[12]\.weight$")
 STATS = ("running_mean", "running_var")
 
 
@@ -257,15 +283,35 @@ def step_cfg(cfg_lib=tconfig, rates=0.0):
                                   nepochs=1, niters_per_epoch=2, lr=1e-3))
 
 
-def step_batch():
+def pp_cfg(cfg_lib=tconfig, rates=0.0, remat=False):
+    """step_cfg with mit_b0pp (IFRM/IFFM) at PP_HW, batch PP_BATCH."""
+    cfg = step_cfg(cfg_lib, rates)
+    return cfg.replace(
+        dataset=dataclasses.replace(cfg.dataset, image_height=PP_HW[0],
+                                    image_width=PP_HW[1]),
+        model=dataclasses.replace(cfg.model, backbone="mit_b0pp",
+                                  remat=remat),
+        train=dataclasses.replace(cfg.train, batch_size=PP_BATCH))
+
+
+def step_batch(hw=(HW, HW), n=BATCH):
     """Host-normalised pairs; sample b ignores ~b/10 of its pixels."""
     rng = np.random.RandomState(0)
-    label = rng.randint(0, 5, size=(BATCH, HW, HW))
-    for b in range(BATCH):
-        label[b][rng.rand(HW, HW) < 0.1 * b] = 255
-    return {"rgb": rng.randn(BATCH, HW, HW, 3).astype(np.float32),
-            "modal_x": rng.randn(BATCH, HW, HW, 3).astype(np.float32),
+    label = rng.randint(0, 5, size=(n, *hw))
+    for b in range(n):
+        label[b][rng.rand(*hw) < 0.1 * b] = 255
+    return {"rgb": rng.randn(n, *hw, 3).astype(np.float32),
+            "modal_x": rng.randn(n, *hw, 3).astype(np.float32),
             "label": label.astype(np.int32)}
+
+
+def pp_batch():
+    return step_batch(PP_HW, PP_BATCH)
+
+
+def _float64(batch):
+    return {k: v.astype(np.float64) if v.dtype == np.float32 else v
+            for k, v in batch.items()}
 
 
 def _grads(model):
@@ -280,33 +326,42 @@ def _images_of(world, batch):
 
 
 def _recorded_masks(model):
-    """Record every keep mask the model's DropPath / Dropout2d draw (the
-    same draws, from a copy of the generator's state)."""
+    """Record every keep mask the model's DropPath / Dropout / Dropout2d
+    draw (the same draws, from a copy of the generator's state; a split
+    mask as it is applied: the rank's slice), with the dim it is split
+    along (None: whole)."""
     masks = []
     forward = tlayers._Stochastic.forward
 
-    def recording(self, x):
+    def recording(self, x, split=None, dim=-1):
         if self.training and self.rate > 0.0:
             state = self.generator.get_state()
-            u = torch.rand(self._mask_shape(x), generator=self.generator)
+            shape = list(self._mask_shape(x))
+            if split is not None:
+                shape[dim] *= split[1]
+            u = torch.rand(shape, generator=self.generator)
             self.generator.set_state(state)
-            masks.append((type(self).__name__, (u < 1.0 - self.rate).numpy()))
-        return forward(self, x)
+            if split is not None:
+                w = shape[dim] // split[1]
+                u = u.narrow(dim, split[0] * w, w)
+            masks.append((type(self).__name__,
+                          None if split is None else dim,
+                          (u < 1.0 - self.rate).numpy()))
+        return forward(self, x, split, dim)
 
     return masks, recording
 
 
-def step_once(world, batch):
-    """One Trainer step in fp32 (loss, gradients, BatchNorm statistics),
-    one make_train_step step in float64 from the same weights (the
-    gradients), and one train-mode forward at the preset's drop rates with
-    its masks recorded, on this world's images (and rows)."""
-    torch.set_num_threads(1)
-    cfg = step_cfg()
-    local = _images_of(world, batch)
+def _train_steps(world, cfg, local):
+    """One Trainer step of `cfg` in fp32 (loss, gradients, BatchNorm
+    statistics, the attention routes its forward took) and one
+    make_train_step step in float64 from the same weights (loss,
+    gradients), on this world's images `local` (and rows)."""
     trainer = Trainer(cfg, device="cpu", seed=0, world=world)
     start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    multi_head_attention.routes.clear()
     out = {"loss": float(trainer.step(local)["loss"]),
+           "routes": dict(multi_head_attention.routes),
            "grads": _grads(trainer.model),
            "stats": {k: v.numpy().copy() for k, v in
                      trainer.model.state_dict().items() if k.endswith(STATS)},
@@ -320,10 +375,18 @@ def step_once(world, batch):
     model.double()
     step = make_train_step(cfg, model, optim.build_optimizer(cfg, model),
                            seed=0, world=world)
-    out["loss64"] = float(step(0, {k: v.astype(np.float64)
-                                   if v.dtype == np.float32 else v
-                                   for k, v in local.items()}))
+    out["loss64"] = float(step(0, _float64(local)))
     out["grads64"] = _grads(model)
+    return out
+
+
+def step_once(world, batch):
+    """_train_steps of mit_b0, and one train-mode forward at the preset's
+    drop rates with its masks recorded, on this world's images (and
+    rows)."""
+    torch.set_num_threads(1)
+    local = _images_of(world, batch)
+    out = _train_steps(world, step_cfg(), local)
 
     cfg = step_cfg(rates=0.1)
     model = build_model(cfg, device="cpu", seed=0)
@@ -362,14 +425,12 @@ def meshes():
             for mesh in ("2d:2,2", "2d:1,4")}
 
 
-@pytest.mark.parametrize("mesh", ["2d:2,2", "2d:1,4"])
-def test_step_matches_one_process(mesh, meshes, one_process):
+def hold_mesh_step(mesh, ranks, ref, n_kv):
     """A step on the mesh against one process on the whole batch: the fp32
     loss (every rank's) 1e-5 relative and BatchNorm statistics 1e-5; the
-    float64 gradients 1e-4 of each tensor's largest; the kv projections'
-    gradients the one process's, not S times them."""
+    float64 gradients 1e-4 of each tensor's largest; the `n_kv` kv
+    projections' gradients the one process's, not S times them."""
     S = int(mesh.split(",")[1])
-    ranks, ref = meshes[mesh], one_process
     r0 = ranks[0]
     for r in ranks:
         assert r["loss"] == pytest.approx(ref["loss"], rel=1e-5)
@@ -382,12 +443,18 @@ def test_step_matches_one_process(mesh, meshes, one_process):
             continue
         err = np.abs(r0["grads64"][k] - want).max() / np.abs(want).max()
         assert err <= 1e-4, (k, err)
-    kv = [k for k in ref["grads64"] if re.search(r"attn\.kv\.weight$", k)]
-    assert len(kv) == 16
+    kv = [k for k in ref["grads64"] if KV_WEIGHT.search(k)]
+    assert len(kv) == n_kv
     for k in kv:
         ratio = (np.linalg.norm(r0["grads64"][k])
                  / np.linalg.norm(ref["grads64"][k]))
         assert abs(ratio - 1.0) < 1e-4 and abs(ratio - S) > 0.5, (k, ratio)
+
+
+@pytest.mark.parametrize("mesh", ["2d:2,2", "2d:1,4"])
+def test_step_matches_one_process(mesh, meshes, one_process):
+    """mit_b0: hold_mesh_step (16 MiT and 8 FFM kv projections)."""
+    hold_mesh_step(mesh, meshes[mesh], one_process, 24)
 
 
 def test_step_matches_jax_unsharded(meshes, one_process):
@@ -399,9 +466,19 @@ def test_step_matches_jax_unsharded(meshes, one_process):
     gradient on stage 1's fusion weights, bit-close to each other: their
     BatchNorm's E[x^2] - E[x]^2 cancels there; the sharded steps sum in
     another order and land elsewhere.)"""
+    from rgbx_semantic_segmentation_tpu import config as jconfig
+
+    hold_against_jax(meshes, step_cfg(jconfig), one_process["start"],
+                     step_batch())
+
+
+def hold_against_jax(meshes, jcfg, start, batch):
+    """Each mesh's step (rank 0) against the JAX package's unsharded loss
+    and gradients of `jcfg` on the weights `start` and `batch`, in float64
+    (jax.enable_x64): the fp32 and float64 losses 1e-5 relative, the
+    float64 gradients 2e-3 of each tensor's largest."""
     import jax
 
-    from rgbx_semantic_segmentation_tpu import config as jconfig
     from rgbx_semantic_segmentation_tpu import train as jtrain
     from rgbx_semantic_segmentation_tpu.convert import (
         torch_to_flax_variables)
@@ -410,7 +487,6 @@ def test_step_matches_jax_unsharded(meshes, one_process):
     from rgbx_semantic_segmentation_tpu_torch.convert import (
         flax_params_to_torch)
 
-    jcfg = step_cfg(jconfig)
     jmod = JaxEncoderDecoder(cfg=jcfg)
     loss_fn = jtrain.make_loss_fn(jcfg)
     rngs = {"droppath": jax.random.PRNGKey(0),
@@ -418,9 +494,8 @@ def test_step_matches_jax_unsharded(meshes, one_process):
     with jax.enable_x64(True):
         var = jax.tree_util.tree_map(
             lambda a: np.asarray(a, np.float64),
-            torch_to_flax_variables(one_process["start"]))
-        batch = {k: v.astype(np.float64) if v.dtype == np.float32 else v
-                 for k, v in step_batch().items()}
+            torch_to_flax_variables(start))
+        batch = _float64(batch)
 
         def loss(params):
             out, _ = jmod.apply({"params": params,
@@ -454,15 +529,182 @@ def test_drop_masks_equal_across_spatial_ranks(meshes, one_process):
         for r, got in enumerate(ranks):
             first = ranks[(r // S) * S]["masks"]
             assert len(got["masks"]) == len(first) > 0
-            for (kind, a), (kind0, b) in zip(got["masks"], first):
+            for (kind, _, a), (kind0, _, b) in zip(got["masks"], first):
                 assert kind == kind0 and np.array_equal(a, b), (mesh, r, kind)
     d0, d1 = meshes["2d:2,2"][0]["masks"], meshes["2d:2,2"][2]["masks"]
-    assert any(not np.array_equal(a, b) for (_, a), (_, b) in zip(d0, d1))
-    kinds = {k for k, _ in d0}
+    assert any(not np.array_equal(a, b)
+               for (_, _, a), (_, _, b) in zip(d0, d1))
+    kinds = {k for k, _, _ in d0}
     assert kinds == {"DropPath", "Dropout2d"}
-    for (_, a), (_, b) in zip(meshes["2d:1,4"][0]["masks"],
-                              one_process["masks"]):
+    for (_, _, a), (_, _, b) in zip(meshes["2d:1,4"][0]["masks"],
+                                    one_process["masks"]):
         assert np.array_equal(a, b)
+
+
+# ------------------------------------- mit_b0pp (IFRM/IFFM), remat --
+
+
+def pp_step_once(world, batch):
+    """_train_steps of mit_b0pp on this world's images (and rows)."""
+    torch.set_num_threads(1)
+    out = _train_steps(world, pp_cfg(), _images_of(world, batch))
+    if world.rank:   # only rank 0's tensors are compared
+        out = {"loss": out["loss"], "routes": out["routes"]}
+    return out
+
+
+@pytest.fixture(scope="module")
+def pp_one_process():
+    threads = torch.get_num_threads()
+    try:
+        return pp_step_once(pdist.World.solo("cpu"), pp_batch())
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def pp_meshes():
+    batch = pp_batch()
+    return {mesh: spawn(pp_step_once, 4, mesh, batch)
+            for mesh in ("2d:2,2", "2d:1,4")}
+
+
+@pytest.mark.parametrize("mesh", ["2d:2,2", "2d:1,4"])
+def test_pp_step_matches_one_process(mesh, pp_meshes, pp_one_process):
+    """mit_b0pp: hold_mesh_step (16 MiT and 8 IFFM kv projections); the
+    statistics held include the IFRM spatial gates' BatchNorms, which run
+    on a whole stage on every spatial rank of 2d:1,4 (stages 3-4) and of
+    2d:2,2 (stage 4)."""
+    assert any(".spatial_weights.norm1." in k for k in pp_one_process["stats"])
+    hold_mesh_step(mesh, pp_meshes[mesh], pp_one_process, 24)
+
+
+def test_pp_step_matches_jax_unsharded(pp_meshes, pp_one_process):
+    """mit_b0pp on both meshes against the JAX package's unsharded step, by
+    hold_against_jax's bounds."""
+    from rgbx_semantic_segmentation_tpu import config as jconfig
+
+    hold_against_jax(pp_meshes, pp_cfg(jconfig), pp_one_process["start"],
+                     pp_batch())
+
+
+@pytest.mark.parametrize("mesh", ["2d:2,2", "2d:1,4"])
+def test_pp_routes_match_one_process(mesh, pp_meshes, pp_one_process):
+    """Every rank's step dispatches its attentions as one process does
+    (ops/attention.multi_head_attention.routes over the forward): the 16
+    MiT attentions and the IFFMs of stages 2-4 to the SR route, the two
+    stage-1 IFFM calls (1,280 keys) to the flash route, though a rank
+    holds 640 (2d:2,2) or 320 (2d:1,4) of their query rows."""
+    want = pp_one_process["routes"]
+    assert want == {"sr": 22, "flash": 2}
+    for r, got in enumerate(pp_meshes[mesh]):
+        assert got["routes"] == want, (mesh, r)
+
+
+def _set_attn_drop(model, rate):
+    """Give every MiT attention and IFFM cross-attention of `model` the
+    attention dropout `rate` (no config sets it)."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, (dual_segformer.Attention,
+                          fusion.ImprovedCrossAttention)):
+            m.attn_drop = m.attn_dropout.rate = rate
+            n += 1
+    return n
+
+
+def _pp_model(world, cfg, dtype=torch.float32):
+    model = build_model(cfg, device="cpu", seed=0)
+    assert _set_attn_drop(model, ATTN_DROP) == 20
+    if world.distributed:
+        convert_sync_batchnorm(model)
+    return model.to(dtype)
+
+
+def _remat_rank(world, batch):
+    """A float64 step of mit_b0pp at the preset's drop rates and
+    ATTN_DROP, without and with remat, on this rank's rows: loss,
+    gradients and the MiT attentions' forward calls."""
+    torch.set_num_threads(1)
+    local = _float64(_images_of(world, batch))
+    out = {}
+    for remat in (False, True):
+        cfg = pp_cfg(rates=0.1, remat=remat)
+        model = _pp_model(world, cfg, torch.float64)
+        calls = [0]
+
+        def count(module, args):
+            calls[0] += 1
+
+        for m in model.modules():
+            if isinstance(m, dual_segformer.Attention):
+                m.register_forward_pre_hook(count)
+        step = make_train_step(cfg, model, optim.build_optimizer(cfg, model),
+                               seed=0, world=world)
+        out[remat] = {"loss": float(step(0, local)), "grads": _grads(model),
+                      "calls": calls[0]}
+    return out
+
+
+def test_remat_step_matches_without_remat():
+    """remat on 2d:1,2 (mit_b0pp, drop-path and Dropout2d 0.1, MiT and IFFM
+    attention dropout ATTN_DROP, float64) against the same step without
+    remat on each rank: loss 1e-12 relative, gradients 1e-8 of each
+    tensor's largest; the 16 MiT attentions run twice a step with remat
+    (the recompute, on every rank), once without."""
+    for r, got in enumerate(spawn(_remat_rank, 2, "2d:1,2", pp_batch())):
+        plain, remat = got[False], got[True]
+        assert (plain["calls"], remat["calls"]) == (16, 32), r
+        assert remat["loss"] == pytest.approx(plain["loss"], rel=1e-12)
+        for k, want in plain["grads"].items():
+            scale = np.abs(want).max()
+            err = np.abs(remat["grads"][k] - want).max()
+            assert err <= 1e-8 * scale, (r, k, err)
+
+
+def _dropout_rank(world, batch):
+    """An fp32 step of mit_b0pp at the preset's drop rates and ATTN_DROP
+    with its masks recorded, on this world's images (and rows)."""
+    torch.set_num_threads(1)
+    cfg = pp_cfg(rates=0.1)
+    model = _pp_model(world, cfg)
+    step = make_train_step(cfg, model, optim.build_optimizer(cfg, model),
+                           seed=0, world=world)
+    masks, recording = _recorded_masks(model)
+    forward = tlayers._Stochastic.forward
+    tlayers._Stochastic.forward = recording
+    try:
+        loss = float(step(0, _images_of(world, batch)))
+    finally:
+        tlayers._Stochastic.forward = forward
+    return {"loss": loss, "masks": masks}
+
+
+def test_attention_dropout_masks_are_one_process_rows():
+    """At MiT and IFFM attention dropout ATTN_DROP (and the preset's other
+    rates) on 2d:1,2: every mask a rank draws is one process's, whole
+    where the rank holds the whole tensor (drop-path, Dropout2d, the
+    stages that run whole) and the rank's rows of it where the rank holds
+    its query rows (the attention probabilities: the q dim); the loss is
+    one process's within 1e-5."""
+    threads = torch.get_num_threads()
+    try:
+        one = _dropout_rank(pdist.World.solo("cpu"), pp_batch())
+    finally:
+        torch.set_num_threads(threads)
+    ranks = spawn(_dropout_rank, 2, "2d:1,2", pp_batch())
+    kinds = {(k, d) for k, d, _ in ranks[0]["masks"]}
+    assert {("Dropout", -2), ("Dropout", None), ("DropPath", None),
+            ("Dropout2d", None)} <= kinds
+    for s, got in enumerate(ranks):
+        assert got["loss"] == pytest.approx(one["loss"], rel=1e-5)
+        assert len(got["masks"]) == len(one["masks"])
+        for (kind, dim, a), (kind0, _, b) in zip(got["masks"], one["masks"]):
+            assert kind == kind0
+            if dim is not None:
+                n = a.shape[dim]
+                b = np.take(b, range(s * n, (s + 1) * n), axis=dim)
+            assert np.array_equal(a, b), (s, kind, dim)
 
 
 # --------------------------------------------------- the specs and CLI --
@@ -496,12 +738,14 @@ def test_mesh_spec_refusals():
 
 
 @pytest.mark.parametrize("backbone, decoder, item", [
-    ("mit_b0pp", "MLPDecoder", "5c"), ("swin_s", "MLPDecoder", "5c"),
+    ("swin_b", "MLPDecoder", "5c"), ("swin_s", "MLPDecoder", "5c"),
     ("segnext_tiny", "MLPDecoder", "5d"), ("resnet50", "MLPDecoder", "5d"),
-    ("mit_b0_w_aspp", "MLPDecoder", "5d"), ("mit_b0", "UPernet", "5d")])
+    ("mit_b0_w_aspp", "MLPDecoder", "5d"), ("mit_b0", "UPernet", "5d"),
+    ("mit_b0pp", "deeplabv3+", "5d")])
 def test_unported_models_raise_under_2d(backbone, decoder, item):
-    """Every family and head but MiT with FRM/FFM and the MLPDecoder raises
-    NotImplementedError on the spatial axis, naming its ROADMAP item."""
+    """Every family and head but the MiT towers (FRM/FFM or IFRM/IFFM) and
+    the MLPDecoder raises NotImplementedError on the spatial axis, naming
+    its ROADMAP item."""
     from rgbx_semantic_segmentation_tpu_torch.models.builder import (
         spatial_support)
 
@@ -510,6 +754,34 @@ def test_unported_models_raise_under_2d(backbone, decoder, item):
                                                 decoder=decoder))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         spatial_support(cfg)
+
+
+def test_aux_head_preset_raises_under_2d():
+    """The pst900 preset (mit_b2_w_aspp + UPernet with the aux head) raises
+    on the spatial axis, naming item 5d."""
+    from rgbx_semantic_segmentation_tpu_torch.models.builder import (
+        AUX_DECODERS, spatial_support)
+
+    cfg = tconfig.pst900_config()
+    assert cfg.model.decoder in AUX_DECODERS
+    with pytest.raises(NotImplementedError, match="item 5d"):
+        spatial_support(cfg)
+
+
+@pytest.mark.parametrize("backbone, frm, ffm, remat", [
+    ("mit_b0pp", "FRM", "FFM", False), ("mit_b5pp", "FRM", "FFM", True),
+    ("mit_b2", "IFRM", "IFFM", False), ("mit_b0", "FRM", "FFM", True)])
+def test_mit_towers_run_under_2d(backbone, frm, ffm, remat):
+    """The MiT towers with either fusion pair (mit_*pp hardwires IFRM/IFFM),
+    with remat on or off, pass spatial_support."""
+    from rgbx_semantic_segmentation_tpu_torch.models.builder import (
+        spatial_support)
+
+    cfg = step_cfg()
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, backbone=backbone, feature_rectify_module=frm,
+        feature_fusion_module=ffm, remat=remat))
+    spatial_support(cfg)
 
 
 def test_train_cli_2d_matches_dp1(tmp_path, monkeypatch):
