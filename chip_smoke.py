@@ -144,6 +144,13 @@ and nyu presets:
     a mit_b2 step with remat at the preset's drop rates (fp32; K1 64, K2 32
     on each rank: the recompute replays the gathers and halo exchanges)
     held to two steps without it as the remat phase holds one card's;
+    swin_s after mit_b2 in the first 2d:1,2 world (attention dropout 0.3
+    inside K3/K4 on each rank's window slabs), 2 steps: K3/K4 48 launches
+    a step on each rank, one loss, its first within 5e-3 of one card's, a
+    warm step's peak per rank beside one card's; and its fp32 first-step
+    gradient (batch 2) within 4x one card's distance from a float64 step,
+    with the bias blocks' partial gradient summed twice over the two ranks
+    (the control) beyond it;
     then the data x model mesh tp:1,2 with both ranks on this card over
     gloo (each with all 8 images and half of every Mix-FFN / Swin MLP
     hidden width, parallel/tensor.py): 2 mit_b2 steps and 2 swin_s steps
@@ -162,6 +169,14 @@ and nyu presets:
     the blocks' partial dk, dv to the whole-image K2's, two runs
     bit-equal; times (events and device) at the shapes a rank of 2d:2,2
     and of 2d:1,4 gives them;
+  * K3/K4 on the spatial axis: on each rank's window slab (whole window
+    rows of the padded, rolled image, window0 its first window) of the
+    swin_s and swin_b stages 2d:1,2, 2d:2,2 and 2d:1,4 shard (8, 4 and 8
+    images), unshifted and shift-masked, rate 0.3: held to the plain
+    versions on the slab, and bit-equal to the whole image's call in its
+    windows (out, dqkv, db); the slabs' summed db to the whole image's;
+    times (queued events and device) at each mesh's swin_s rank shapes
+    beside the whole image's;
   * K5 on the spatial axis: on each of the S row blocks of q of the
     mit_b2pp IFFM stages a rank of 2d:1,2, 2d:2,2 and 2d:1,4 shards (8, 4
     and 8 images) against the whole image's keys, each block held to the
@@ -191,7 +206,8 @@ cards the data x spatial meshes 2d:2,2 and 2d:1,4 too: train_cli over them
 one card's is: MESH_LOSS_FACTOR),
 the first-step gradient and its control as 2d:1,2's in the default run
 (mit_b2pp's on 2d:2,2 too, beside 2 mit_b2pp steps there: K5 and K1/K2
-launches per rank, a warm step's peak), a
+launches per rank, a warm step's peak; swin_s's on both, beside 2 swin_s
+steps on each: K3/K4 launches per rank, a warm step's peak), a
 mit_b2 step in memory under torch.profiler (step ms, peak GiB per rank,
 the NCCL all-gathers' and all-reduces' share of rank 0's device time),
 and the preset's drop masks equal on an image's spatial ranks; and the
@@ -931,6 +947,313 @@ def spatial_flash_phase(FA, T5):
     torch.cuda.empty_cache()
     print(f"spatial K5 phase: {time.perf_counter() - t0:.1f} s")
     return worst, rows
+
+
+# K3/K4 on the spatial axis of `--mesh 2d:D,S`: a Swin block's attention on
+# a rank runs on its window slab, whole window rows [r0, r1) of the padded,
+# rolled image (parallel/spatial.window_slab_plan; the last rank's slab
+# carries the padding), with window0 = r0 x the columns' windows, so that
+# its dropout masks are the whole image's (models/encoders/dual_swin.py).
+# (images a rank, S) of each mesh; the stages dual_swin's spatial_layout
+# shards at 480x640 (swin_s and swin_b: 1-3 on S = 2, 1-2 on S = 4). Each
+# slab, unshifted bias and masked by its windows of the model's shift mask,
+# at rate T.RATE in bf16, is held to the plain versions on the same slab
+# (hold_window_fwd's and hold_window_bwd's bounds) and must equal the whole
+# image's call at the same batch in its windows bit for bit (out, dqkv,
+# db: each window is computed alone); the sum over a stage's slabs of db
+# summed over their windows (the table's gradient before the gather) is
+# held to the whole image's within SLAB_DB_REL (fp32 order). Times at each
+# mesh's rank shapes for swin_s (the largest slab of a sharded stage, the
+# whole image's shape where the stage runs whole) beside the whole image's
+# at the same batch: CUDA events over calls queued behind a sleep on the
+# device (the host's time a call is then not in them) and device time
+# (torch.profiler, retaken where it reads under half the events' time:
+# lost events; three such readings raise).
+SPATIAL_WINDOW_MESHES = {"2d:1,2": (8, 2), "2d:2,2": (4, 2), "2d:1,4": (8, 4)}
+SLAB_DB_REL = 1e-5
+
+
+def swin_layouts(dual_swin, n):
+    """{swin_s, swin_b: (their T.STAGES / T.SWIN_B_STAGES, window, which
+    stages shard over n spatial ranks at HW)}."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
+    from rgbx_semantic_segmentation_tpu_torch.tools import (
+        bench_window_attention as T)
+
+    sp = spatial.SpatialGroup(None, 0, n)
+    out = {}
+    with torch.device("meta"):
+        for name, factory, stages, ws in (
+                ("swin_s", dual_swin.swin_s, T.STAGES, T.WS),
+                ("swin_b", dual_swin.swin_b, T.SWIN_B_STAGES, T.SWIN_B_WS)):
+            out[name] = (stages, ws, factory().spatial_layout(*HW, sp))
+    return out
+
+
+def hold_window_slabs(W, T, shape, n, shifted, gen, tag):
+    """K3 and K4 on each of the n window slabs of one whole-image shape (B,
+    Hp, Wp, h, d, ws) with window0, against the plain versions on the slab
+    and the whole call's windows (see SPATIAL_WINDOW_MESHES); returns
+    {fwd, bwd, sum_db: the largest error}."""
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
+
+    B, Hp, Wp, h, d, ws = shape
+    cols, sc, rate = Wp // ws, d ** -0.5, T.RATE
+    qkv, bias, cot, seed = T.window_inputs(
+        shape, torch.bfloat16, "shifted" if shifted else "unshifted", gen)
+    out = W.window_attention(qkv, bias, seed, sc, rate, ws)
+    dqkv, db = W.window_attention_bwd(qkv, bias, seed, cot, sc, rate, ws)
+    worst, db_sum, sizes = {"fwd": 0.0, "bwd": 0.0}, 0.0, []
+    for r0, r1 in spatial.window_row_blocks(Hp, ws, n):
+        rows, wins = slice(r0 * ws, r1 * ws), slice(r0 * cols, r1 * cols)
+        sizes.append(r1 - r0)
+        args = (qkv[:, rows].contiguous(), bias[wins], seed)
+        g = cot[:, rows].contiguous()
+        got = W.window_attention(*args, sc, rate, ws, r0 * cols)
+        dq, dbs = W.window_attention_bwd(*args, g, sc, rate, ws, r0 * cols)
+        ref = W.window_attention_reference(*args, sc, rate, ws, r0 * cols)
+        rdq, rdb = W.window_attention_bwd_reference(*args, g, sc, rate, ws,
+                                                    r0 * cols)
+        torch.cuda.synchronize()
+        where = f"{tag} slab {r0}..{r1 - 1} of {shape} shifted={shifted}"
+        check(torch.equal(got, out[:, rows]) and torch.equal(dq, dqkv[:, rows])
+              and torch.equal(dbs, db[wins]),
+              f"K3/K4 on the {where} differ from the whole call's windows")
+        err = float((got.float() - ref.float()).abs().max())
+        frac = float((got != ref).float().mean())
+        check(err <= bf16_atol(ref) and frac <= BF16_MISMATCH_MAX,
+              f"K3 on the {where}: {err}, {frac} of the outputs differ")
+        err_dq = float((dq.float() - rdq.float()).abs().max())
+        err_db = float((dbs - rdb).abs().max())
+        check(err_dq <= bf16_atol(rdq, BWD_BF16_ULPS)
+              and err_db <= DB_BF16_RTOL * float(rdb.abs().max()),
+              f"K4 on the {where}: dqkv {err_dq}, db {err_db}")
+        worst = {"fwd": max(worst["fwd"], err),
+                 "bwd": max(worst["bwd"], err_dq)}
+        db_sum = db_sum + dbs.sum(0)
+        del got, dq, dbs, ref, rdq, rdb
+    whole = db.sum(0)
+    rel = float((db_sum - whole).norm() / whole.norm())
+    check(rel <= SLAB_DB_REL, f"{tag} {shape}: the slabs' summed db {rel} "
+          "from the whole image's")
+    print(f"spatial K3/K4 {tag} {shape} shifted={shifted}: {n} slabs of "
+          f"{sizes} window rows bit-equal to the whole call (out, dqkv, "
+          f"db); plain K3 {worst['fwd']:.3e}, K4 dqkv {worst['bwd']:.3e}; "
+          f"summed db {rel:.2e} from the whole image's")
+    return {**worst, "sum_db": rel}
+
+
+def queued_ms(fn, reps=20) -> float:
+    """Device ms a call of fn by CUDA events around `reps` calls queued
+    behind a sleep on the device, so that the host's own time a call is
+    not in them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def held_device_ms(T, fn, events_ms, tag) -> float:
+    """T.kernel_ms(fn), retaken where it reads under half `events_ms` (the
+    profiler lost kernel events); raises after three such readings."""
+    readings = []
+    for _ in range(3):
+        ms = T.kernel_ms(fn)
+        if ms is not None and ms >= 0.5 * events_ms:
+            return ms
+        readings.append(ms)
+    check(False, f"{tag}: device readings {readings} under half the events' "
+          f"{events_ms} ms")
+
+
+def time_window_slab(W, T, shape, whole, window0, gen, tag):
+    """K3's and K4's timing rows at one rank shape (B, Hp, Wp, h, d, ws),
+    window0 as on that rank, rate T.RATE, bf16: queued events and device
+    ms, shifted and unshifted; the plain versions, SDPA's forward and
+    backward on the shifted bias; the bound; and, where the rank holds a
+    slab, the whole image's (`whole`) device ms beside them (shifted
+    bias)."""
+    import torch
+
+    B, Hp, Wp, h, d, ws = shape
+    sc = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ev = {"fwd": {}, "bwd": {}}
+    dev = {"fwd": {}, "bwd": {}}
+    whole_dev = {}
+    runs = [("rank", shape, window0, kind) for kind in ("shifted",
+                                                         "unshifted")]
+    if whole != shape:
+        runs.append(("whole", whole, 0, "shifted"))
+    for at, dims, w0, kind in runs:
+        qkv, bias, cot, seed = T.window_inputs(dims, torch.bfloat16, kind,
+                                               gen)
+
+        def fwd():
+            return W.window_attention(qkv, bias, seed, sc, T.RATE, ws, w0)
+
+        def bwd():
+            return W.window_attention_bwd(qkv, bias, seed, cot, sc, T.RATE,
+                                          ws, w0)
+
+        with torch.no_grad():
+            for which, fn in (("fwd", fwd), ("bwd", bwd)):
+                e = queued_ms(fn)
+                d_ms = held_device_ms(T, fn, e, f"{tag} {which} {dims}")
+                if at == "whole":
+                    whole_dev[which] = d_ms
+                else:
+                    ev[which][kind], dev[which][kind] = e, d_ms
+        if at == "rank" and kind == "shifted":
+            args = (qkv, bias, seed, sc, T.RATE, ws, w0)
+            with torch.no_grad():
+                plain = median_ms(W.window_attention_reference, *args,
+                                  warmup=1, iters=3)
+            plain_bwd = median_ms(W.window_attention_bwd_reference,
+                                  *args[:3], cot, *args[3:], warmup=1,
+                                  iters=3)
+            lq, lk, lv, mask = (t.requires_grad_() for t in
+                                T.sdpa_inputs(qkv, bias, shape))
+            g = W._split_windows(cot, ws, 1, h)[:, :, 0].reshape(lq.shape)
+
+            def lib_fwd():
+                return sdpa(lq, lk, lv, attn_mask=mask, dropout_p=T.RATE,
+                            scale=sc)
+
+            with torch.no_grad():
+                lib = median_ms(lib_fwd, reps=5)
+            lib_bwd = median_ms(lambda: torch.autograd.grad(
+                lib_fwd(), (lq, lk, lv, mask), g), reps=5) - lib
+            del lq, lk, lv, mask, g
+        del qkv, bias, cot, seed
+    rows = {}
+    for which, plain_ms, lib_ms in (("fwd", plain, lib),
+                                    ("bwd", plain_bwd, lib_bwd)):
+        backward = which == "bwd"
+        bounds = [bound_ms(*reversed(T.work(shape, sh, backward)))
+                  for sh in (True, False)]
+        ms = (ev[which]["shifted"] + ev[which]["unshifted"]) / 2
+        rows[which] = {
+            "shape": list(shape), "window0": window0, "ms": ms,
+            "ms_shifted": ev[which]["shifted"],
+            "ms_unshifted": ev[which]["unshifted"],
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": (bounds[0][0] + bounds[1][0]) / 2,
+            "bound_by": bounds[0][1],
+            "device_ms": (dev[which]["shifted"]
+                          + dev[which]["unshifted"]) / 2,
+            "whole_image_shape": list(whole),
+            "whole_image_device_ms_shifted": whole_dev.get(
+                which, dev[which]["shifted"])}
+        row = rows[which]
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tflops"] = T.work(shape, True, backward)[1] / ms * 1e-9
+        print(f"time bf16 window {which} {tag} rank (B,Hp,Wp,h,d,ws)="
+              f"{shape}, window0 {window0}: queued events {ms:.4f} ms "
+              f"(device {row['device_ms']:.4f}; shifted "
+              f"{dev[which]['shifted']:.4f}), whole image {whole} device "
+              f"{row['whole_image_device_ms_shifted']:.4f} (shifted); plain "
+              f"{plain_ms:.3f}, SDPA {lib_ms:.4f}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def spatial_window_phase(W, T, dual_swin):
+    """See SPATIAL_WINDOW_MESHES. Returns ({fwd, bwd, sum_db: worst error},
+    {mesh: {fwd, bwd: swin_s's timing rows at the rank's shapes}}). The
+    times are taken in a fresh process (_window_slab_timing): in this long
+    one torch.profiler has lost the kernels' events (every K3 reading of
+    this phase, three times a shape, when it ran in this process)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    worst = {"fwd": 0.0, "bwd": 0.0, "sum_db": 0.0}
+    for mesh, (batch, n) in SPATIAL_WINDOW_MESHES.items():
+        for model, (stages, ws, layout) in swin_layouts(dual_swin,
+                                                        n).items():
+            for stage, sharded in zip(stages, layout):
+                if not sharded:
+                    continue
+                for shifted in (False, True):
+                    errs = hold_window_slabs(
+                        W, T, (batch, *stage[1:], T.D, ws), n, shifted, gen,
+                        f"{mesh} {model}")
+                    worst = {k: max(v, errs[k]) for k, v in worst.items()}
+    torch.cuda.empty_cache()
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        out = pool.submit(_window_slab_timing).result()
+    print(out["printed"], end="", flush=True)
+    print(f"spatial K3/K4 phase: {time.perf_counter() - t0:.1f} s")
+    return worst, out["rows"]
+
+
+def _window_slab_timing():
+    """The timing half of spatial_window_phase, in a process of its own:
+    per mesh, swin_s's rows at a rank's shapes (time_window_slab: the
+    largest slab of a sharded stage, the whole image where the stage runs
+    whole). Returns {rows, printed: its lines}."""
+    import contextlib
+    import io
+
+    import torch
+
+    from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+        dual_swin)
+    from rgbx_semantic_segmentation_tpu_torch.ops import window_attention as W
+    from rgbx_semantic_segmentation_tpu_torch.parallel import spatial
+    from rgbx_semantic_segmentation_tpu_torch.tools import (
+        bench_window_attention as T)
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows, printed = {}, io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        for mesh, (batch, n) in SPATIAL_WINDOW_MESHES.items():
+            rows[mesh] = {"fwd": [], "bwd": []}
+            stages, ws, layout = swin_layouts(dual_swin, n)["swin_s"]
+            for stage, sharded in zip(stages, layout):
+                whole = (batch, *stage[1:], T.D, ws)
+                shape, window0 = whole, 0
+                if sharded:
+                    r0, r1 = max(spatial.window_row_blocks(stage[1], ws, n),
+                                 key=lambda b: (b[1] - b[0], b[0]))
+                    shape = (batch, (r1 - r0) * ws, *whole[2:])
+                    window0 = r0 * (stage[2] // ws)
+                timed = time_window_slab(W, T, shape, whole, window0, gen,
+                                         f"{mesh} swin_s")
+                for which in ("fwd", "bwd"):
+                    rows[mesh][which].append(timed[which])
+            for which in ("fwd", "bwd"):
+                rr = rows[mesh][which]
+                whole_ms = per_step(rr, "whole_image_device_ms_shifted",
+                                    SWIN_CALLS)
+                print(f"window attention {which} on a rank of {mesh} "
+                      f"({batch} images, its largest slab of the sharded "
+                      f"stages), the 48 calls of a swin_s step: queued "
+                      f"events {per_step(rr, 'ms', SWIN_CALLS):.3f} ms "
+                      f"(device {per_step(rr, 'device_ms', SWIN_CALLS):.3f};"
+                      f" whole image {whole_ms:.3f}, shifted bias), plain "
+                      f"{per_step(rr, 'plain_ms', SWIN_CALLS):.3f}, SDPA "
+                      f"{per_step(rr, 'library_ms', SWIN_CALLS):.3f}, bound "
+                      f"{per_step(rr, 'bound_ms', SWIN_CALLS):.3f} ms")
+    return {"rows": rows, "printed": printed.getvalue()}
 
 
 # K1/K2 at the stage-4 IFFM attentions of segnext_tiny (d = 32) and
@@ -3552,6 +3875,18 @@ PP_SPATIAL_STEPS = 2
 # K1, K2, K5-fwd, K5-dkv, K5-dq launches of those steps on each rank
 PP_SPATIAL_LAUNCHES = ([PP_SR_CALLS * PP_SPATIAL_STEPS] * 2
                        + [PP_FLASH_CALLS * PP_SPATIAL_STEPS] * 3)
+# swin_s steps (the preset's, attention dropout 0.3 inside K3/K4, global
+# batch 8) after mit_b2's in the one-card 2d:1,2 world and on the four-card
+# meshes (the second one warm: its peak memory is read): K3 and K4 48 each
+# a step on every rank (the sharded stages on the rank's window slabs, the
+# others whole); its first loss within SPATIAL_LOSS_RTOL of one card's.
+SWIN_SPATIAL_STEPS = 2
+SWIN_SPATIAL_LAUNCHES = [48 * SWIN_SPATIAL_STEPS] * 2
+# The data x spatial meshes whose gradient check runs swin_s too (global
+# batch SWIN_GRAD_BATCH, fp32: K3/K4's scalar kernels), the default run's
+# 2d:1,2 on one card among them. Its control: the bias blocks' gradient
+# (the rank's partial db) summed over the spatial group (_db_twice).
+SWIN_GRAD_BATCH = 2
 # The data x spatial meshes of the four-card part (train_cli --mesh):
 # 2 data ranks x 2 row blocks, and 1 x 4.
 SPATIAL_MESHES = ["2d:2,2", "2d:1,4"]
@@ -3779,12 +4114,13 @@ def print_memory_probe(tag, probe):
           f"{probe['split_saved']:.3f}")
 
 
-def _spatial_world_rank(world, cfg, steps):
+def _spatial_world_rank(world, cfg, steps, swin, swin_steps):
     """A rank of the one-card data x spatial world (2d:1,2 over gloo, both
     ranks on one card): `steps` Trainer steps of `cfg` (mit_b2) on its rows
     of the synthetic batches, with the K1/K2 launches, the step time
     (events after the first step) and the peak memory of the rank's
-    process."""
+    process; then `swin_steps` steps of `swin` (swin_s at its attention
+    dropout 0.3: K3/K4 on the rank's window slabs) by _pp_steps."""
     import torch
     import torch.distributed as dist
 
@@ -3813,6 +4149,11 @@ def _spatial_world_rank(world, cfg, steps):
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if world.is_main():
         out["payload"] = _trainer_payload(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["swin_s"] = {**_pp_steps(world, swin, batches, swin_steps, swin=True),
+                     "seconds": time.perf_counter() - t0}
     return out
 
 
@@ -4051,7 +4392,9 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
     steps: K5 6 forward, 6 dk/dv and 6 dq launches a step on each rank at
     the rank's q rows, K1/K2 34; its first loss within SPATIAL_LOSS_RTOL of
     one card's; a warm step's peak beside one card's) and remat
-    (hold_spatial_remat)."""
+    (hold_spatial_remat); the first runs swin_s after mit_b2
+    (SWIN_SPATIAL_STEPS, hold_spatial_swin), and the gradient checks
+    swin_s's too (SWIN_GRAD_BATCH)."""
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
@@ -4059,6 +4402,8 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
     cfg = _ddp_cfg(cfg_lib)
     pp = cfg.replace(model=dataclasses.replace(cfg.model,
                                                backbone="mit_b2pp"))
+    swin = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 backbone="swin_s"))
     batches = uint8_batches(synthetic_items(N_IMAGES, HW,
                                             cfg.dataset.num_classes), 8)
     plain, plain_ms, first, plain_peak = [], [], [], []
@@ -4081,23 +4426,26 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
                 batches)])
         del trainer
         torch.cuda.empty_cache()
-    # one card's mit_b2pp: its first loss and a warm step's peak
-    trainer = train_lib.Trainer(pp, seed=0)
-    pp_first = float(trainer.step(batches[0])["loss"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    trainer.step(batches[1])
-    torch.cuda.synchronize()
-    pp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    del trainer
-    torch.cuda.empty_cache()
+    # one card's mit_b2pp and swin_s: the first loss and a warm step's peak
+    one_card = {}
+    for tag, c in (("mit_b2pp", pp), ("swin_s", swin)):
+        trainer = train_lib.Trainer(c, seed=0)
+        loss = float(trainer.step(batches[0])["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.step(batches[1])
+        torch.cuda.synchronize()
+        one_card[tag] = (loss, torch.cuda.max_memory_allocated() / 2 ** 30)
+        del trainer
+        torch.cuda.empty_cache()
+    pp_first, pp_peak = one_card["mit_b2pp"]
     # The four worlds share the card at once (their checks do not depend
     # on it; their step times, read beside the plain Trainer's, do).
     card = torch.cuda.current_device()
     worlds = {
         "world 1": (_ddp_world1_rank, [card], (cfg, DDP_STEPS), None),
-        "2d:1,2": (_spatial_world_rank, [card, card], (cfg, DDP_STEPS),
-                   "2d:1,2"),
+        "2d:1,2": (_spatial_world_rank, [card, card],
+                   (cfg, DDP_STEPS, swin, SWIN_SPATIAL_STEPS), "2d:1,2"),
         "2d:1,2, mit_b2pp and remat": (
             _spatial_pp_remat_rank, [card, card],
             (cfg, pp, PP_SPATIAL_STEPS), "2d:1,2"),
@@ -4160,6 +4508,7 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
           "starts):")
     pp_out = hold_spatial_pp(extra, pp_first, pp_peak)
     remat_out = hold_spatial_remat(extra)
+    swin_out = hold_spatial_swin(sp_ranks, *one_card["swin_s"])
     torch.cuda.empty_cache()
     tp_out = hold_tp_world(results[TP_MESH_ONE_CARD],
                            walls[TP_MESH_ONE_CARD], first[0], plain_ms[0],
@@ -4167,9 +4516,9 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
     t0 = time.perf_counter()
     grad, _ = grad_phase(train_lib, cfg_lib, [card, card],
                          ["2d:1,2", TP_MESH_ONE_CARD], together=True,
-                         pp_meshes=["2d:1,2"])
-    print(f"  2d:1,2 (mit_b2, mit_b2pp) and {TP_MESH_ONE_CARD} gradient "
-          f"checks on one card: {time.perf_counter() - t0:.1f} s",
+                         pp_meshes=["2d:1,2"], swin_meshes=["2d:1,2"])
+    print(f"  2d:1,2 (mit_b2, mit_b2pp, swin_s) and {TP_MESH_ONE_CARD} "
+          f"gradient checks on one card: {time.perf_counter() - t0:.1f} s",
           flush=True)
     tp_out["gradient"] = {k: v for k, v in grad.items()
                           if not k.startswith("2d")}
@@ -4178,7 +4527,7 @@ def ddp_world1_phase(S, cfg_lib, train_lib):
                    "step_ms": r0["step_ms"], "seconds": sp_wall,
                    "peak_gib": [r["peak_gib"] for r in sp_ranks],
                    "rel_l2": sp_dist, "gradient": grad, "mit_b2pp": pp_out,
-                   "remat": remat_out}
+                   "remat": remat_out, "swin_s": swin_out}
     return {"spatial_2d_1_2": spatial_out, "tp_1_2": tp_out,
             "launches": {"fwd": rank["launches"][0],
                          "bwd": rank["launches"][1]},
@@ -4218,6 +4567,38 @@ def hold_spatial_pp(ranks, one_first, one_peak):
             "one_card_warm_peak_gib": one_peak}
 
 
+def hold_spatial_swin(ranks, one_first, one_peak, mesh="2d:1,2"):
+    """swin_s on a data x spatial world (_pp_steps with swin): K3 and K4 48
+    launches a step on each rank, one finite loss on every rank, the first
+    within SPATIAL_LOSS_RTOL of one card's `one_first` (None: not read);
+    a warm step's peak per rank beside one card's `one_peak`."""
+    sw = [r["swin_s"] for r in ranks]
+    want = SWIN_SPATIAL_LAUNCHES
+    first = sw[0]["losses"][0]
+    beside = ("" if one_peak is None else
+              f" against one card's {one_peak:.3f}")
+    print(f"swin_s on {mesh} ({SWIN_SPATIAL_STEPS} steps, attention "
+          f"dropout 0.3, {sw[0]['seconds']:.1f} s with the model build): "
+          f"losses {sw[0]['losses']} (one card's first {one_first}), K3, K4 "
+          f"launches per rank {[x['launches'] for x in sw]} (expected "
+          f"{want}); a warm step {sw[0]['warm_step_ms']:.1f} ms, its peak "
+          f"GiB per rank {[round(x['warm_peak_gib'], 3) for x in sw]}"
+          f"{beside}", flush=True)
+    check(all(x["launches"] == want for x in sw),
+          f"{mesh} swin_s: K3 and K4 48 launches a step on each rank")
+    check(all(np.isfinite(sw[0]["losses"]))
+          and all(x["losses"] == sw[0]["losses"] for x in sw),
+          f"{mesh} swin_s: one finite loss on every rank")
+    if one_first is not None:
+        check(abs(first / one_first - 1) <= SPATIAL_LOSS_RTOL,
+              f"{mesh} swin_s first loss {first} vs one card's {one_first}")
+    return {"launches": [x["launches"] for x in sw],
+            "losses": sw[0]["losses"], "one_card_first_loss": one_first,
+            "warm_step_ms": sw[0]["warm_step_ms"],
+            "warm_peak_gib": [x["warm_peak_gib"] for x in sw],
+            "one_card_warm_peak_gib": one_peak}
+
+
 def hold_spatial_remat(ranks):
     """remat on the one-card 2d:1,2 world (_spatial_pp_remat_rank): K1 64
     and K2 32 launches in its step on each rank (the recompute on both), its
@@ -4244,7 +4625,8 @@ def hold_spatial_remat(ranks):
 
 def _grad_cfg(cfg_lib, backbone="mit_b2", batch=8):
     """The gradient check's configuration: the mfnet preset (mit_b2, or
-    `backbone`) at global batch `batch`, fp32, drop rates 0."""
+    `backbone`) at global batch `batch`, fp32, drop rates 0 (a Swin's
+    attention dropout, which no config field sets: _grad_trainer)."""
     cfg = _ddp_cfg(cfg_lib, batch)
     return cfg.replace(model=dataclasses.replace(
         cfg.model, backbone=backbone, use_mixed_precision=False,
@@ -4283,6 +4665,37 @@ def _flat_grads(model):
                       for p in model.parameters()]).cpu()
 
 
+def _without_window_dropout(model):
+    """`model` with every Swin window attention's dropout at rate 0 (the
+    factories' 0.3 is no config field): the gradient check compares the
+    kernels' masks with no plain path's."""
+    from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+        dual_swin)
+
+    for m in model.modules():
+        if isinstance(m, dual_swin.WindowAttention):
+            m.attn_drop.rate = 0.0
+    return model
+
+
+def _grad_trainer(train_lib, cfg, world=None):
+    """The gradient check's Trainer (drop rates 0, the window attention's
+    too)."""
+    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    _without_window_dropout(trainer.model)
+    return trainer
+
+
+def _table_mask(model):
+    """Which entries of _flat_grads(model) belong to a relative-position
+    bias table."""
+    import torch
+
+    return torch.cat([torch.full((p.numel(),), name.endswith(
+        "relative_position_bias_table")) for name, p in
+        model.named_parameters()])
+
+
 def _kv_twice(world):
     """A known-wrong multi_head_attention for the data x spatial gradient
     check's control: k and v pass through an identity whose backward sums
@@ -4296,8 +4709,19 @@ def _kv_twice(world):
     from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
         dual_segformer)
 
-    group = world.spatial.group
     attend = dual_segformer.multi_head_attention
+    sum_grad = _sum_grad(world.spatial.group)
+
+    def wrong(q, k, v, scale, use_kernels=False, n_whole=None):
+        return attend(q, sum_grad(k), sum_grad(v), scale, use_kernels,
+                      n_whole)
+    return wrong
+
+
+def _sum_grad(group):
+    """An identity whose backward sums the gradient over `group`."""
+    import torch
+    import torch.distributed as dist
 
     class SumGrad(torch.autograd.Function):
         @staticmethod
@@ -4310,9 +4734,24 @@ def _kv_twice(world):
             dist.all_reduce(g, group=group)
             return g
 
-    def wrong(q, k, v, scale, use_kernels=False, n_whole=None):
-        return attend(q, SumGrad.apply(k), SumGrad.apply(v), scale,
-                      use_kernels, n_whole)
+    return SumGrad.apply
+
+
+def _db_twice(world):
+    """A known-wrong WindowAttention._bias for the swin_s gradient check's
+    control: the bias block passes through an identity whose backward sums
+    its gradient over the spatial group, i.e. the rank's partial db (the
+    sum over its own windows and rows) summed over the image's ranks before
+    the world's summing all-reduce adds the ranks' again: S times the bias
+    tables' gradient."""
+    from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+        dual_swin)
+
+    bias = dual_swin.WindowAttention._bias
+    sum_grad = _sum_grad(world.spatial.group)
+
+    def wrong(self):
+        return sum_grad(bias(self))
     return wrong
 
 
@@ -4347,7 +4786,8 @@ def _ddp_grad_rank(world, cfg, batch, control=True):
     of them) with the global-mean loss, the summed buckets, the synced
     BatchNorm; then, with `control`, a known-wrong step on the same weights
     and rows: on a 2d mesh the same step with dk, dv summed twice over the
-    spatial group (_kv_twice), on a tp mesh with copy_to_model's backward
+    spatial group (_kv_twice; a Swin's db: _db_twice), on a tp mesh with
+    copy_to_model's backward
     left without its all-reduce (_without_model_sum), else DDP's default
     (each rank's own mean, the gradients averaged). Rank 0 returns the
     losses and the gradients."""
@@ -4367,7 +4807,7 @@ def _ddp_grad_rank(world, cfg, batch, control=True):
     rows = process_batch_slice(len(batch["label"]), world.data_rank,
                                world.data_size)
     local = {k: v[rows] for k, v in batch.items()}
-    trainer = train_lib.Trainer(cfg, seed=0, world=world)
+    trainer = _grad_trainer(train_lib, cfg, world)
     out = {"loss": float(trainer.step(local)["loss"])}
     grad = _model_grads(trainer.model)
     if world.is_main():
@@ -4382,13 +4822,27 @@ def _ddp_grad_rank(world, cfg, batch, control=True):
         right = tensor._CopyToModel
         tensor._CopyToModel = _without_model_sum()
         try:
-            trainer = train_lib.Trainer(cfg, seed=0, world=world)
+            trainer = _grad_trainer(train_lib, cfg, world)
             out["control_loss"] = float(trainer.step(local)["loss"])
             grad = _model_grads(trainer.model)
             if world.is_main():
                 out["control_grad"] = grad
         finally:
             tensor._CopyToModel = right
+        return out
+    if world.spatial is not None and cfg.model.backbone.startswith("swin"):
+        from rgbx_semantic_segmentation_tpu_torch.models.encoders import (
+            dual_swin)
+
+        right = dual_swin.WindowAttention._bias
+        dual_swin.WindowAttention._bias = _db_twice(world)
+        try:
+            trainer = _grad_trainer(train_lib, cfg, world)
+            out["control_loss"] = float(trainer.step(local)["loss"])
+            if world.is_main():
+                out["control_grad"] = _flat_grads(trainer.model)
+        finally:
+            dual_swin.WindowAttention._bias = right
         return out
     if world.spatial is not None:
         from rgbx_semantic_segmentation_tpu_torch.models import fusion
@@ -4399,7 +4853,7 @@ def _ddp_grad_rank(world, cfg, batch, control=True):
         dual_segformer.multi_head_attention = fusion.multi_head_attention = (
             _kv_twice(world))
         try:
-            trainer = train_lib.Trainer(cfg, seed=0, world=world)
+            trainer = _grad_trainer(train_lib, cfg, world)
             out["control_loss"] = float(trainer.step(local)["loss"])
             if world.is_main():
                 out["control_grad"] = _flat_grads(trainer.model)
@@ -4407,8 +4861,8 @@ def _ddp_grad_rank(world, cfg, batch, control=True):
             dual_segformer.multi_head_attention = attend
             fusion.multi_head_attention = attend
         return out
-    model = convert_sync_batchnorm(build_model(cfg, device=world.device,
-                                               seed=0)).train()
+    model = convert_sync_batchnorm(_without_window_dropout(build_model(
+        cfg, device=world.device, seed=0))).train()
     net = DistributedDataParallel(model, device_ids=[world.device.index])
     rgb, mx, label = normalised(cfg, local, world.device)
     loss = train_lib.make_loss_fn(cfg)(net(rgb, mx), label)
@@ -4432,7 +4886,8 @@ def float64_grad(train_lib, cfg, batch):
 
     cfg = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 use_pallas_kernels=False))
-    model = build_model(cfg, device="cuda", seed=0).double()
+    model = _without_window_dropout(build_model(cfg, device="cuda",
+                                                seed=0)).double()
     step = train_lib.make_train_step(cfg, model,
                                      optim.build_optimizer(cfg, model),
                                      seed=0)
@@ -4446,7 +4901,7 @@ def float64_grad(train_lib, cfg, batch):
 
 
 def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check,
-               together=False, pp_meshes=()):
+               together=False, pp_meshes=(), swin_meshes=()):
     """The first-step gradient over the ranks against one card (see
     DDP_GRAD_FACTOR and SPATIAL_GRAD_FACTOR), on each of `meshes` over the
     devices ('dp': one data rank a card, with DDP's default as the
@@ -4456,7 +4911,10 @@ def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check,
     control), mit_b2 at global batch 8; and mit_b2pp on each of the data x
     spatial `pp_meshes` (its IFFM cross-attention on the rank's q rows;
     global batch PP_FP32_BATCH: the fp32 K5 kernels are scalar), held
-    likewise to its own one-card and float64 steps. The dp control's check
+    likewise to its own one-card and float64 steps; and swin_s on each of
+    the data x spatial `swin_meshes` (K3/K4 on the rank's window slabs;
+    global batch SWIN_GRAD_BATCH), its control the partial db summed twice
+    (_db_twice). The dp control's check
     is returned, for the caller to make last: it needs two ranks (None
     without 'dp'). The meshes' bounds and controls go to `hold`.
     `together`: the meshes' worlds run at once (the default run's worlds
@@ -4470,14 +4928,14 @@ def grad_phase(train_lib, cfg_lib, devices, meshes=("dp",), hold=check,
     torch.backends.cudnn.allow_tf32 = False
     try:
         return _grad_phase(train_lib, cfg_lib, devices, meshes, hold,
-                           together, pp_meshes)
+                           together, pp_meshes, swin_meshes)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
 
 
 def _grad_phase(train_lib, cfg_lib, devices, meshes, hold, together,
-                pp_meshes):
+                pp_meshes, swin_meshes):
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
@@ -4490,22 +4948,29 @@ def _grad_phase(train_lib, cfg_lib, devices, meshes, hold, together,
         models["mit_b2pp"] = (
             _grad_cfg(cfg_lib, "mit_b2pp", PP_FP32_BATCH),
             {k: v[:PP_FP32_BATCH] for k, v in batch.items()})
+    if swin_meshes:
+        models["swin_s"] = (
+            _grad_cfg(cfg_lib, "swin_s", SWIN_GRAD_BATCH),
+            {k: v[:SWIN_GRAD_BATCH] for k, v in batch.items()})
 
     def one_card(model, b):
         t0 = time.perf_counter()
-        trainer = train_lib.Trainer(models[model][0], seed=0)
+        trainer = _grad_trainer(train_lib, models[model][0])
         loss = float(trainer.step(b)["loss"])
         grad = _flat_grads(trainer.model)
+        tables[model] = _table_mask(trainer.model)
         del trainer
         torch.cuda.empty_cache()
         print(f"  one card, {model} fp32 step: {time.perf_counter() - t0:.1f}"
               " s with the model build", flush=True)
         return loss, grad
 
+    tables = {}
+
     # per model: one card's fp32 loss and gradient, the float64 gradient
     # and one card's distance from it
     refs = {m: one_card(m, b) for m, (_, b) in models.items()
-            if m == "mit_b2pp" or meshes}
+            if m != "mit_b2" or meshes}
     ref_loss, ref = refs.get("mit_b2", (None, None))
 
     def rel(g, model="mit_b2"):
@@ -4526,12 +4991,15 @@ def _grad_phase(train_lib, cfg_lib, devices, meshes, hold, together,
         out["losses"].update({k: v[0] for k, v in runs.items()})
     worlds = {m: (_ddp_grad_rank, devices, (cfg, batch), m) for m in meshes
               if m != "dp"}
-    worlds.update({f"{m} mit_b2pp": (_ddp_grad_rank, devices,
-                                     models["mit_b2pp"], m)
-                   for m in pp_meshes})
+    for model, on in (("mit_b2pp", pp_meshes), ("swin_s", swin_meshes)):
+        worlds.update({f"{m} {model}": (_ddp_grad_rank, devices,
+                                        models[model], m) for m in on})
+
+    def model_of(tag):
+        return tag.split(" ")[1] if " " in tag else "mit_b2"
+
     truth = {}
-    for model in {("mit_b2pp" if t.endswith("pp") else "mit_b2")
-                  for t in worlds}:
+    for model in {model_of(t) for t in worlds}:
         t0 = time.perf_counter()
         exact = float64_grad(train_lib, *models[model])
         one_err = float((refs[model][1].double() - exact).norm()
@@ -4549,7 +5017,7 @@ def _grad_phase(train_lib, cfg_lib, devices, meshes, hold, together,
     if together:
         results, walls = _spawn_together(launch, worlds)
     for tag, (_, _, _, mesh) in worlds.items():
-        model = "mit_b2pp" if tag.endswith("pp") else "mit_b2"
+        model = model_of(tag)
         exact, one_err = truth[model]
         t0 = time.perf_counter()
         if together:
@@ -4565,9 +5033,11 @@ def _grad_phase(train_lib, cfg_lib, devices, meshes, hold, together,
 
         got, err = rel(r0["grad"], model), exact_rel(r0["grad"])
         wrong = exact_rel(r0["control_grad"])
-        control = ("dk, dv summed twice over the spatial group"
-                   if mesh.startswith("2d") else
-                   "copy_to_model's backward without its all-reduce")
+        control = ("copy_to_model's backward without its all-reduce"
+                   if not mesh.startswith("2d") else
+                   "the partial db summed twice over the spatial group"
+                   if model == "swin_s" else
+                   "dk, dv summed twice over the spatial group")
         limit = SPATIAL_GRAD_FACTOR * one_err
         beside = ("" if "dp" not in meshes or model != "mit_b2" else
                   f"; read beside {bound:.3e}, {DDP_GRAD_FACTOR:g}x the "
@@ -4585,10 +5055,35 @@ def _grad_phase(train_lib, cfg_lib, devices, meshes, hold, together,
               f"gradient check, {tag}: every rank reports the global loss")
         hold(err <= limit, f"{tag} gradient {err} from the float64 step, "
              f"bound {limit}")
-        hold(wrong > limit, f"{tag} control ({control}) at {wrong} does "
-             f"not miss the bound {limit}")
         out[tag] = {"from_one_card": got, "from_float64": err,
                     "control_from_float64": wrong}
+        if model == "swin_s":
+            # the bias tables' gradients, where the control acts: held
+            # likewise, and the control must miss there
+            tab = tables[model]
+
+            def tab_rel(g):
+                return float((g[tab].double() - exact[tab]).norm()
+                             / exact[tab].norm())
+
+            t_one = tab_rel(refs[model][1])
+            t_err, t_wrong = tab_rel(r0["grad"]), tab_rel(r0["control_grad"])
+            t_limit = SPATIAL_GRAD_FACTOR * t_one
+            print(f"  {tag}, the 48 bias tables' gradients alone: "
+                  f"{t_err:.3e} from the float64 step, bound {t_limit:.3e} "
+                  f"({SPATIAL_GRAD_FACTOR:g}x one card's {t_one:.3e}); the "
+                  f"control {t_wrong:.3e}", flush=True)
+            hold(t_err <= t_limit, f"{tag} bias tables' gradient {t_err} "
+                 f"from the float64 step, bound {t_limit}")
+            hold(t_wrong > t_limit, f"{tag} control ({control}) at "
+                 f"{t_wrong} on the bias tables does not miss the bound "
+                 f"{t_limit}")
+            out[tag].update({"tables_from_float64": t_err,
+                             "tables_one_card_from_float64": t_one,
+                             "tables_control_from_float64": t_wrong})
+        else:
+            hold(wrong > limit, f"{tag} control ({control}) at {wrong} "
+                 f"does not miss the bound {limit}")
         out["losses"][tag] = r0["loss"]
         out["losses"][f"{tag}, control"] = r0["control_loss"]
     if "dp" not in meshes:
@@ -4856,23 +5351,26 @@ def _spatial_inmem_rank(world, steps=2):
     return out
 
 
-def _pp_steps(world, cfg, batches, steps):
-    """`steps` Trainer steps of `cfg` (mit_b2pp) on `world`'s rank, on its
-    rows of its data rank's images of the global `batches`: the K1, K2,
-    K5-fwd, K5-dkv and K5-dq launches (PP_SPATIAL_LAUNCHES), the losses,
+def _pp_steps(world, cfg, batches, steps, swin=False):
+    """`steps` Trainer steps of `cfg` (mit_b2pp; with `swin`, swin_s) on
+    `world`'s rank, on its rows of its data rank's images of the global
+    `batches`: the K1, K2, K5-fwd, K5-dkv and K5-dq launches
+    (PP_SPATIAL_LAUNCHES; with `swin` the K3 and K4 launches), the losses,
     and the time (events) and peak memory of the last (warm) step."""
     import torch
 
     from rgbx_semantic_segmentation_tpu_torch import train as train_lib
     from rgbx_semantic_segmentation_tpu_torch.ops import flash_attention as FA
     from rgbx_semantic_segmentation_tpu_torch.ops import sr_attention as S
+    from rgbx_semantic_segmentation_tpu_torch.ops import window_attention as W
     from rgbx_semantic_segmentation_tpu_torch.parallel.multihost import (
         process_batch_slice)
 
     rows = process_batch_slice(8, world.data_rank, world.data_size)
     trainer = train_lib.Trainer(cfg, seed=0, world=world)
-    counters = (S.sr_attention, S.sr_attention_bwd, FA.flash_attention,
-                FA.flash_attention_dkv, FA.flash_attention_dq)
+    counters = ((W.window_attention, W.window_attention_bwd) if swin else
+                (S.sr_attention, S.sr_attention_bwd, FA.flash_attention,
+                 FA.flash_attention_dkv, FA.flash_attention_dq))
     for fn in counters:
         fn.launches = 0
     losses = []
@@ -4903,6 +5401,19 @@ def _pp_mesh_rank(world, steps):
                                                 backbone="mit_b2pp"))
     return _pp_steps(world, cfg, uint8_batches(synthetic_items(
         N_IMAGES, HW, cfg.dataset.num_classes), 8), steps)
+
+
+def _swin_mesh_rank(world, steps):
+    """swin_s (the preset's with backbone swin_s, bf16, attention dropout
+    0.3, global batch 8) on a data x spatial world of cards: _pp_steps."""
+    from rgbx_semantic_segmentation_tpu_torch import config as cfg_lib
+
+    cfg = _ddp_cfg(cfg_lib)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, backbone="swin_s"))
+    t0 = time.perf_counter()
+    out = _pp_steps(world, cfg, uint8_batches(synthetic_items(
+        N_IMAGES, HW, cfg.dataset.num_classes), 8), steps, swin=True)
+    return {"swin_s": {**out, "seconds": time.perf_counter() - t0}}
 
 
 def pp_mesh_part(devices, meshes):
@@ -4939,7 +5450,9 @@ def pp_mesh_part(devices, meshes):
 def mesh_ddp_part(devices, meshes):
     """The data x spatial and data x model `meshes` on the cards beyond
     the train_cli runs: mit_b2pp's steps on SPATIAL_PP_MESHES
-    (pp_mesh_part), each mesh's step profiled in memory (see
+    (pp_mesh_part), swin_s's on SPATIAL_MESHES (SWIN_SPATIAL_STEPS, K3/K4
+    launches per rank: hold_spatial_swin), each mesh's step profiled in
+    memory (see
     _spatial_inmem_rank) and, with 2d:2,2 among them, the preset's drop
     masks (see _spatial_mask_rank) equal across an image's spatial ranks,
     different across its data ranks."""
@@ -4948,8 +5461,14 @@ def mesh_ddp_part(devices, meshes):
     from rgbx_semantic_segmentation_tpu_torch.parallel import launch
 
     out = {"mit_b2pp": pp_mesh_part(
-        devices, [m for m in meshes if m in SPATIAL_PP_MESHES])}
+        devices, [m for m in meshes if m in SPATIAL_PP_MESHES]),
+        "swin_s": {}}
     for mesh in meshes:
+        if mesh in SPATIAL_MESHES:
+            ranks = launch.spawn(_swin_mesh_rank, devices, "cuda",
+                                 (SWIN_SPATIAL_STEPS,), mesh=mesh)
+            out["swin_s"][mesh] = hold_spatial_swin(ranks, None, None, mesh)
+            torch.cuda.empty_cache()
         ranks = launch.spawn(_spatial_inmem_rank, devices, "cuda", (),
                              mesh=mesh)
         r0 = ranks[0]
@@ -5145,7 +5664,7 @@ def ddp_main(n: int, card: str) -> int:
     x spatial and data x model meshes (SPATIAL_MESHES, TP_MESHES: their
     train_cli runs beside the one-card runs they are held to, the
     profiled step, the masks, the gradient; mit_b2pp's gradient on
-    SPATIAL_PP_MESHES)."""
+    SPATIAL_PP_MESHES; swin_s's steps and gradient on SPATIAL_MESHES)."""
     import tempfile
 
     import torch
@@ -5227,7 +5746,8 @@ def ddp_main(n: int, card: str) -> int:
         out["meshes"] = mesh_ddp_part(devices, meshes)
     out["gradient"], control = grad_phase(
         train_lib, cfg_lib, devices, ["dp"] + meshes, deferred,
-        pp_meshes=[m for m in meshes if m in SPATIAL_PP_MESHES])
+        pp_meshes=[m for m in meshes if m in SPATIAL_PP_MESHES],
+        swin_meshes=[m for m in meshes if m in SPATIAL_MESHES])
     check(not failed, "; ".join(failed))
     # Last, the two checks that need two ranks (`--ddp 1` fails them).
     # (the first call: stage 1, its first window attention; rate 0.3)
@@ -5813,6 +6333,8 @@ def main() -> int:
     lap("K1/K2 at SegNeXt's widths and on row blocks")
     sp_flash_err, sp_flash_rows = spatial_flash_phase(FA, T5)
     lap("K5 on a rank's q rows")
+    sp_window_err, sp_window_rows = spatial_window_phase(W, T, dual_swin)
+    lap("K3/K4 on a rank's window rows")
     for which, tag in (("fwd", "forward"), ("dkv", "dk/dv"), ("dq", "dq")):
         for model, rows in (("mit_b2pp", flash_rows[which]),
                             ("segnext_b", narrow_rows[which]),
@@ -6077,7 +6599,22 @@ def main() -> int:
          sp_flash_rows["2d:1,2"]["dkv"], T5.CALLS, "flash_attention_bwd"),
         ("flash_attention_bwd_dq_spatial", "attention.py:50", pp_launches(4),
          sp_flash_err["dq"], sp_flash_rows["2d:1,2"]["dq"], T5.CALLS,
-         "flash_attention_bwd")]
+         "flash_attention_bwd"),
+        # K3/K4 on the spatial axis (JAX runs the XLA composition there:
+        # its mesh_plan returns None): the same kernels on a rank's window
+        # slab with window0; the launches of swin_s on the one-card 2d:1,2
+        # world (both ranks), the errors over every slab of swin_s's and
+        # swin_b's sharded stages on three meshes, the times at a 2d:1,2
+        # rank's shapes (its largest slabs; spatial_window has 2d:2,2's and
+        # 2d:1,4's too).
+        ("window_attention_fwd_spatial", "window_attention.py:179",
+         sum(r[0] for r in sp["swin_s"]["launches"]), sp_window_err["fwd"],
+         sp_window_rows["2d:1,2"]["fwd"], SWIN_CALLS,
+         "window_attention_fwd"),
+        ("window_attention_bwd_spatial", "window_attention.py:205",
+         sum(r[1] for r in sp["swin_s"]["launches"]), sp_window_err["bwd"],
+         sp_window_rows["2d:1,2"]["bwd"], SWIN_CALLS,
+         "window_attention_bwd")]
     print(json.dumps({"kernels": [
         with_rates(kernel_entry(name, replaces, launches, err, rows, calls,
                                 source), calls)
@@ -6098,7 +6635,9 @@ def main() -> int:
         "spatial_kernels": {"max_abs_err": spatial_err,
                             "rows": spatial_rows},
         "spatial_flash": {"max_abs_err": sp_flash_err,
-                          "rows": sp_flash_rows}, "card": card}))
+                          "rows": sp_flash_rows},
+        "spatial_window": {"max_abs_err": sp_window_err,
+                           "rows": sp_window_rows}, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -147,7 +147,10 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1,
 // The dropout stream of the window attention. One Philox call serves the
 // four probabilities that one thread holds of an mma accumulator tile: rows
 // r and r + 8 of a 16-row tile, columns c and c + 1 (c even). Counter:
-// (c / 2, 8 * (r / 16) + r % 8, unit, batch); key: the 64-bit seed. Element
+// (c / 2, 8 * (r / 16) + r % 8, unit0 + unit, batch); key: the 64-bit seed.
+// unit = window * h + head counts the launch's windows; unit0 = window0 * h
+// places them in the whole image (window0 > 0: a slab of window rows on a
+// spatial rank, which then draws the whole image's masks). Element
 // (r, c) keeps its probability iff its 32 bits are >= thr:
 // bits[2 * ((r % 16) / 8) + c % 2]. ops/window_attention.keep_mask draws the
 // same mask in PyTorch.
@@ -156,13 +159,14 @@ struct Dropout {
   uint32_t thr;     // min(rate * 2^32, 2^32 - 1)
   float inv_keep;   // 1 / (1 - rate)
   int on;
+  int unit0;        // window0 * h: the first window's unit in the image
 };
 
 __device__ __forceinline__ void dropout_bits(const Dropout& dr, int col_pair,
                                              int row_group, int unit, int b,
                                              uint32_t (&bits)[4]) {
-  philox4x32_10((uint32_t)col_pair, (uint32_t)row_group, (uint32_t)unit,
-                (uint32_t)b, dr.k0, dr.k1, bits);
+  philox4x32_10((uint32_t)col_pair, (uint32_t)row_group,
+                (uint32_t)(dr.unit0 + unit), (uint32_t)b, dr.k0, dr.k1, bits);
 }
 
 // The bits of the single element (row, col), for the scalar kernels.

@@ -1015,7 +1015,8 @@ extern "C" int window_attention_bwd(const void* qkv, const float* bias,
                                     int Wp, int h, int d, int ws,
                                     long long bias_w_stride, float scale,
                                     float inv_keep, unsigned int thr,
-                                    int dropout, int dtype, void* stream) {
+                                    int dropout, int window0, int dtype,
+                                    void* stream) {
   if (B <= 0 || h <= 0 || d <= 0 || d > kWinMaxD || ws <= 0 ||
       ws * ws > kWinMaxN || Hp <= 0 || Wp <= 0 || Hp % ws || Wp % ws)
     return (int)cudaErrorInvalidValue;
@@ -1040,6 +1041,7 @@ extern "C" int window_attention_bwd(const void* qkv, const float* bias,
   dr.thr = thr;
   dr.inv_keep = inv_keep;
   dr.on = dropout;
+  dr.unit0 = window0 * h;
   const long long units = (long long)win.nW * h;
   if (units * kShares > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -310,14 +310,16 @@ int launch_scalar(const void* qkv, const float* bias, void* out,
 // `bias_w_stride` elements apart from window to window (0: one block shared
 // by all windows); out: (B, Hp, Wp, h * d) contiguous; seed: one int64 in
 // device memory, read only when `dropout` is set; thr and inv_keep: see
-// attention_common.cuh `Dropout`. All on the current device. Returns a
-// cudaError_t code (0 = launched).
+// attention_common.cuh `Dropout`; window0: the image's index of the first
+// window (the masks' counter; 0 unless qkv is a slab of window rows). All on
+// the current device. Returns a cudaError_t code (0 = launched).
 extern "C" int window_attention_fwd(const void* qkv, const float* bias,
                                     void* out, const long long* seed, int B,
                                     int Hp, int Wp, int h, int d, int ws,
                                     long long bias_w_stride, float scale,
                                     float inv_keep, unsigned int thr,
-                                    int dropout, int dtype, void* stream) {
+                                    int dropout, int window0, int dtype,
+                                    void* stream) {
   if (B <= 0 || h <= 0 || d <= 0 || d > kWinMaxD || ws <= 0 ||
       ws * ws > kWinMaxN || Hp <= 0 || Wp <= 0 || Hp % ws || Wp % ws)
     return (int)cudaErrorInvalidValue;
@@ -342,6 +344,7 @@ extern "C" int window_attention_fwd(const void* qkv, const float* bias,
   dr.thr = thr;
   dr.inv_keep = inv_keep;
   dr.on = dropout;
+  dr.unit0 = window0 * h;
   const long long blocks = (long long)B * g.nW * h;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

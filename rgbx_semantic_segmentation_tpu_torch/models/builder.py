@@ -231,8 +231,9 @@ class EncoderDecoder(nn.Module):
         whole images): forward then takes the rank's row block of the
         images and returns the logits of those rows
         (parallel/spatial.py). Ported for the MiT towers (FRM/FFM and the
-        mit_*pp IFRM/IFFM, `remat` on or off) and the MLPDecoder under the
-        cross-entropy loss; the rest raises NotImplementedError naming its
+        mit_*pp IFRM/IFFM, `remat` on or off), the dual Swin towers with
+        FRM/FFM and the MLPDecoder under the cross-entropy loss
+        (spatial_support); the rest raises NotImplementedError naming its
         ROADMAP item."""
         if sp is not None:
             spatial_support(self.cfg)
@@ -286,12 +287,21 @@ def spatial_support(cfg: Config) -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for a config
     that `--mesh 2d` does not run: it runs the MiT towers (mit_tiny,
     mit_b0..b5 with FRM/FFM or IFRM/IFFM, mit_b0pp..b5pp; `remat` on or
-    off), the MLPDecoder and the cross-entropy loss."""
+    off), the dual Swin towers (swin_s, swin_b) with FRM/FFM (`remat`,
+    `swin_ape` and `swin_frozen_stages` on or off), the MLPDecoder and the
+    cross-entropy loss."""
     m = cfg.model
-    if m.backbone not in MIT_FACTORIES and not is_mit_pp(m.backbone):
-        item = "5c" if m.backbone in SWIN_FACTORIES else "5d"
+    swin = m.backbone in SWIN_FACTORIES
+    if m.backbone not in MIT_FACTORIES and not is_mit_pp(m.backbone) \
+            and not swin:
         raise NotImplementedError(f"--mesh 2d with backbone {m.backbone!r} "
-                                  f"(ROADMAP Queue 1 item {item})")
+                                  "(ROADMAP Queue 1 item 5d)")
+    if swin and (m.feature_rectify_module, m.feature_fusion_module) != (
+            "FRM", "FFM"):
+        raise NotImplementedError(
+            f"--mesh 2d with backbone {m.backbone!r} and "
+            f"{m.feature_rectify_module}/{m.feature_fusion_module} "
+            "(ROADMAP Queue 1 item 5d)")
     if m.decoder != "MLPDecoder":
         raise NotImplementedError(f"--mesh 2d with decoder {m.decoder!r} "
                                   "(ROADMAP Queue 1 item 5d)")

@@ -23,6 +23,23 @@ tower (stored as the original's (1, C, res, res) grid, res =
 pretrain_img_size // patch_size, bicubic-resized to the token grid);
 `frozen_stages` (see DualSwinTransformer); `remat`, each block under
 activation checkpointing (ops/layers.checkpointed).
+
+On the data x spatial mesh (`--mesh 2d:D,S`, parallel/spatial.py) the
+towers run on the rank's row block of every map (`forward(..., sp)`), the
+stages that `spatial_layout` shards. There the residual stream, the MLPs,
+the patch embed, the downsample and the FRM/FFM act on the rank's own rows
+(equal blocks), while a block's attention runs on whole window rows: the
+rank's window slab of the padded, rolled image (spatial.window_slab_plan:
+window rows [r0, r1), the last rank's slab with the padding), whose rows
+it fetches from their owners, wrapping from the last rank to the first
+(spatial.ring_rows), and returns to them after the proj
+(spatial.ring_rows_back). The kernels then run on the slab with window0 =
+the slab's first window (the dropout masks of the whole image's windows),
+the shift mask is the slab's windows of the whole image's, and a dropout
+mask is drawn at the whole image's size and the slab's (or the own rows')
+part kept, so an image's spatial ranks compute one process's step. JAX
+runs the XLA composition there (its mesh_plan returns None under
+`spatial`); K3/K4 on a rank's window rows is the port's own.
 """
 from __future__ import annotations
 
@@ -40,7 +57,9 @@ from rgbx_semantic_segmentation_tpu_torch.ops.layers import (
     DropPath, Dropout, checkpointed, map_to_tokens, tokens_to_map)
 from rgbx_semantic_segmentation_tpu_torch.ops.resize import (
     resize_bicubic_torch)
-from rgbx_semantic_segmentation_tpu_torch.parallel import tensor
+from rgbx_semantic_segmentation_tpu_torch.parallel import spatial, tensor
+from rgbx_semantic_segmentation_tpu_torch.parallel.sync_bn import (
+    set_replicas)
 
 # The JAX Swin's LayerNorms take flax's default eps (the original torch repo
 # used nn.LayerNorm's 1e-5); the port holds to the JAX package.
@@ -112,10 +131,13 @@ class SwinMlp(nn.Module):
             self.tp = mg
         return dims
 
-    def forward(self, x):
+    def forward(self, x, split=None):
+        """`split` = (s, S): x holds token block s of S (a spatial rank's
+        rows): the masks are drawn over the whole map's tokens."""
         tp = self.tp
         if tp is None:
-            return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
+            x = self.drop(F.gelu(self.fc1(x)), split, -2)
+            return self.drop(self.fc2(x), split, -2)
         x = F.gelu(self.fc1(tensor.copy_to_model(x, tp)))
         x = self.drop(x, split=(tp.rank, tp.size))
         return self.drop(tensor.split_fc2(self.fc2, x, tp))
@@ -131,7 +153,11 @@ class WindowAttention(nn.Module):
       the image and WA.window_attention does the rest up to proj.
     - (B_, N, C), partitioned windows: the plain composition.
 
-    `mask` is the (nW, N, N) shift mask or None."""
+    `mask` is the (nW, N, N) shift mask of x's windows or None. `span` =
+    (window0, nW, whole): x holds windows [window0, window0 + nW) of each
+    image's `whole` (a spatial rank's window slab, whole window rows); the
+    kernels take window0 and the dropout masks are drawn at the whole
+    image's size and the slab's windows kept."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
                  qkv_bias: bool = True, attn_drop: float = 0.0,
@@ -170,11 +196,12 @@ class WindowAttention(nn.Module):
         return torch.empty(1, dtype=torch.int64, device=device).random_(
             generator=self.attn_drop.generator)
 
-    def forward(self, x, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, mask: Optional[torch.Tensor] = None, span=None):
         h = self.num_heads
         d = x.shape[-1] // h
         scale = d ** -0.5
         bias = self._bias()
+        window0 = 0 if span is None else span[0]
         if x.dim() == 4:
             B, Hp, Wp, C = x.shape
             nW = (Hp // self.window_size) * (Wp // self.window_size)
@@ -193,8 +220,14 @@ class WindowAttention(nn.Module):
                                  self.attn_drop.rank)
                     if rate > 0.0 else None)
             out = WA.window_attention(qkv, comb, seed, scale, rate,
-                                      self.window_size)
-            return self.proj_drop(self.proj(out))
+                                      self.window_size, window0)
+            rows = None
+            if span is not None:
+                # the slab's rows of the whole padded image
+                cols = Wp // self.window_size
+                rows = (window0 // cols * self.window_size,
+                        span[2] // cols * self.window_size)
+            return self.proj_drop(self.proj(out), None, 1, rows)
 
         B_, N, C = x.shape
         qkv = self.qkv(x).reshape(B_, N, 3, h, d)
@@ -211,10 +244,20 @@ class WindowAttention(nn.Module):
                 nW = mask.shape[0]
                 attn = attn.view(B_ // nW, nW, h, N, N) + mask[None, :, None]
                 attn = attn.view(B_, h, N, N)
-            attn = self.attn_drop(torch.softmax(attn, dim=-1))
+            attn = torch.softmax(attn, dim=-1)
+            if span is None:
+                attn = self.attn_drop(attn)
+            else:
+                _, nW, whole = span
+                attn = self.attn_drop(attn.view(B_ // nW, nW, h, N, N), None,
+                                      1, (window0, whole)).view(B_, h, N, N)
             out = torch.matmul(attn.to(v.dtype).float(), v.float()).to(v.dtype)
-        out = out.transpose(1, 2).reshape(B_, N, C)
-        return self.proj_drop(self.proj(out))
+        out = self.proj(out.transpose(1, 2).reshape(B_, N, C))
+        if span is None:
+            return self.proj_drop(out)
+        _, nW, whole = span
+        return self.proj_drop(out.view(B_ // nW, nW, N, C), None, 1,
+                              (window0, whole)).view(B_, N, C)
 
 
 class SwinBlock(nn.Module):
@@ -249,7 +292,12 @@ class SwinBlock(nn.Module):
                 Hp, Wp, self.window_size, self.shift_size)).to(device)
         return self._masks[key]
 
-    def forward(self, x, H: int, W: int):
+    def forward(self, x, H: int, W: int, rows=None):
+        """`rows`: the spatial group when x holds the rank's H rows of the
+        map: the attention runs on the rank's window slab (module
+        docstring), the rest on the own rows."""
+        if rows is not None:
+            return self._forward_rows(x, H, W, rows)
         B, L, C = x.shape
         ws = self.window_size
         shortcut = x
@@ -275,6 +323,46 @@ class SwinBlock(nn.Module):
         x = shortcut + self.drop_path(y.reshape(B, H * W, C))
         return x + self.drop_path(self.mlp(self.norm2(x)))
 
+    def _forward_rows(self, x, H: int, W: int, rows: spatial.SpatialGroup):
+        """forward on a spatial rank: x the rank's H rows of a map of H * S
+        rows. norm1 on the own rows; the rows of the rank's window slab of
+        the padded image rolled up by the shift, fetched from their owners
+        (the padding: zero rows); the columns padded and rolled here; qkv,
+        the attention and proj on the slab, whose rows then go back to
+        their owners; the MLP and the masks of the own rows as one
+        process's."""
+        B, L, C = x.shape
+        ws, shift = self.window_size, self.shift_size
+        whole = H * rows.size
+        shortcut = x
+        blocks, plan = spatial.window_slab_plan(whole, ws, shift, rows.size)
+        r0, r1 = blocks[rows.rank]
+        y = spatial.ring_rows(self.norm1(x).view(B, H, W, C), rows, plan, 1)
+        pad_r = (ws - W % ws) % ws
+        if pad_r:
+            y = F.pad(y, (0, 0, 0, pad_r))
+        Hp, Wp = -(-whole // ws) * ws, W + pad_r
+        cols = Wp // ws
+        span = (r0 * cols, (r1 - r0) * cols, (Hp // ws) * cols)
+        mask = None
+        if shift > 0:
+            y = torch.roll(y, -shift, 2)
+            mask = self._mask(Hp, Wp, x.device)[span[0]:span[0] + span[1]]
+        if self.use_pallas:
+            y = self.attn(y, mask, span)
+        else:
+            n = (r1 - r0) * ws
+            y = window_reverse(self.attn(window_partition(y, ws), mask, span),
+                               ws, n, Wp)
+        if shift > 0:
+            y = torch.roll(y, shift, 2)
+        if pad_r:
+            y = y[:, :, :W]
+        y = spatial.ring_rows_back(y, rows, plan, 1, H)
+        x = shortcut + self.drop_path(y.reshape(B, H * W, C))
+        split = (rows.rank, rows.size)
+        return x + self.drop_path(self.mlp(self.norm2(x), split))
+
 
 class BasicLayer(nn.Module):
     """One Swin stage; blocks alternate shift 0 / ws // 2. With `remat`
@@ -296,9 +384,11 @@ class BasicLayer(nn.Module):
                       dtype)
             for i in range(depth)])
 
-    def forward(self, x, H: int, W: int):
+    def forward(self, x, H: int, W: int, rows=None):
+        """`rows`: the spatial group when x holds the rank's H rows."""
         for blk in self.blocks:
-            x = checkpointed(blk, x, H, W) if self.remat else blk(x, H, W)
+            x = (checkpointed(blk, x, H, W, rows) if self.remat
+                 else blk(x, H, W, rows))
         return x
 
 
@@ -384,6 +474,8 @@ class DualSwinTransformer(nn.Module):
         num_layers = len(depths)
         self.frozen_stages = frozen_stages
         self.every_param_in_loss = frozen_stages < 3
+        self.window_size = window_size
+        self.patch_size = patch_size
         dims = [int(embed_dim * 2 ** i) for i in range(num_layers)]
         dpr = [float(v) for v in np.linspace(0, drop_path_rate, sum(depths))]
         frm_cls = fusion.get_frm(frm)
@@ -440,12 +532,60 @@ class DualSwinTransformer(nn.Module):
                     layer_d.eval()
         return self
 
-    def forward(self, x_rgb, x_e) -> List[torch.Tensor]:
+    def spatial_layout(self, h: int, w: int,
+                       sp: spatial.SpatialGroup) -> List[bool]:
+        """Which stages shard their rows over `sp` for images of h x w. The
+        port's rule (JAX has none for Swin): stage i shards iff every
+        earlier stage does, its H_i rows divide over the S ranks, it has
+        at least S window rows (R_i = ceil(H_i / ws)) and the slabs of
+        both shifts reach no rank past a ring neighbour
+        (spatial.window_slab_plan); stage 0 also needs whole patches on a
+        rank (h divides by patch_size * S), and a later stage the rank's
+        rows of the one before even (the 2x2 downsample then runs on
+        them). From the first stage that does not shard, all runs whole
+        on every rank (the rows gathered before the downsample, or before
+        the patch embed)."""
+        S, ws, p = sp.size, self.window_size, self.patch_size
+        sharded, H = h % (p * S) == 0, -(-h // p)
+        layout = []
+        for i in range(len(self.layers)):
+            if i:
+                sharded = sharded and (H // S) % 2 == 0
+                H = (H + 1) // 2
+            sharded = sharded and H % S == 0 and -(-H // ws) >= S
+            if sharded:
+                try:
+                    for shift in (0, ws // 2):
+                        spatial.window_slab_plan(H, ws, shift, S)
+                except ValueError:
+                    sharded = False
+            layout.append(sharded)
+        return layout
+
+    def forward(self, x_rgb, x_e,
+                sp: Optional[spatial.SpatialGroup] = None
+                ) -> List[torch.Tensor]:
+        """The fused maps of the `out_indices` stages. With `sp`, the
+        spatial group of `--mesh 2d:D,S` (models/builder.spatial_support),
+        x_rgb and x_e are the rank's row block of the images, and each map
+        is the rank's row block where `spatial_layout` shards its stage,
+        else the whole map."""
+        n_stages = len(self.layers)
+        sharded = [False] * n_stages
+        if sp is not None:
+            sharded = self.spatial_layout(x_rgb.shape[2] * sp.size,
+                                          x_rgb.shape[3], sp)
+            if not sharded[0]:
+                x_rgb = spatial.gather_rows(x_rgb, sp, 2)
+                x_e = spatial.gather_rows(x_e, sp, 2)
         x, H, W = self.patch_embed(x_rgb)
         x_d, _, _ = self.patch_embed_d(x_e)
         fs = self.frozen_stages
         if fs >= 0:
             x, x_d = x.detach(), x_d.detach()
+        # with the rows sharded, a mask over the whole map's tokens of which
+        # the rank keeps its rows'
+        split = (sp.rank, sp.size) if sharded[0] else None
         if self.ape:
             ape, ape_d = self.absolute_pos_embed, self.absolute_pos_embed_d
             if fs >= 1:
@@ -455,25 +595,43 @@ class DualSwinTransformer(nn.Module):
             # the first LayerNorm. The port's tokens leave the patch embed's
             # LayerNorm in fp32 already (autocast runs layer_norm in fp32),
             # so they are not rounded to bf16 before the add, as JAX's are.
-            x = x + map_to_tokens(resize_bicubic_torch(ape, (H, W)))
-            x_d = x_d + map_to_tokens(resize_bicubic_torch(ape_d, (H, W)))
-        x = self.pos_drop(x)
-        x_d = self.pos_drop(x_d)
+            # A spatial rank adds its rows of the whole map's embedding (its
+            # gradient: the rank's partial sum).
+            whole = H * sp.size if split else H
+            ape = resize_bicubic_torch(ape, (whole, W))
+            ape_d = resize_bicubic_torch(ape_d, (whole, W))
+            if split:
+                ape = spatial.own_rows(ape, sp, 2)
+                ape_d = spatial.own_rows(ape_d, sp, 2)
+            x = x + map_to_tokens(ape)
+            x_d = x_d + map_to_tokens(ape_d)
+        x = self.pos_drop(x, split, -2)
+        x_d = self.pos_drop(x_d, split, -2)
         outs = []
         for i, (layer, layer_d) in enumerate(zip(self.layers, self.layers_d)):
+            rows = sp if sharded[i] else None
             grad = torch.is_grad_enabled() and not self._frozen(i)
             with torch.set_grad_enabled(grad):
-                x = layer(x, H, W)
-                x_d = layer_d(x_d, H, W)
+                x = layer(x, H, W, rows)
+                x_d = layer_d(x_d, H, W, rows)
+            # a stage run whole on every spatial rank counts its
+            # BatchNorms' copies once
+            replicas = 1 if sp is None or sharded[i] else sp.size
+            set_replicas(self.FRMs[i], replicas)
+            set_replicas(self.FFMs[i], replicas)
             m, m_d = self.FRMs[i](tokens_to_map(x, H, W),
-                                  tokens_to_map(x_d, H, W))
+                                  tokens_to_map(x_d, H, W), rows)
             x, x_d = map_to_tokens(m), map_to_tokens(m_d)
             if i in self.out_indices:
                 n = getattr(self, f"norm{i}")(x)
                 n_d = getattr(self, f"norm_d{i}")(x_d)
                 outs.append(self.FFMs[i](tokens_to_map(n, H, W),
-                                         tokens_to_map(n_d, H, W)))
-            if i < len(self.layers) - 1:
+                                         tokens_to_map(n_d, H, W), rows))
+            if i < n_stages - 1:
+                if sharded[i] and not sharded[i + 1]:
+                    x = spatial.gather_rows(x, sp, 1)
+                    x_d = spatial.gather_rows(x_d, sp, 1)
+                    H *= sp.size
                 x = self.downsamples[i](x, H, W)
                 x_d = self.downsamples_d[i](x_d, H, W)
                 H, W = (H + 1) // 2, (W + 1) // 2

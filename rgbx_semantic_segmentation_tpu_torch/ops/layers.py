@@ -110,26 +110,30 @@ class _Stochastic(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 split: Optional[Tuple[int, int]] = None,
-                dim: int = -1) -> torch.Tensor:
+                dim: int = -1,
+                span: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """`split` = (r, n): x is slice r of n equal slices of its dim `dim`
         (the last: a hidden width split over the model ranks, parallel/
         tensor.py; -2: an attention's query rows split over the spatial
-        ranks, parallel/spatial.py); the mask is drawn at the whole size and
-        sliced, so each rank keeps its slice of what one process draws, and
-        the generator moves as one process's."""
+        ranks, parallel/spatial.py); `span` = (start, whole): x is the
+        slice [start, start + its size) of `whole` along `dim` (a Swin
+        block's window slab on a spatial rank). The mask is drawn at the
+        whole size and sliced, so each rank keeps its slice of what one
+        process draws, and the generator moves as one process's."""
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
         shape = self._mask_shape(x)
-        if split is None:
+        if split is not None:
+            span = (split[0] * shape[dim], shape[dim] * split[1])
+        if span is None:
             u = torch.rand(shape, device=x.device, generator=self.generator)
         else:
-            r, n = split
             whole = list(shape)
-            w = whole[dim]
-            whole[dim] = w * n
+            whole[dim] = span[1]
             u = torch.rand(whole, device=x.device,
-                           generator=self.generator).narrow(dim, r * w, w)
+                           generator=self.generator).narrow(dim, span[0],
+                                                            shape[dim])
         return x * ((u < keep).to(x.dtype) / keep)
 
     def extra_repr(self) -> str:

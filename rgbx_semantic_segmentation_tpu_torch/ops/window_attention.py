@@ -40,6 +40,17 @@ per shard (JAX :389-393): the ranks' images draw different masks. The bias
 gradient db is summed over the rank's images; the JAX psum over the data
 axis (:416) is DDP's sum over the ranks (train.py).
 
+On the spatial axis (`--mesh 2d:D,S`, models/encoders/dual_swin.py) a rank
+runs the windows [window0, window0 + nW) of the whole padded, rolled image
+(a slab of whole window rows: qkv (B, rows, Wp, 3C), bias (nW, h, N, N)).
+The mask's window counter is then window0 + the window's index in the
+call, so the slab draws the whole call's masks of its windows, and the
+rank keeps the data rank's seed: an image's spatial ranks draw one
+process's masks. window0 = 0 is the whole image. JAX runs no kernel there
+(its mesh_plan, ops/window_attention.py:119-125, takes the XLA
+composition); each window is computed alone, so a slab's out and dqkv are
+the whole call's bits, and its db the whole call's sum over its windows.
+
 Device rule: a CPU tensor takes the plain versions
 (`window_attention_reference`, `window_attention_bwd_reference`); a CUDA
 tensor launches the kernels or raises. There is no fallback.
@@ -112,14 +123,15 @@ def rank_seed(seed: torch.Tensor, rate: float, rank: int) -> torch.Tensor:
 
 
 def keep_mask(seed: torch.Tensor, B: int, nW: int, h: int, N: int,
-              rate: float) -> torch.Tensor:
+              rate: float, window0: int = 0) -> torch.Tensor:
     """The kernels' dropout keep mask, bool (B, nW, h, N, N), on seed's
-    device. One Philox call serves rows r, r + 8 of a 16-row tile and
-    columns c, c + 1 (c even) — the four values one thread holds of an
-    mma accumulator tile: counter (c // 2, 8 * (r // 16) + r % 8,
-    window * h + head, image), key = the seed's low and high word; element
-    (r, c) reads word 2 * ((r % 16) // 8) + c % 2 and is kept iff it is
-    >= dropout_threshold(rate)."""
+    device, of windows window0 .. window0 + nW - 1. One Philox call serves
+    rows r, r + 8 of a 16-row tile and columns c, c + 1 (c even) — the four
+    values one thread holds of an mma accumulator tile: counter (c // 2,
+    8 * (r // 16) + r % 8, (window0 + window) * h + head, image), key = the
+    seed's low and high word; element (r, c) reads word
+    2 * ((r % 16) // 8) + c % 2 and is kept iff it is >= dropout_threshold(
+    rate)."""
     dev = seed.device
     s = seed.reshape(-1)[0].to(torch.int64)
     key = (s & _MASK32, (s >> 32) & _MASK32)
@@ -130,7 +142,7 @@ def keep_mask(seed: torch.Tensor, B: int, nW: int, h: int, N: int,
     ar = functools.partial(torch.arange, device=dev, dtype=torch.int64)
     counter = (ar((N + 1) // 2).view(1, 1, 1, -1),
                ar(n_groups).view(1, 1, -1, 1),
-               ar(nW * h).view(1, -1, 1, 1),
+               ar(window0 * h, (window0 + nW) * h).view(1, -1, 1, 1),
                ar(B).view(-1, 1, 1, 1))
     out = torch.stack(torch.broadcast_tensors(*philox4x32(counter, key)), -1)
     bits = out[:, :, row_group[:, None], (rows // 2)[None, :], word]
@@ -156,16 +168,17 @@ def _merge_windows(x: torch.Tensor, ws: int, Hp: int, Wp: int) -> torch.Tensor:
 
 
 def _probs(x: torch.Tensor, bias: torch.Tensor, seed, scale: float,
-           rate: float):
-    """fp32 q, k, v (B, nW, h, N, d) of split windows `x`, the fp32 softmax
-    pf and the keep mask (None at rate 0)."""
+           rate: float, window0: int = 0):
+    """fp32 q, k, v (B, nW, h, N, d) of split windows `x` (the first one
+    window `window0`), the fp32 softmax pf and the keep mask (None at rate
+    0)."""
     q, k, v = x[:, :, 0].float(), x[:, :, 1].float(), x[:, :, 2].float()
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale + bias[None]
     pf = torch.softmax(logits, dim=-1)
     keep = None
     if rate > 0.0:
         B, nW, h, N, _ = q.shape
-        keep = keep_mask(seed, B, nW, h, N, rate)
+        keep = keep_mask(seed, B, nW, h, N, rate, window0)
     return q, k, v, pf, keep
 
 
@@ -179,7 +192,8 @@ def _dropped(pf: torch.Tensor, keep, rate: float, dt) -> torch.Tensor:
 
 def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
                                seed: Optional[torch.Tensor], scale: float,
-                               rate: float, ws: int) -> torch.Tensor:
+                               rate: float, ws: int,
+                               window0: int = 0) -> torch.Tensor:
     """Plain version of the forward kernel (module docstring). Inputs are
     upcast to fp32 explicitly (exact for bf16) and autocast is off, so the
     products are those of a bf16 matmul with fp32 accumulation."""
@@ -187,7 +201,7 @@ def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
     h = bias.shape[1]
     with torch.autocast(qkv.device.type, enabled=False):
         x = _split_windows(qkv, ws, 3, h)
-        _, _, v, pf, keep = _probs(x, bias, seed, scale, rate)
+        _, _, v, pf, keep = _probs(x, bias, seed, scale, rate, window0)
         out = torch.matmul(_dropped(pf, keep, rate, qkv.dtype), v)
         return _merge_windows(out.to(qkv.dtype)[:, :, None], ws, Hp, Wp)
 
@@ -195,8 +209,8 @@ def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
 def window_attention_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
                                    seed: Optional[torch.Tensor],
                                    g: torch.Tensor, scale: float, rate: float,
-                                   ws: int) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
+                                   ws: int, window0: int = 0
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernel: (dqkv, db) from the residual
     (qkv, bias, seed) and the output's cotangent g (B, Hp, Wp, C), cast to
     qkv's dtype. dqkv has qkv's shape and dtype; db is fp32 (nW, h, N, N),
@@ -206,7 +220,7 @@ def window_attention_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
     dt = qkv.dtype
     with torch.autocast(qkv.device.type, enabled=False):
         x = _split_windows(qkv, ws, 3, h)
-        q, k, v, pf, keep = _probs(x, bias, seed, scale, rate)
+        q, k, v, pf, keep = _probs(x, bias, seed, scale, rate, window0)
         gf = _split_windows(g.to(dt), ws, 1, h)[:, :, 0].float()
         pd = _dropped(pf, keep, rate, dt)
         dv = torch.matmul(pd.transpose(-1, -2), gf)
@@ -227,7 +241,7 @@ def window_attention_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor,
 
 _ARGS = [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_float,
                               ctypes.c_float, ctypes.c_uint, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_void_p]
+                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _load(name: str, n_pointers: int):
@@ -282,7 +296,8 @@ def _check(qkv: torch.Tensor, bias: torch.Tensor, seed, rate: float,
     return B, Hp, Wp, h, c3 // (3 * h), nW
 
 
-def _kernel_args(name: str, qkv, bias, seed, scale, rate, ws, dims):
+def _kernel_args(name: str, qkv, bias, seed, scale, rate, ws, dims,
+                 window0: int = 0):
     """What the CUDA kernels take (raises on anything else) and the
     arguments both entries share after their pointers."""
     B, Hp, Wp, h, d, nW = dims
@@ -295,6 +310,8 @@ def _kernel_args(name: str, qkv, bias, seed, scale, rate, ws, dims):
                          f"(N <= {MAX_N}, d <= {MAX_D})")
     if not qkv.is_contiguous():
         raise ValueError(f"{name} kernel takes a contiguous qkv image")
+    if window0 < 0 or (window0 + nW) * h >= 2 ** 31:
+        raise ValueError(f"{name} kernel: window0 {window0} out of range")
     bias_w = 0 if nW == 1 else bias.stride(0)
     if not bias[0].is_contiguous() or bias_w not in (0, h * N * N):
         raise ValueError(f"{name} kernel takes contiguous (h, N, N) bias "
@@ -302,22 +319,24 @@ def _kernel_args(name: str, qkv, bias, seed, scale, rate, ws, dims):
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     return (B, Hp, Wp, h, d, ws, bias_w, float(scale),
             1.0 / (1.0 - rate), dropout_threshold(rate), int(rate > 0.0),
-            _DTYPE_CODES[qkv.dtype], stream)
+            int(window0), _DTYPE_CODES[qkv.dtype], stream)
 
 
-def _forward(qkv, bias, seed, scale: float, rate: float, ws: int):
+def _forward(qkv, bias, seed, scale: float, rate: float, ws: int,
+             window0: int = 0):
     """The forward without autograd: plain version on the CPU, kernel on
     CUDA."""
     dims = _check(qkv, bias, seed, rate, ws)
     if qkv.device.type == "cpu":
-        return window_attention_reference(qkv, bias, seed, scale, rate, ws)
+        return window_attention_reference(qkv, bias, seed, scale, rate, ws,
+                                          window0)
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attention: no kernel for {qkv.device}")
     B, Hp, Wp, h, d, _ = dims
     fn, err = _kernel()
     with _on_device(qkv):
         args = _kernel_args("window_attention", qkv, bias, seed, scale, rate,
-                            ws, dims)
+                            ws, dims, window0)
         out = torch.empty(B, Hp, Wp, h * d, dtype=qkv.dtype, device=qkv.device)
         rc = fn(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
                 seed.data_ptr() if rate > 0.0 else None, *args)
@@ -330,10 +349,12 @@ def _forward(qkv, bias, seed, scale: float, rate: float, ws: int):
 
 def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
                          seed: Optional[torch.Tensor], g: torch.Tensor,
-                         scale: float, rate: float, ws: int
+                         scale: float, rate: float, ws: int,
+                         window0: int = 0
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Window attention backward: (dqkv, db) from the residual (qkv, bias,
-    seed) and the output's cotangent g (B, Hp, Wp, C), cast to qkv's dtype.
+    seed) and the output's cotangent g (B, Hp, Wp, C), cast to qkv's dtype;
+    `window0` as in window_attention.
 
     CPU tensors: the plain version. CUDA tensors: the CUDA kernel, under the
     forward's conditions; anything else raises. db is fp32 (nW, h, N, N)
@@ -348,14 +369,14 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     g = g.to(qkv.dtype)
     if qkv.device.type == "cpu":
         return window_attention_bwd_reference(qkv, bias, seed, g, scale, rate,
-                                              ws)
+                                              ws, window0)
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attention_bwd: no kernel for {qkv.device}")
     fn, err = _bwd_kernel()
     N = ws * ws
     with _on_device(qkv):
         args = _kernel_args("window_attention_bwd", qkv, bias, seed, scale,
-                            rate, ws, dims)
+                            rate, ws, dims, window0)
         g = g.contiguous()
         dqkv = torch.empty_like(qkv)
         db = torch.empty(nW, h, N, N, dtype=torch.float32, device=qkv.device)
@@ -378,34 +399,38 @@ class _WindowAttention(torch.autograd.Function):
     the backward casts the cotangent to it."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, seed, scale, rate, ws):
+    def forward(ctx, qkv, bias, seed, scale, rate, ws, window0):
         ctx.save_for_backward(qkv, bias, seed)
-        ctx.args = (scale, rate, ws)
-        return _forward(qkv, bias, seed, scale, rate, ws)
+        ctx.args = (scale, rate, ws, window0)
+        return _forward(qkv, bias, seed, scale, rate, ws, window0)
 
     @staticmethod
     def backward(ctx, g):
         qkv, bias, seed = ctx.saved_tensors
         dqkv, db = window_attention_bwd(qkv, bias, seed, g, *ctx.args)
-        return dqkv, db, None, None, None, None
+        return dqkv, db, None, None, None, None, None
 
 
 def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
                      seed: Optional[torch.Tensor], scale: float, rate: float,
-                     ws: int) -> torch.Tensor:
+                     ws: int, window0: int = 0) -> torch.Tensor:
     """Windowed self-attention with additive bias and dropout on the whole
     padded, rolled image (module docstring). qkv: (B, Hp, Wp, 3C); bias:
     fp32 (nW, h, N, N); seed: one-element int64 tensor on qkv's device
     (None allowed at rate 0) -> (B, Hp, Wp, C) in qkv's dtype;
     differentiable in qkv and bias (backward: window_attention_bwd).
+    `window0`: qkv is a slab of whole window rows whose first window is
+    window `window0` of the whole image (the dropout masks' counter; 0: the
+    whole image).
 
     CPU tensors: the plain versions. CUDA tensors: the CUDA kernels, which
     take a contiguous bf16 or fp32 qkv with usable(ws * ws, d); anything
     else raises, in the forward. `window_attention.launches` counts forward
     kernel launches."""
     if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
-        return _WindowAttention.apply(qkv, bias, seed, scale, rate, ws)
-    return _forward(qkv, bias, seed, scale, rate, ws)
+        return _WindowAttention.apply(qkv, bias, seed, scale, rate, ws,
+                                      window0)
+    return _forward(qkv, bias, seed, scale, rate, ws, window0)
 
 
 window_attention.launches = 0

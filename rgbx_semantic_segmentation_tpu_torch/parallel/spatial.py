@@ -24,7 +24,12 @@ has the backward that keeps the rule:
   replicated sum is partial (an identity would lose the other ranks' rows);
 - `spatial_amax`, the max over the spatial group: its backward sends the
   gradient, summed over the group, to where the max lies, ties split evenly
-  as torch.amax splits them.
+  as torch.amax splits them;
+- `ring_rows`, any contiguous range of the rows of the map padded with zero
+  rows and closed into a ring (the Swin block's rolled, padded image;
+  `window_slab_plan`), fetched from their owners: its backward sends each
+  row's gradient back to its owner and adds it there. `ring_rows_back` is
+  its transpose: a rank's slab returned to the rows' owners.
 
 Row blocks are equal: rank s of S holds rows [s H / S, (s + 1) H / S) of a
 map of height H, which must divide. The collectives are all_reduce and
@@ -33,6 +38,7 @@ all_gather on the spatial group only, so gloo runs them on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -239,3 +245,200 @@ def conv2d_rows(x: torch.Tensor, conv: torch.nn.Conv2d,
         x = F.pad(x, (0, 0, pad_top, pad_bottom))
     return F.conv2d(x, conv.weight, conv.bias, (st, st), (0, p), 1,
                     conv.groups)
+
+
+# A piece of a rank's ring range: rows [start, stop) of rank `owner`'s
+# block, or, with owner -1, stop - start zero rows (the padding).
+Piece = Tuple[int, int, int]
+
+
+def ring_rows_plan(height: int, padded: int,
+                   spans: Sequence[Tuple[int, int]], size: int
+                   ) -> Tuple[Tuple[Piece, ...], ...]:
+    """For a map of `height` rows held in equal blocks by `size` ranks,
+    extended by zero rows to `padded` rows and closed into a ring (row
+    `padded` is row 0 again): per rank s, the pieces of its range
+    [lo, hi) = spans[s] of that ring (0 <= lo < padded, hi - lo <= padded),
+    in order. Raises when a piece lies on a rank that is not s or a ring
+    neighbour of s."""
+    if height % size:
+        raise ValueError(f"{height} rows do not divide over {size} spatial "
+                         "ranks")
+    n = height // size
+    plan = []
+    for s, (lo, hi) in enumerate(spans):
+        if not 0 <= lo < padded or not lo <= hi <= lo + padded:
+            raise ValueError(f"ring range [{lo}, {hi}) of {padded} rows")
+        pieces, r = [], lo
+        while r < hi:
+            g = r % padded
+            if g >= height:
+                take = min(hi - r, padded - g)
+                pieces.append((-1, 0, take))
+            else:
+                o = g // n
+                take = min(hi - r, (o + 1) * n - g)
+                if (o - s) % size not in (0, 1, size - 1):
+                    raise ValueError(
+                        f"rank {s} of {size} needs rows {g}..{g + take - 1} "
+                        f"of {height} from rank {o}, past its ring "
+                        "neighbours")
+                pieces.append((o, g - o * n, g - o * n + take))
+            r += take
+        plan.append(tuple(pieces))
+    return tuple(plan)
+
+
+def window_row_blocks(height: int, window: int, size: int
+                      ) -> Tuple[Tuple[int, int], ...]:
+    """The window rows [r0, r1) of each of `size` ranks, over a map of
+    `height` rows padded to R = ceil(height / window) window rows: rank s
+    takes [floor(s R / S), floor((s + 1) R / S)). Raises when R < S (a rank
+    would hold no window)."""
+    R = -(-height // window)
+    if R < size:
+        raise ValueError(f"{R} window rows of {window} do not spread over "
+                         f"{size} spatial ranks")
+    return tuple((s * R // size, (s + 1) * R // size) for s in range(size))
+
+
+@functools.lru_cache(maxsize=None)
+def window_slab_plan(height: int, window: int, shift: int, size: int):
+    """The Swin block's window slabs on the spatial axis: ((r0, r1) window
+    rows per rank (window_row_blocks), the ring_rows plan that gives each
+    rank the rows of its windows in the image padded to whole windows and
+    rolled up by `shift` rows)."""
+    blocks = window_row_blocks(height, window, size)
+    padded = -(-height // window) * window
+    spans = [(r0 * window + shift, r1 * window + shift) for r0, r1 in blocks]
+    return blocks, ring_rows_plan(height, padded, spans, size)
+
+
+def _sent(plan, o: int):
+    """(asker, piece index) of the pieces ranks ask of owner o, in the
+    order o sends them."""
+    return [(t, k) for t, pieces in enumerate(plan) if t != o
+            for k, (owner, _, _) in enumerate(pieces) if owner == o]
+
+
+def _returned(plan, t: int):
+    """Piece indices of rank t's range that other ranks own, in the order
+    t returns their gradients."""
+    return [k for k, (owner, _, _) in enumerate(plan[t])
+            if owner not in (-1, t)]
+
+
+def _length(piece: Piece) -> int:
+    return piece[2] - piece[1]
+
+
+def _padded_cat(parts: List[torch.Tensor], like: torch.Tensor, dim: int,
+                length: int) -> torch.Tensor:
+    """torch.cat(parts, dim), zero rows appended up to `length` rows."""
+    have = sum(p.shape[dim] for p in parts)
+    if have < length:
+        shape = list(like.shape)
+        shape[dim] = length - have
+        parts = parts + [like.new_zeros(shape)]
+    return torch.cat(parts, dim)
+
+
+def _fetch(x: torch.Tensor, sp: SpatialGroup, plan, dim: int
+           ) -> torch.Tensor:
+    """The rank's ring range of the map whose blocks x are (along dim)."""
+    s, S = sp.rank, sp.size
+    width = max(sum(_length(plan[t][k]) for t, k in _sent(plan, o))
+                for o in range(S))
+    parts = None
+    if width:
+        mine = [x.narrow(dim, a, b - a) for t, k in _sent(plan, s)
+                for _, a, b in (plan[t][k],)]
+        parts = _all_gather(_padded_cat(mine, x, dim, width), sp)
+    out = []
+    for k, (o, a, b) in enumerate(plan[s]):
+        if o == -1:
+            shape = list(x.shape)
+            shape[dim] = b - a
+            out.append(x.new_zeros(shape))
+        elif o == s:
+            out.append(x.narrow(dim, a, b - a))
+        else:
+            sent = _sent(plan, o)
+            off = sum(_length(plan[t][j]) for t, j in sent[:sent.index(
+                (s, k))])
+            out.append(parts[o].narrow(dim, off, b - a))
+    return torch.cat(out, dim)
+
+
+def _give_back(y: torch.Tensor, sp: SpatialGroup, plan, dim: int, n: int
+               ) -> torch.Tensor:
+    """The transpose of _fetch: each row of the rank's range `y` added to
+    its owner's block (n rows along dim); padding rows are dropped."""
+    s, S = sp.rank, sp.size
+    starts = [[0] for _ in range(S)]
+    for t in range(S):
+        for piece in plan[t]:
+            starts[t].append(starts[t][-1] + _length(piece))
+    width = max(sum(_length(plan[t][k]) for k in _returned(plan, t))
+                for t in range(S))
+    parts = None
+    if width:
+        mine = [y.narrow(dim, starts[s][k], _length(plan[s][k]))
+                for k in _returned(plan, s)]
+        parts = _all_gather(_padded_cat(mine, y, dim, width), sp)
+    shape = list(y.shape)
+    shape[dim] = n
+    dx = y.new_zeros(shape)
+    for k, (o, a, b) in enumerate(plan[s]):
+        if o == s:
+            dx.narrow(dim, a, b - a).add_(y.narrow(dim, starts[s][k], b - a))
+    for t in range(S):
+        if t == s or not width:
+            continue
+        off = 0
+        for k in _returned(plan, t):
+            o, a, b = plan[t][k]
+            if o == s:
+                dx.narrow(dim, a, b - a).add_(parts[t].narrow(dim, off,
+                                                              b - a))
+            off += b - a
+    return dx
+
+
+class _RingRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp, plan, dim):
+        ctx.sp, ctx.plan, ctx.dim, ctx.n = sp, plan, dim, x.shape[dim]
+        return _fetch(x, sp, plan, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_give_back(g.contiguous(), ctx.sp, ctx.plan, ctx.dim, ctx.n),
+                None, None, None)
+
+
+class _RingRowsBack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, sp, plan, dim, n):
+        ctx.sp, ctx.plan, ctx.dim = sp, plan, dim
+        return _give_back(y, sp, plan, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_fetch(g.contiguous(), ctx.sp, ctx.plan, ctx.dim), None, None,
+                None, None)
+
+
+def ring_rows(x: torch.Tensor, sp: SpatialGroup, plan, dim: int
+              ) -> torch.Tensor:
+    """The rank's range of a ring_rows_plan `plan` (a new contiguous
+    tensor), from x, the rank's equal block of the map along `dim`."""
+    return _RingRows.apply(x, sp, plan, dim)
+
+
+def ring_rows_back(y: torch.Tensor, sp: SpatialGroup, plan, dim: int,
+                   n: int) -> torch.Tensor:
+    """The transpose of ring_rows: the rows of the rank's range `y` added
+    into their owners' blocks of `n` rows along `dim` (zero rows where no
+    rank's range holds a row); the rank gets its block."""
+    return _RingRowsBack.apply(y, sp, plan, dim, n)

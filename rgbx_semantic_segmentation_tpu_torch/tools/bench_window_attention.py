@@ -220,7 +220,8 @@ def kernel_bwd_mask(shape, seed, rate):
 class Parent:
     """K3 and K4 of another checkout's package, built from its csrc/ and
     called through its C entries; the arguments are this checkout's
-    (`W._kernel_args`), which both sides share."""
+    (`W._kernel_args`), which both sides share (a checkout whose C entries
+    take `window0`)."""
 
     def __init__(self, pkg_dir: str):
         spec = importlib.util.spec_from_file_location(

@@ -40,7 +40,8 @@ and against the JAX package.
   an image's spatial ranks are the own rows of one process's masks, and
   the loss is one process's.
 - The --mesh specs (JAX test_make_mesh_from_spec's cases) and train_cli
-  --mesh 2d:1,2 against --mesh dp:1.
+  --mesh 2d:1,2 against --mesh dp:1. (The dual Swin on the spatial axis:
+  tests/test_torch_spatial_swin.py.)
 
 The ranks' functions are module-level (spawned processes import this
 file); JAX is imported only inside the tests that compare with it.
@@ -737,21 +738,27 @@ def test_mesh_spec_refusals():
         pdist.make_world_from_spec("2d:3,1", 8, range(8))
 
 
-@pytest.mark.parametrize("backbone, decoder, item", [
-    ("swin_b", "MLPDecoder", "5c"), ("swin_s", "MLPDecoder", "5c"),
-    ("segnext_tiny", "MLPDecoder", "5d"), ("resnet50", "MLPDecoder", "5d"),
-    ("mit_b0_w_aspp", "MLPDecoder", "5d"), ("mit_b0", "UPernet", "5d"),
-    ("mit_b0pp", "deeplabv3+", "5d")])
-def test_unported_models_raise_under_2d(backbone, decoder, item):
-    """Every family and head but the MiT towers (FRM/FFM or IFRM/IFFM) and
-    the MLPDecoder raises NotImplementedError on the spatial axis, naming
+@pytest.mark.parametrize("backbone, decoder, criterion, item", [
+    ("swin_s", "UPernet", "CrossEntropyLoss", "5d"),
+    ("swin_b", "MLPDecoder", "OhemCrossEntropy", "5d"),
+    ("segnext_tiny", "MLPDecoder", "CrossEntropyLoss", "5d"),
+    ("resnet50", "MLPDecoder", "CrossEntropyLoss", "5d"),
+    ("mit_b0_w_aspp", "MLPDecoder", "CrossEntropyLoss", "5d"),
+    ("mit_b0", "UPernet", "CrossEntropyLoss", "5d"),
+    ("mit_b0pp", "deeplabv3+", "CrossEntropyLoss", "5d")])
+def test_unported_models_raise_under_2d(backbone, decoder, criterion, item):
+    """Every family, head and criterion but the MiT towers (FRM/FFM or
+    IFRM/IFFM), the dual Swin towers (FRM/FFM), the MLPDecoder and the
+    cross-entropy raises NotImplementedError on the spatial axis, naming
     its ROADMAP item."""
     from rgbx_semantic_segmentation_tpu_torch.models.builder import (
         spatial_support)
 
     cfg = step_cfg()
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, backbone=backbone,
-                                                decoder=decoder))
+                                                decoder=decoder),
+                      train=dataclasses.replace(cfg.train,
+                                                criterion=criterion))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         spatial_support(cfg)
 
